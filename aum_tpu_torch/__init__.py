@@ -3,13 +3,17 @@
 The JAX package ``aum_tpu`` is the reference; this package mirrors its module
 names so each counterpart is easy to find:
 
-- ``aum_tpu_torch.ops``    — selective-scan and causal-conv CUDA kernels
-                             (``csrc/``) with their plain PyTorch versions,
+- ``aum_tpu_torch.ops``    — selective-scan (forward, backward) and
+                             causal-conv CUDA kernels (``csrc/``) under
+                             autograd, with their plain PyTorch versions,
                              the sequential scan oracle, fused add+norm.
-- ``aum_tpu_torch.models`` — AudioMamba eval forward, Mamba mixer blocks,
-                             patch/pos embedding.
+- ``aum_tpu_torch.models`` — AudioMamba eval and train forward (remat, drop
+                             path), Mamba mixer blocks, patch/pos embedding.
+- ``aum_tpu_torch.train``  — Adam with the reference's lr schedule, the
+                             train and eval steps.
 - ``aum_tpu_torch.convert``— JAX parameter tree -> this package's state dict.
-- ``aum_tpu_torch.entry``  — the flagship forward (AuM-Base Fo-Bi, bf16).
+- ``aum_tpu_torch.entry``  — the flagship forward and train step (AuM-Base
+                             Fo-Bi, bf16).
 
 Nothing here imports JAX or ``aum_tpu``. Entry points run on CUDA unless the
 caller passes ``device="cpu"``; without a card and without that argument they

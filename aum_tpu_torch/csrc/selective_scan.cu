@@ -1,8 +1,9 @@
-// Fused bidirectional selective scan, eval forward (sm_90a).
+// Fused bidirectional selective scan, forward (sm_90a).
 //
 // Replaces the TPU kernel aum_tpu/ops/selective_scan.py:_fwd_kernel_dual in
-// its default configuration (fused y-readout, per-step decay, no saved
-// chunk states). Per direction, per (batch b, channel d), with the
+// its default configuration (fused y-readout, per-step decay), in eval and,
+// with saved chunk states, in the train forward. Per direction, per
+// (batch b, channel d), with the
 // pre-activated dt = softplus(delta + bias) streamed in delta's place:
 //
 //   x_t  = exp2((dt_t * log2 e) * A[d, :]) * x_{t-1} + (dt_t * u_t) * B_t
@@ -10,6 +11,10 @@
 //   out  = (y_t + D[d] * u_t) * silu(z_t)          (cast to u's dtype)
 //
 // The forward direction walks t = 0 .. L-1, the reverse one t = L-1 .. 0.
+// With saved states (the train forward, xb != null) the chain also writes
+// its N states at the entry of every chunk of kChunk processed steps to
+// xb[b, chunk, n, d] (fp32, coalesced over d): the states the backward
+// (selective_scan_bwd.cu) restarts from. Chunk 0's entry state is zero.
 //
 // Design: one thread owns one (batch, channel, direction) chain and keeps its
 // N <= 16 fp32 states in registers, so the state never touches memory. A
@@ -47,6 +52,7 @@ struct ScanDir {
   const float* A;      // (D, N) fp32, contiguous
   const float* Dskip;  // (D,) fp32
   void* out;           // (batch, L, D), contiguous, u's dtype
+  float* xb;           // (batch, ceil(L / kChunk), N, D) fp32, or null
   long long u_sb, u_sl;
   long long dt_sb, dt_sl;
   long long z_sb, z_sl;
@@ -61,7 +67,7 @@ constexpr int kChunk = 64;
 constexpr int kMaxN = 16;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
+template <typename T, bool kSave>
 __global__ void __launch_bounds__(kThreads)
 scan_dual_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen,
                      int dim, int dstate) {
@@ -102,6 +108,14 @@ scan_dual_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen,
     }
     __syncthreads();
     if (!active) continue;
+    if (kSave) {
+      float* xb = p.xb + ((static_cast<long long>(b) * ((seqlen + kChunk - 1) / kChunk)
+                           + c0 / kChunk) * dstate) * dim + d;
+#pragma unroll
+      for (int n = 0; n < kMaxN; ++n) {  // constant indices keep x in registers
+        if (n < dstate) xb[static_cast<long long>(n) * dim] = x[n];
+      }
+    }
     for (int i = 0; i < len; ++i) {
       const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
       const float dtv = aum::to_float(dt[t * p.dt_sl]);
@@ -123,24 +137,39 @@ scan_dual_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen,
   }
 }
 
+template <typename T>
+void launch(const ScanDir& fwd, const ScanDir& rev, int batch, int seqlen, int dim,
+            int dstate, cudaStream_t s) {
+  const dim3 grid((dim + kThreads - 1) / kThreads, batch, 2);
+  if (fwd.xb != nullptr) {
+    scan_dual_fwd_kernel<T, true><<<grid, kThreads, 0, s>>>(fwd, rev, seqlen, dim, dstate);
+  } else {
+    scan_dual_fwd_kernel<T, false><<<grid, kThreads, 0, s>>>(fwd, rev, seqlen, dim, dstate);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = fp32 streams, 1 = bf16 streams. Returns cudaGetLastError()
-// after the launch (0 on success); a refused launch never runs.
+// The chunk length of the saved states (xb's second axis is ceil(L / it)).
+int aum_scan_state_chunk() { return kChunk; }
+
+// dtype: 0 = fp32 streams, 1 = bf16 streams. Both directions save states
+// (xb set in both) or neither does. Returns cudaGetLastError() after the
+// launch (0 on success); a refused launch never runs.
 int aum_selective_scan_dual_fwd(const ScanDir* fwd, const ScanDir* rev,
                                 int batch, int seqlen, int dim, int dstate,
                                 int dtype, void* stream) {
-  if (dstate < 1 || dstate > kMaxN || batch < 1 || seqlen < 1 || dim < 1) {
+  if (dstate < 1 || dstate > kMaxN || batch < 1 || seqlen < 1 || dim < 1 ||
+      (fwd->xb == nullptr) != (rev->xb == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((dim + kThreads - 1) / kThreads, batch, 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    scan_dual_fwd_kernel<float><<<grid, kThreads, 0, s>>>(*fwd, *rev, seqlen, dim, dstate);
+    launch<float>(*fwd, *rev, batch, seqlen, dim, dstate, s);
   } else if (dtype == 1) {
-    scan_dual_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*fwd, *rev, seqlen, dim, dstate);
+    launch<__nv_bfloat16>(*fwd, *rev, batch, seqlen, dim, dstate, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,4 @@
-"""AudioMamba (AuM): bidirectional-Mamba audio classifier, eval forward.
+"""AudioMamba (AuM): bidirectional-Mamba audio classifier, eval and train forward.
 
 Counterpart of ``aum_tpu/models/audio_mamba.py``:
 
@@ -16,9 +16,18 @@ seed gives the same weights on every device), then moved to the model's
 device. Entry points run on CUDA unless ``device`` is given; see
 ``aum_tpu_torch.utils.resolve_device``.
 
+The forward is differentiable. ``train=True`` turns on the stochastic depth
+(``drop_path_rate``) and the pos-embed dropout (``drop_rate``), with masks
+drawn from the caller's ``torch.Generator`` outside every checkpointed region
+and passed in, so a recompute reuses them (``torch.utils.checkpoint`` replays
+only the default CUDA generator). Remat (``remat``, ``remat_mode``) applies
+only when a grad is being taken: ``"block"`` checkpoints each whole block,
+``"split"`` only each mixer's pre-scan compute.
+
 Not ported yet (they raise ``NotImplementedError``): Fo-Fo (``"none"``),
 ``if_bidirectional``, random cls position, token shuffle, sequence flip,
-RoPE, and the train-time drop path / pos dropout; the JAX module's
+RoPE, and ``remat_mode="auto"`` (its memory budget and per-element figure
+are TPU calibrations; the card's are not measured yet); the JAX module's
 ``seq_axis`` / ``pipe_axis`` parallel modes have no counterpart yet.
 """
 
@@ -27,8 +36,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aum_tpu_torch.models.mamba import MambaBlock, _Weights
 from aum_tpu_torch.models.tokenization import (
@@ -48,8 +59,9 @@ class AudioMambaConfig:
 
     The JAX config's fields that no configuration changes are constants
     here: RMSNorm with an fp32 residual stream, v2 outputs halved, no
-    LayerScale. Its train-only fields (remat, drop path, dropout) and RoPE
-    wait for their slices.
+    LayerScale. RoPE waits for its slice. ``remat_mode`` defaults to
+    ``"split"``, what the JAX default ``"auto"`` resolves to on the train
+    workload; ``"auto"`` itself raises.
     """
 
     spectrogram_size: Tuple[int, int] = (128, 1024)  # (F, T)
@@ -69,6 +81,10 @@ class AudioMambaConfig:
     bimamba_type: str = "v2"
     if_bidirectional: bool = False
     transpose_token_sequence: bool = False
+    remat: bool = True
+    remat_mode: str = "split"  # "none" | "block" | "split" ("auto" raises)
+    drop_path_rate: float = 0.0
+    drop_rate: float = 0.0
     dtype: str = "float32"
 
     @property
@@ -89,15 +105,15 @@ class AudioMambaConfig:
 
     @staticmethod
     def base(**kw) -> "AudioMambaConfig":
-        return AudioMambaConfig(depth=24, embed_dim=768, **kw)
+        return AudioMambaConfig(**{"depth": 24, "embed_dim": 768, **kw})
 
     @staticmethod
     def small(**kw) -> "AudioMambaConfig":
-        return AudioMambaConfig(depth=24, embed_dim=384, **kw)
+        return AudioMambaConfig(**{"depth": 24, "embed_dim": 384, **kw})
 
     @staticmethod
     def tiny(**kw) -> "AudioMambaConfig":
-        return AudioMambaConfig(depth=24, embed_dim=192, **kw)
+        return AudioMambaConfig(**{"depth": 24, "embed_dim": 192, **kw})
 
     @staticmethod
     def from_variant(model_type: str = "base", aum_type: str = "Fo-Bi",
@@ -108,8 +124,34 @@ class AudioMambaConfig:
         return ctor(bimamba_type=bimamba, **kw)
 
 
+REMAT_MODES = ("none", "block", "split")
+
+
+def drop_path_rates(rate: float, depth: int) -> np.ndarray:
+    """Per-layer stochastic-depth rates: [0] + linspace(0, rate, depth)[:-1]
+    (layer 0 drops nothing); the final add+norm drops at the full rate."""
+    dpr = np.linspace(0.0, rate, depth)
+    return np.concatenate([[0.0], dpr[:-1]]).astype(np.float32)
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator, device):
+    """(mask, keep) for drop rate ``rate``: a keep mask of ``shape`` drawn on
+    the CPU from ``generator`` (so a seed gives the same masks on every
+    device), and the keep probability 1 - rate computed in fp32."""
+    keep = float(np.float32(1.0) - np.float32(rate))
+    mask = torch.rand(shape, generator=generator) < keep
+    return mask.to(device), keep
+
+
+def _drop(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """where(mask, x / keep, 0), keep rounded to x's dtype as in the JAX op;
+    keep 1 with an all-true mask is an exact identity."""
+    scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class AudioMamba(nn.Module):
-    """AuM classifier. ``forward`` is the eval forward and runs without grad."""
+    """AuM classifier."""
 
     def __init__(self, config: AudioMambaConfig,
                  device: str | torch.device | None = None, seed: int = 0):
@@ -118,6 +160,12 @@ class AudioMamba(nn.Module):
         cfg = config
         if cfg.if_bidirectional:
             raise NotImplementedError("if_bidirectional is not ported yet")
+        if cfg.remat and cfg.remat_mode == "auto":
+            raise NotImplementedError(
+                "remat_mode='auto' needs a memory budget measured on the card; "
+                "pick 'split', 'block' or 'none'")
+        if cfg.remat_mode not in REMAT_MODES + ("auto",):
+            raise ValueError(f"unknown remat_mode: {cfg.remat_mode}")
         self.config = cfg
         self.dtype = getattr(torch, cfg.dtype, None)
         if not isinstance(self.dtype, torch.dtype):
@@ -176,30 +224,60 @@ class AudioMamba(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
         return torch.cat([x[:, :tp], cls, x[:, tp:]], dim=1), tp
 
-    @torch.no_grad()
+    def _block(self, layer, hidden, residual, drop, split_remat):
+        if drop is not None:
+            hidden = _drop(hidden, *drop)
+        return layer(hidden, residual, self.dtype, split_remat=split_remat)
+
     def forward(self, x: torch.Tensor,
                 train: bool = False, if_random_cls_token_position: bool = False,
                 if_random_token_rank: bool = False,
-                flip_sequence_prob: float = 0.0) -> torch.Tensor:
-        """x: (B, T, F) log-mel -> logits (B, num_classes) in the compute dtype."""
-        if (train or if_random_cls_token_position or if_random_token_rank
-                or flip_sequence_prob > 0):
+                flip_sequence_prob: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: (B, T, F) log-mel -> logits (B, num_classes) in the compute dtype.
+
+        ``train`` turns on drop path and pos dropout (when their rates are
+        not 0), with masks drawn from ``generator``. Eval callers run it
+        under ``torch.inference_mode()``.
+        """
+        if if_random_cls_token_position or if_random_token_rank or flip_sequence_prob > 0:
             raise NotImplementedError(
-                "only the eval forward is ported: train mode, random cls "
-                "position, token shuffle and sequence flip are not")
+                "random cls position, token shuffle and sequence flip are not ported")
         cfg = self.config
         dtype = self.dtype
+        use_dp = train and cfg.drop_path_rate > 0
+        use_pos_drop = train and cfg.drop_rate > 0 and self.pos_embed is not None
+        if (use_dp or use_pos_drop) and generator is None:
+            raise ValueError("train=True with a drop rate needs a torch.Generator")
         x = self.patch_embed(x.transpose(1, 2), dtype)
         x, token_position = self._insert_cls(x)
         if self.pos_embed is not None:
             x = self.pos_embed(x, token_position)
+            if use_pos_drop:
+                x = _drop(x, *keep_mask(x.shape, cfg.drop_rate, generator, x.device))
         if cfg.transpose_token_sequence:
             x = _transpose_tokens(x, cfg.patch_grid, token_position)
 
+        # Every mask is drawn here, outside the checkpointed regions.
+        bsz = x.shape[0]
+        drops = [None] * cfg.depth
+        if use_dp:
+            drops = [keep_mask((bsz, 1, 1), r, generator, x.device)
+                     for r in drop_path_rates(cfg.drop_path_rate, cfg.depth)]
+            final_drop = keep_mask((bsz, 1, 1), cfg.drop_path_rate, generator, x.device)
+        mode = cfg.remat_mode if cfg.remat and torch.is_grad_enabled() else "none"
+
         hidden = x
         residual = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        for layer in self.layers:
-            hidden, residual = layer(hidden, residual, dtype)
+        for layer, drop in zip(self.layers, drops):
+            if mode == "block":
+                hidden, residual = checkpoint(self._block, layer, hidden, residual, drop,
+                                              False, use_reentrant=False)
+            else:
+                hidden, residual = self._block(layer, hidden, residual, drop,
+                                               mode == "split")
+        if use_dp:
+            hidden = _drop(hidden, *final_drop)
         hidden = fused_add_norm(hidden, self.norm_f.weight.to(dtype),
                                 residual=residual, prenorm=False,
                                 eps=cfg.norm_epsilon)

@@ -1,4 +1,4 @@
-"""Mamba mixer + residual block, eval forward.
+"""Mamba mixer + residual block, eval and train forward.
 
 Counterpart of ``aum_tpu/models/mamba.py`` with the upstream reference's
 module tree and state-dict keys (``in_proj.weight`` (2*d_inner, d_model),
@@ -19,6 +19,12 @@ reference's ``if_devide_out``, on in every configuration). ``"none"``
 ported yet. The mixer's shape and init constants (conv width 4, expand 2,
 dt rank ceil(d_model / 16), dt in [1e-3, 1e-1] floored at 1e-4, conv bias)
 are the reference defaults; no configuration changes them.
+
+``MambaMixer.pre_scan`` is the pre-scan compute (in_proj, conv, x_proj,
+dt_proj), the counterpart of the JAX mixer's ``pre_fn``: with
+``split_remat`` it runs under ``torch.utils.checkpoint`` and is recomputed in
+the backward, while the scan's saved tensors (its inputs and chunk-entry
+states) stay outside the checkpoint, as the JAX ``remat_mode="split"`` does.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan_dual
 from aum_tpu_torch.ops.conv1d import WIDTH as D_CONV  # 4: the conv kernel is built for it
@@ -135,8 +142,9 @@ class MambaMixer(nn.Module):
         delta = x_dbl[..., :r] @ getattr(self, f"dt_proj{suffix}").weight.to(dtype).t()
         return xc, delta, x_dbl[..., r:r + n], x_dbl[..., r + n:]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, L, d_model) in the compute dtype."""
+    def pre_scan(self, x: torch.Tensor):
+        """In-projection, conv, x/dt projections: both directions' scan
+        arguments (u, delta, A, B, C, D, z, delta_bias)."""
         dtype = x.dtype
         d_in = self.d_inner
         xz = x @ self.in_proj.weight.to(dtype).t()
@@ -152,6 +160,16 @@ class MambaMixer(nn.Module):
             u_b, delta_b, bm_b, cm_b = self._branch(xs, "_b", reverse_conv=True)
             args_r = (u_b, delta_b, -torch.exp(self.A_b_log.float()), bm_b, cm_b,
                       self.D_b.float(), z, self.dt_proj_b.bias.float())
+        return args_f, args_r
+
+    def forward(self, x: torch.Tensor, split_remat: bool = False) -> torch.Tensor:
+        """x: (B, L, d_model) in the compute dtype. ``split_remat``
+        checkpoints ``pre_scan`` when a grad is being taken."""
+        dtype = x.dtype
+        if split_remat and torch.is_grad_enabled():
+            args_f, args_r = checkpoint(self.pre_scan, x, use_reentrant=False)
+        else:
+            args_f, args_r = self.pre_scan(x)
         y_f, y_b = selective_scan_dual(args_f, args_r)
         y = y_f + y_b  # in the compute dtype, as XLA sums it
         if self.bimamba_type == "v2":
@@ -180,8 +198,8 @@ class MambaBlock(nn.Module):
         self.mixer.reset_parameters(generator)
 
     def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None,
-                dtype: torch.dtype):
+                dtype: torch.dtype, split_remat: bool = False):
         normed, residual = fused_add_norm(
             hidden, self.norm.weight.to(dtype), residual=residual,
             prenorm=True, eps=self.norm_epsilon)
-        return self.mixer(normed), residual
+        return self.mixer(normed, split_remat=split_remat), residual

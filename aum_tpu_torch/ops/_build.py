@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aum_tpu_torch"
-SOURCES = ("selective_scan", "conv1d")
+SOURCES = ("selective_scan", "selective_scan_bwd", "conv1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

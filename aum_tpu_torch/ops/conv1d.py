@@ -1,4 +1,5 @@
-"""Depthwise causal 1D convolution (the Mamba short conv): CUDA kernel + plain form.
+"""Depthwise causal 1D convolution (the Mamba short conv) under autograd:
+CUDA kernel + plain form.
 
 Counterpart of ``aum_tpu/ops/conv1d.py::causal_conv1d``. The CUDA kernel
 (``csrc/conv1d.cu``) replaces the TPU kernel
@@ -12,8 +13,17 @@ version sum the taps in fp32 and cast once, as ``_conv_kernel`` does with
 ``compute_f32``. (The JAX package's default XLA form, ``causal_conv1d_xla``,
 sums in the input dtype, so in bf16 the two differ by bf16 rounding.)
 
+The backward mirrors the JAX op's custom VJP (``aum_tpu/ops/conv1d.py``,
+``_get_conv_op.bwd``), which is plain ops there too: the cotangent is
+chain-ruled through the SiLU at the recomputed pre-activation, dx is the
+anti-causal conv of it (``reverse=not reverse``), dw is K shifted fp32
+reductions and db an fp32 sum. No new kernel is needed: on CUDA the
+pre-activation and dx are launches of the forward kernel (``activation=None``),
+the rest plain torch.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. ``causal_conv1d.launches`` counts launches.
+launches the kernel or raises. ``causal_conv1d.launches`` counts launches,
+those of the backward included.
 """
 
 from __future__ import annotations
@@ -106,22 +116,85 @@ def causal_conv1d_cuda(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def _dsilu(pre: torch.Tensor) -> torch.Tensor:
+    """d/dp [p * sigmoid(p)] = sig + p*sig*(1-sig)."""
+    sig = torch.sigmoid(pre)
+    return sig + pre * sig * (1.0 - sig)
+
+
+def _conv_bwd(conv, x, weight, bias, g, activation, reverse):
+    """(dx, dweight, dbias) with ``conv`` computing the convolutions."""
+    if activation == "silu":
+        pre = conv(x, weight, bias, None, reverse)
+        gp = g * _dsilu(pre.float()).to(g.dtype)
+    else:
+        gp = g
+    # The transpose of a causal conv is the anti-causal one with the same
+    # taps, and vice versa.
+    dx = conv(gp, weight, None, None, not reverse)
+    k, seqlen = weight.shape[1], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0) if not reverse else (0, 0, 0, k - 1))
+    gpf = gp.float()
+    # dw[:, tap(i)] = sum_{b,t} gp[b,t] * xp[b,t+i], fp32 sums of exact products.
+    dw = torch.stack([(gpf * xp[:, i:i + seqlen].float()).sum(dim=(0, 1))
+                      for i in range(k)], dim=1)
+    if reverse:
+        dw = dw.flip(1)
+    db = None if bias is None else gpf.sum(dim=(0, 1)).to(bias.dtype)
+    return dx.to(x.dtype), dw.to(weight.dtype), db
+
+
+def causal_conv1d_bwd_plain(x, weight, bias, g, activation="silu", reverse=False):
+    """The conv backward in plain PyTorch: (dx, dweight, dbias or None)."""
+    return _conv_bwd(causal_conv1d_plain, x, weight, bias, g, activation, reverse)
+
+
+def causal_conv1d_bwd_cuda(x, weight, bias, g, activation="silu", reverse=False):
+    """The conv backward on the card: the pre-activation and dx are launches
+    of the conv kernel, the SiLU chain rule, dw and db plain torch."""
+    return _conv_bwd(causal_conv1d_cuda, x, weight, bias, g, activation, reverse)
+
+
+def _dispatch(x: torch.Tensor, plain, cuda):
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type != "cuda":
+        raise ValueError(f"causal_conv1d runs on cpu or cuda, not {x.device}")
+    return cuda
+
+
+class _CausalConv1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, activation, reverse):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.activation, ctx.reverse = activation, reverse
+        return _dispatch(x, causal_conv1d_plain, causal_conv1d_cuda)(
+            x, weight, bias, activation, reverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        bwd = _dispatch(x, causal_conv1d_bwd_plain, causal_conv1d_bwd_cuda)
+        dx, dw, db = bwd(x, weight, bias, g, ctx.activation, ctx.reverse)
+        return dx, dw, db, None, None
+
+
 def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None = None,
                   activation: str | None = "silu",
                   reverse: bool = False) -> torch.Tensor:
-    """Depthwise causal conv along the sequence axis.
+    """Depthwise causal conv along the sequence axis (differentiable).
 
     x: (B, L, D); weight: (D, K); bias: (D,) or None; activation: None |
     "silu"; reverse: anti-causal. Returns (B, L, D) in x's dtype.
     """
     if activation not in (None, "silu"):
         raise ValueError(f"unsupported activation: {activation}")
-    if x.device.type == "cpu":
-        return causal_conv1d_plain(x, weight, bias, activation, reverse)
-    if x.device.type != "cuda":
-        raise ValueError(f"causal_conv1d runs on cpu or cuda, not {x.device}")
-    return causal_conv1d_cuda(x, weight, bias, activation, reverse)
+    tensors = [t for t in (x, weight, bias) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _CausalConv1d.apply(x, weight, bias, activation, reverse)
+    return _dispatch(x, causal_conv1d_plain, causal_conv1d_cuda)(
+        x, weight, bias, activation, reverse)
 
 
 causal_conv1d.launches = 0

@@ -10,7 +10,9 @@ all math in fp32:
     out_t = y_t * silu(z_t)                           (if z given)
 
 ``reverse=True`` runs the recurrence right to left, which equals
-flip -> scan -> flip without materialising flipped copies.
+flip -> scan -> flip without materialising flipped copies. ``save_every=k``
+also returns the state at the entry of every chunk of k processed steps, the
+chunk-entry states the scan kernel saves for its backward.
 """
 
 from __future__ import annotations
@@ -30,10 +32,13 @@ def selective_scan_ref(
     delta_bias: torch.Tensor | None = None,
     delta_softplus: bool = False,
     reverse: bool = False,
-) -> torch.Tensor:
+    save_every: int = 0,
+):
     """u, delta, z: (B, L, D); A: (D, N); B, C: (B, L, N); D, delta_bias: (D,).
 
-    Returns (B, L, D) in u's dtype.
+    Returns (B, L, D) in u's dtype; with ``save_every`` > 0, (out, xb) where
+    xb (B, ceil(L / save_every), N, D) fp32 holds the state before processed
+    step c * save_every (zero for c = 0; counted right to left if reverse).
     """
     in_dtype = u.dtype
     u = u.float()
@@ -49,8 +54,11 @@ def selective_scan_ref(
     bsz, seqlen, d = u.shape
     x = u.new_zeros((bsz, d, A.shape[1]))
     ys = [None] * seqlen
+    states = []
     steps = range(seqlen - 1, -1, -1) if reverse else range(seqlen)
-    for t in steps:
+    for i, t in enumerate(steps):
+        if save_every and i % save_every == 0:
+            states.append(x.transpose(1, 2))
         da = torch.exp(delta[:, t, :, None] * A[None])
         dbu = (delta[:, t] * u[:, t])[:, :, None] * Bv[:, t, None, :]
         x = da * x + dbu
@@ -61,4 +69,6 @@ def selective_scan_ref(
         y = y + u * D.float()[None, None, :]
     if z is not None:
         y = y * F.silu(z.float())
+    if save_every:
+        return y.to(in_dtype), torch.stack(states, dim=1)
     return y.to(in_dtype)

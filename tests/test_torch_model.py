@@ -25,12 +25,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from aum_tpu.convert.torch_port import export_aum_state_dict
+from aum_tpu.convert.torch_port import export_aum_state_dict, port_aum_state_dict
 from scripts.record_goldens import (
     GOLDEN_DIR,
     GOLDENS,
     build_flax,
-    flax_params,
     golden_input,
 )
 
@@ -43,10 +42,21 @@ PORTED_GOLDENS = ["v1_middle", "v2_middle", "v1_end_cls", "v2_double_cls",
 
 @functools.lru_cache(maxsize=None)
 def _golden_params(name):
-    """(JAX config, JAX params as numpy) for a golden, from its seeded init."""
+    """(JAX config, JAX params as numpy) for a golden, from its seeded init
+    (``scripts/record_goldens.py::flax_params``, compiled: the same draws)."""
     kwargs, seed = GOLDENS[name]
     cfg, model = build_flax(kwargs)
-    return cfg, jax.device_get(flax_params(model, cfg, seed))
+    f, t = cfg.spectrogram_size
+    init = jax.jit(model.init)
+    return cfg, jax.device_get(init(jax.random.PRNGKey(seed), jnp.zeros((1, t, f))))
+
+
+def _eval(model, x):
+    """The port's eval forward on a numpy input, as a numpy array."""
+    import torch
+
+    with torch.inference_mode():
+        return model(torch.from_numpy(x)).float().numpy()
 
 
 def _port_model(name, **overrides):
@@ -88,7 +98,7 @@ def test_port_reproduces_golden_logits(name):
     assert json.loads(str(data["config"]))["bimamba_type"] in ("v1", "v2")
     cfg = _golden_params(name)[0]
     x = golden_input(cfg, int(data["seed"]))
-    got = _port_model(name)(torch.from_numpy(x)).numpy()
+    got = _eval(_port_model(name), x)
     # The bound tests/test_goldens.py holds the JAX package to.
     np.testing.assert_allclose(got, data["logits"], rtol=2e-3, atol=2e-3)
 
@@ -105,7 +115,7 @@ def test_port_matches_jax_model(dtype):
     x = golden_input(jcfg, 3)
     want = np.asarray(JaxAudioMamba(jcfg, use_kernel=False).apply(
         params, jnp.asarray(x)), np.float32)
-    got = _port_model(name, dtype=dtype)(torch.from_numpy(x)).float().numpy()
+    got = _eval(_port_model(name, dtype=dtype), x)
     if dtype == "float32":
         # Same fp32 math; reduction orders differ (measured ~3e-7).
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -119,9 +129,6 @@ def test_port_matches_jax_model(dtype):
 
 @pytest.mark.parametrize("readout", ["front_cls", "mean", "max", "all", "none"])
 def test_port_readouts_match_jax_model(readout):
-    import torch
-
-    from aum_tpu_torch.convert import state_dict_from_jax
     from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
 
     kw = dict(spectrogram_size=(32, 64), depth=2, embed_dim=32, num_classes=5,
@@ -130,14 +137,16 @@ def test_port_readouts_match_jax_model(readout):
         kw["use_middle_cls_token"] = False
     else:
         kw.update(if_cls_token=False, final_pool_type=readout)
+    cfg = AudioMambaConfig(**kw)
+    model = AudioMamba(cfg, device="cpu", seed=11)
+    # The port's weights go to the JAX model through the JAX package's porter
+    # (the exporter's inverse), which saves a JAX init per readout.
     jcfg, jmodel = build_flax(kw)
-    params = jax.device_get(flax_params(jmodel, jcfg, 11))
+    params = port_aum_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()}, jcfg)
     x = golden_input(jcfg, 11)
     want = np.asarray(jmodel.apply(params, jnp.asarray(x)))
-    cfg = AudioMambaConfig(**kw)
-    model = AudioMamba(cfg, device="cpu")
-    model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
-    got = model(torch.from_numpy(x)).numpy()
+    got = _eval(model, x)
     assert got.shape == want.shape
     # fp32 on both sides; reduction orders differ.
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -147,7 +156,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import aum_tpu_torch, aum_tpu_torch.ops, aum_tpu_torch.models\n"
-        "import aum_tpu_torch.convert, aum_tpu_torch.entry, chip_smoke\n"
+        "import aum_tpu_torch.convert, aum_tpu_torch.entry, aum_tpu_torch.train\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'aum_tpu')]\n"
         "assert not bad, bad\n")
@@ -192,8 +202,8 @@ def test_cpu_tensors_take_the_plain_path():
 
     before = (selective_scan_dual.launches, causal_conv1d.launches)
     model = _port_model("v1_middle")
-    x = torch.from_numpy(golden_input(_golden_params("v1_middle")[0], 1))
-    assert torch.isfinite(model(x)).all()
+    x = golden_input(_golden_params("v1_middle")[0], 1)
+    assert np.isfinite(_eval(model, x)).all()
     assert (selective_scan_dual.launches, causal_conv1d.launches) == before == (0, 0)
 
 
