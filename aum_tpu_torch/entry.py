@@ -8,8 +8,14 @@
   ``scripts/bench_train_step.py``: B = 12 (the recipes' batch size), BCE,
   Adam with lr 5e-5 and weight decay 5e-7 over 1000 steps per epoch, one-hot
   labels ``arange(B) % 527``, no augmentation, ``remat_mode="split"``.
+- ``wav_entry``: the eval forward of AuM-Base Fo-Fo (bimamba ``"none"``)
+  served from raw waveforms, the counterpart of the JAX serving graph with
+  ``include_frontend=True``: B = 8 clips of 10 s at 16 kHz (AudioSet's clip
+  length), the Kaldi fbank with 128 mel bins, zero-padded to 1024 frames and
+  normalized with AudioSet's statistics, then the model (bf16, 527 classes,
+  middle cls token).
 
-Both run on CUDA unless ``device`` is given, and raise without a card.
+All run on CUDA unless ``device`` is given, and raise without a card.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
+from aum_tpu_torch.serving import forward_fn, frontend_fn
 from aum_tpu_torch.train import (
     TrainHyperParams,
     init_train_state,
@@ -29,11 +36,18 @@ from aum_tpu_torch.utils import resolve_device
 TRAIN_BATCH = 12
 TRAIN_HP = TrainHyperParams(lr=5e-5, weight_decay=5e-7)
 STEPS_PER_EPOCH = 1000
+WAV_BATCH = 8
+SAMPLE_RATE = 16000
+CLIP_SAMPLES = 10 * SAMPLE_RATE
+# AudioSet's log-mel statistics: copies of aum_tpu/configs.py's
+# dataset_mean / dataset_std (the audioset recipes).
+AUDIOSET_MEAN = -4.2677393
+AUDIOSET_STD = 4.5689974
 
 
-def flagship_config(**overrides) -> AudioMambaConfig:
+def flagship_config(aum_type: str = "Fo-Bi", **overrides) -> AudioMambaConfig:
     kw = {"num_classes": 527, "dtype": "bfloat16", **overrides}
-    return AudioMambaConfig.from_variant("base", "Fo-Bi", **kw)
+    return AudioMambaConfig.from_variant("base", aum_type, **kw)
 
 
 def entry(device: str | torch.device | None = None):
@@ -58,3 +72,31 @@ def train_entry(device: str | torch.device | None = None):
     y = torch.nn.functional.one_hot(torch.arange(TRAIN_BATCH) % cfg.num_classes,
                                     cfg.num_classes).float()
     return step_fn, state, {"x": x.to(device), "y": y.to(device)}
+
+
+def _wav_spec(config: AudioMambaConfig) -> dict:
+    melbins, audio_length = config.spectrogram_size
+    return dict(audio_length=audio_length, melbins=melbins, mean=AUDIOSET_MEAN,
+                std=AUDIOSET_STD, sample_rate=SAMPLE_RATE)
+
+
+def wav_frontend_fn(config: AudioMambaConfig):
+    """``wav_entry``'s frontend alone: (B, CLIP_SAMPLES) waveforms -> the
+    normalized log-mel that ``config``'s model takes."""
+    return frontend_fn(**_wav_spec(config))
+
+
+def wav_forward_fn(model: AudioMamba):
+    """The served forward of ``wav_entry``: (B, CLIP_SAMPLES) waveforms ->
+    logits, with the frontend sized for ``model``'s spectrogram."""
+    return forward_fn(model, include_frontend=True, **_wav_spec(model.config))
+
+
+def wav_entry(device: str | torch.device | None = None):
+    """(fn, args) for one eval forward from waveforms; ``fn(*args)`` returns
+    (8, 527) logits."""
+    device = resolve_device(device)
+    model = AudioMamba(flagship_config("Fo-Fo"), device=device, seed=0)
+    # A speech-like level: 0.1 * N(0, 1) samples.
+    wav = 0.1 * torch.randn((WAV_BATCH, CLIP_SAMPLES), generator=torch.Generator().manual_seed(0))
+    return make_eval_step(wav_forward_fn(model)), (wav.to(device),)

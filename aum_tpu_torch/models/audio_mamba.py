@@ -1,4 +1,4 @@
-"""AudioMamba (AuM): bidirectional-Mamba audio classifier, eval and train forward.
+"""AudioMamba (AuM): Mamba audio classifier, eval and train forward.
 
 Counterpart of ``aum_tpu/models/audio_mamba.py``:
 
@@ -7,8 +7,11 @@ Counterpart of ``aum_tpu/models/audio_mamba.py``:
 - a static cls token (middle, end, front, or the double head/tail pair),
   then the absolute position embedding;
 - optional F-major -> T-major token transpose (``transpose_token_sequence``);
-- ``depth`` x [add -> RMSNorm -> bidirectional Mamba mixer] blocks, starting
-  from a zero fp32 residual stream;
+- ``depth`` x [add -> RMSNorm -> Mamba mixer (Fo-Fo, Fo-Bi or Bi-Bi)]
+  blocks, starting from a zero fp32 residual stream; with
+  ``if_bidirectional`` the blocks go in pairs, the second of each pair on the
+  sequence reversed (hidden and residual flipped in, its outputs flipped back
+  and added to the first's);
 - final fused add+norm, cls readout (or mean/max/last pooling), linear head.
 
 Parameters are drawn on the CPU from an explicit ``torch.Generator`` (so a
@@ -24,9 +27,8 @@ only the default CUDA generator). Remat (``remat``, ``remat_mode``) applies
 only when a grad is being taken: ``"block"`` checkpoints each whole block,
 ``"split"`` only each mixer's pre-scan compute.
 
-Not ported yet (they raise ``NotImplementedError``): Fo-Fo (``"none"``),
-``if_bidirectional``, random cls position, token shuffle, sequence flip,
-RoPE, and ``remat_mode="auto"`` (its memory budget and per-element figure
+Not ported yet (they raise ``NotImplementedError``): random cls position,
+token shuffle, sequence flip, RoPE, and ``remat_mode="auto"`` (its memory budget and per-element figure
 are TPU calibrations; the card's are not measured yet); the JAX module's
 ``seq_axis`` / ``pipe_axis`` parallel modes have no counterpart yet.
 """
@@ -158,8 +160,8 @@ class AudioMamba(nn.Module):
         super().__init__()
         device = resolve_device(device)
         cfg = config
-        if cfg.if_bidirectional:
-            raise NotImplementedError("if_bidirectional is not ported yet")
+        if cfg.if_bidirectional and cfg.depth % 2:
+            raise ValueError(f"if_bidirectional pairs the layers: depth {cfg.depth} is odd")
         if cfg.remat and cfg.remat_mode == "auto":
             raise NotImplementedError(
                 "remat_mode='auto' needs a memory budget measured on the card; "
@@ -229,6 +231,14 @@ class AudioMamba(nn.Module):
             hidden = _drop(hidden, *drop)
         return layer(hidden, residual, self.dtype, split_remat=split_remat)
 
+    def _pair(self, fwd, bwd, hidden, residual, drops, split_remat):
+        """``if_bidirectional``'s layer pair: ``bwd`` runs on the reversed
+        sequence, each layer dropping its own incoming hidden (the JAX
+        ``_BlockPair``; a per-sample mask commutes with the flip)."""
+        h_f, r_f = self._block(fwd, hidden, residual, drops[0], split_remat)
+        h_b, r_b = self._block(bwd, hidden.flip(1), residual.flip(1), drops[1], split_remat)
+        return h_f + h_b.flip(1), r_f + r_b.flip(1)
+
     def forward(self, x: torch.Tensor,
                 train: bool = False, if_random_cls_token_position: bool = False,
                 if_random_token_rank: bool = False,
@@ -269,13 +279,21 @@ class AudioMamba(nn.Module):
 
         hidden = x
         residual = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        for layer, drop in zip(self.layers, drops):
+        # One step per layer, or per layer pair with if_bidirectional.
+        if cfg.if_bidirectional:
+            step = self._pair
+            units = [(self.layers[i], self.layers[i + 1], drops[i:i + 2])
+                     for i in range(0, cfg.depth, 2)]
+        else:
+            step = self._block
+            units = list(zip(self.layers, drops))
+        for unit in units:
             if mode == "block":
-                hidden, residual = checkpoint(self._block, layer, hidden, residual, drop,
+                hidden, residual = checkpoint(step, *unit[:-1], hidden, residual, unit[-1],
                                               False, use_reentrant=False)
             else:
-                hidden, residual = self._block(layer, hidden, residual, drop,
-                                               mode == "split")
+                hidden, residual = step(*unit[:-1], hidden, residual, unit[-1],
+                                        mode == "split")
         if use_dp:
             hidden = _drop(hidden, *final_drop)
         hidden = fused_add_norm(hidden, self.norm_f.weight.to(dtype),

@@ -3,8 +3,9 @@
 Counterpart of ``aum_tpu/models/mamba.py`` with the upstream reference's
 module tree and state-dict keys (``in_proj.weight`` (2*d_inner, d_model),
 ``conv1d.weight`` (d_inner, 1, K), ``x_proj.weight``, ``dt_proj.{weight,bias}``,
-``A_log``, ``D``, ``A_b_log``, the ``*_b`` branch for v2, ``out_proj.weight``),
-so a state dict exported from the JAX package loads with ``strict=True``.
+``A_log``, ``D``, ``A_b_log`` for v1/v2, the ``*_b`` branch for v2,
+``out_proj.weight``), so a state dict exported from the JAX package loads with
+``strict=True``.
 
 Parameters are kept in fp32 and cast to the compute dtype where they are used,
 as the JAX module does; ``A_log``, ``D`` and the dt bias stay fp32. The x and
@@ -15,13 +16,15 @@ Variants: ``bimamba_type="v1"`` (Fo-Bi) runs the reverse scan over the same
 activations with its own ``A_b``; ``"v2"`` (Bi-Bi) runs a separate branch
 with an anti-causal conv, and the two outputs are summed and halved (the
 reference's ``if_devide_out``, on in every configuration). ``"none"``
-(Fo-Fo) needs the single-direction kernel (``_fwd_kernel_z``), which is not
-ported yet. The mixer's shape and init constants (conv width 4, expand 2,
-dt rank ceil(d_model / 16), dt in [1e-3, 1e-1] floored at 1e-4, conv bias)
-are the reference defaults; no configuration changes them.
+(Fo-Fo) runs one forward scan (``ops.selective_scan``, the single-direction
+kernel), not halved, and has no ``A_b_log``. The mixer's shape and init
+constants (conv width 4, expand 2, dt rank ceil(d_model / 16), dt in
+[1e-3, 1e-1] floored at 1e-4, conv bias) are the reference defaults; no
+configuration changes them.
 
 ``MambaMixer.pre_scan`` is the pre-scan compute (in_proj, conv, x_proj,
-dt_proj), the counterpart of the JAX mixer's ``pre_fn``: with
+dt_proj), the counterpart of the JAX mixer's ``pre_fn``: it returns the
+scan arguments of each direction (Fo-Fo: of the forward one only). With
 ``split_remat`` it runs under ``torch.utils.checkpoint`` and is recomputed in
 the backward, while the scan's saved tensors (its inputs and chunk-entry
 states) stay outside the checkpoint, as the JAX ``remat_mode="split"`` does.
@@ -35,7 +38,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan_dual
+from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan, selective_scan_dual
 from aum_tpu_torch.ops.conv1d import WIDTH as D_CONV  # 4: the conv kernel is built for it
 EXPAND = 2
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
@@ -74,16 +77,12 @@ def _a_log_(t: torch.Tensor) -> None:
 
 
 class MambaMixer(nn.Module):
-    """Selective-SSM mixer (one direction pair) for one block."""
+    """Selective-SSM mixer (one direction, or a direction pair) for one block."""
 
     def __init__(self, d_model: int, d_state: int = 16, bimamba_type: str = "v2",
                  n_layer: int = 24):
         super().__init__()
-        if bimamba_type == "none":
-            raise NotImplementedError(
-                "bimamba_type='none' (Fo-Fo) needs the single-direction scan "
-                "kernel (_fwd_kernel_z), which is not ported yet")
-        if bimamba_type not in ("v1", "v2"):
+        if bimamba_type not in ("none", "v1", "v2"):
             raise ValueError(f"unknown bimamba_type: {bimamba_type}")
         self.d_model = d_model
         self.d_state = d_state
@@ -95,7 +94,8 @@ class MambaMixer(nn.Module):
 
         self.in_proj = _Weights((2 * d_in, d_model))
         self._add_branch("")
-        self.A_b_log = nn.Parameter(torch.empty((d_in, d_state)))
+        if bimamba_type != "none":
+            self.A_b_log = nn.Parameter(torch.empty((d_in, d_state)))
         if bimamba_type == "v2":
             self._add_branch("_b")
         self.out_proj = _Weights((d_model, d_in))
@@ -127,7 +127,8 @@ class MambaMixer(nn.Module):
             _dt_bias_(dt_proj.bias, generator)
             nn.init.ones_(getattr(self, f"D{s}"))
         _a_log_(self.A_log)
-        _a_log_(self.A_b_log)
+        if self.bimamba_type != "none":
+            _a_log_(self.A_b_log)
         _uniform_fan_in_(self.out_proj.weight, d_in, generator,
                          scale=1.0 / math.sqrt(self.n_layer))
 
@@ -143,8 +144,9 @@ class MambaMixer(nn.Module):
         return xc, delta, x_dbl[..., r:r + n], x_dbl[..., r + n:]
 
     def pre_scan(self, x: torch.Tensor):
-        """In-projection, conv, x/dt projections: both directions' scan
-        arguments (u, delta, A, B, C, D, z, delta_bias)."""
+        """In-projection, conv, x/dt projections: the scan arguments (u,
+        delta, A, B, C, D, z, delta_bias) of the forward direction, and for
+        v1/v2 also of the reverse one, as a pair."""
         dtype = x.dtype
         d_in = self.d_inner
         xz = x @ self.in_proj.weight.to(dtype).t()
@@ -153,6 +155,8 @@ class MambaMixer(nn.Module):
         a = -torch.exp(self.A_log.float())
         dt_bias = self.dt_proj.bias.float()
         args_f = (u, delta, a, bm, cm, self.D.float(), z, dt_bias)
+        if self.bimamba_type == "none":
+            return args_f
         if self.bimamba_type == "v1":
             args_r = (u, delta, -torch.exp(self.A_b_log.float()), bm, cm,
                       args_f[5], z, dt_bias)
@@ -167,13 +171,16 @@ class MambaMixer(nn.Module):
         checkpoints ``pre_scan`` when a grad is being taken."""
         dtype = x.dtype
         if split_remat and torch.is_grad_enabled():
-            args_f, args_r = checkpoint(self.pre_scan, x, use_reentrant=False)
+            args = checkpoint(self.pre_scan, x, use_reentrant=False)
         else:
-            args_f, args_r = self.pre_scan(x)
-        y_f, y_b = selective_scan_dual(args_f, args_r)
-        y = y_f + y_b  # in the compute dtype, as XLA sums it
-        if self.bimamba_type == "v2":
-            y = y / 2
+            args = self.pre_scan(x)
+        if self.bimamba_type == "none":
+            y = selective_scan(*args, delta_softplus=True)
+        else:
+            y_f, y_b = selective_scan_dual(*args)
+            y = y_f + y_b  # in the compute dtype, as XLA sums it
+            if self.bimamba_type == "v2":
+                y = y / 2
         return y @ self.out_proj.weight.to(dtype).t()
 
 

@@ -2,9 +2,11 @@ from aum_tpu_torch.ops.conv1d import causal_conv1d, causal_conv1d_plain
 from aum_tpu_torch.ops.norms import fused_add_norm, layer_norm, rms_norm
 from aum_tpu_torch.ops.scan_ref import selective_scan_ref
 from aum_tpu_torch.ops.selective_scan import (
+    selective_scan,
     selective_scan_bwd,
     selective_scan_dual,
     selective_scan_dual_plain,
+    selective_scan_plain,
 )
 
 __all__ = [
@@ -13,8 +15,10 @@ __all__ = [
     "fused_add_norm",
     "layer_norm",
     "rms_norm",
+    "selective_scan",
     "selective_scan_ref",
     "selective_scan_bwd",
     "selective_scan_dual",
     "selective_scan_dual_plain",
+    "selective_scan_plain",
 ]

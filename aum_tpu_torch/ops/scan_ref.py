@@ -10,9 +10,12 @@ all math in fp32:
     out_t = y_t * silu(z_t)                           (if z given)
 
 ``reverse=True`` runs the recurrence right to left, which equals
-flip -> scan -> flip without materialising flipped copies. ``save_every=k``
-also returns the state at the entry of every chunk of k processed steps, the
-chunk-entry states the scan kernel saves for its backward.
+flip -> scan -> flip without materialising flipped copies. ``initial_state``
+starts the recurrence from a carried (B, D, N) state instead of zeros, and
+``return_last_state`` also returns the (B, D, N) fp32 state after the last
+processed step (position 0 when reversed). ``save_every=k`` also returns the
+state at the entry of every chunk of k processed steps, the chunk-entry
+states the scan kernel saves for its backward.
 """
 
 from __future__ import annotations
@@ -33,12 +36,17 @@ def selective_scan_ref(
     delta_softplus: bool = False,
     reverse: bool = False,
     save_every: int = 0,
+    initial_state: torch.Tensor | None = None,
+    return_last_state: bool = False,
 ):
-    """u, delta, z: (B, L, D); A: (D, N); B, C: (B, L, N); D, delta_bias: (D,).
+    """u, delta, z: (B, L, D); A: (D, N); B, C: (B, L, N); D, delta_bias: (D,);
+    initial_state: (B, D, N) or None (zeros).
 
-    Returns (B, L, D) in u's dtype; with ``save_every`` > 0, (out, xb) where
-    xb (B, ceil(L / save_every), N, D) fp32 holds the state before processed
-    step c * save_every (zero for c = 0; counted right to left if reverse).
+    Returns out (B, L, D) in u's dtype; with ``save_every`` > 0 or
+    ``return_last_state`` a tuple: out, then xb (B, ceil(L / save_every), N,
+    D) fp32, the state before processed step c * save_every (the starting
+    state for c = 0; counted right to left if reverse), then the last state
+    (B, D, N) fp32, each where asked for.
     """
     in_dtype = u.dtype
     u = u.float()
@@ -52,7 +60,8 @@ def selective_scan_ref(
         delta = F.softplus(delta)
 
     bsz, seqlen, d = u.shape
-    x = u.new_zeros((bsz, d, A.shape[1]))
+    x = (u.new_zeros((bsz, d, A.shape[1])) if initial_state is None
+         else initial_state.float())
     ys = [None] * seqlen
     states = []
     steps = range(seqlen - 1, -1, -1) if reverse else range(seqlen)
@@ -69,6 +78,9 @@ def selective_scan_ref(
         y = y + u * D.float()[None, None, :]
     if z is not None:
         y = y * F.silu(z.float())
+    out = (y.to(in_dtype),)
     if save_every:
-        return y.to(in_dtype), torch.stack(states, dim=1)
-    return y.to(in_dtype)
+        out += (torch.stack(states, dim=1),)
+    if return_last_state:
+        out += (x,)
+    return out if len(out) > 1 else out[0]

@@ -1,12 +1,18 @@
-"""Fused bidirectional selective scan under autograd: CUDA kernels + plain forms.
+"""Selective scan under autograd, bidirectional and single-direction: CUDA
+kernels + plain forms.
 
-Counterpart of ``aum_tpu/ops/selective_scan.py::selective_scan_dual`` and its
-custom VJP (``_make_dual_scan``, ``_dual_bwd_impl``). Two CUDA kernels:
+Counterpart of ``aum_tpu/ops/selective_scan.py``: ``selective_scan_dual``
+with its custom VJP (``_make_dual_scan``, ``_dual_bwd_impl``), and
+``selective_scan`` with its custom VJP (``_make_scan``). CUDA kernels:
 
-- ``csrc/selective_scan.cu`` replaces the TPU kernel ``_fwd_kernel_dual`` in
-  its default configuration (fused y-readout, per-step decay). In eval it
-  writes the outputs only; when a grad is needed it also saves the state at
-  the entry of every chunk of ``STATE_CHUNK`` steps (``save_states``).
+- ``csrc/selective_scan.cu`` holds two forward kernels on one per-chain walk.
+  ``scan_dual_fwd_kernel`` replaces the TPU kernel ``_fwd_kernel_dual`` in
+  its default configuration (fused y-readout, per-step decay);
+  ``scan_single_fwd_kernel`` replaces ``_fwd_kernel_z``: one direction with a
+  ``reverse`` flag, and the ``with_state`` form (a carried-in initial state,
+  the final state out). In eval both write the outputs only; when a grad is
+  needed they also save the state at the entry of every chunk of
+  ``STATE_CHUNK`` steps (``save_states``).
 - ``csrc/selective_scan_bwd.cu`` replaces ``_bwd_kernel`` (dla mode
   "xprev", no carried-in state): it restarts each chunk from its saved state
   and runs the adjoint. One launch takes one or both directions, so launched
@@ -19,14 +25,23 @@ The ``_prep`` contract of the JAX op is kept: ``dt = softplus(delta + bias)``
 is computed outside the kernels in fp32 and cast to delta's dtype, and the
 kernels stream that rounded dt. The backward chain-rules ddelta from dt
 alone, ``ddt * (1 - exp(-dt))``, writes it in dt's dtype and sums dbias in
-fp32 from the value before that cast. Layout stays (B, L, D).
+fp32 from the value before that cast. Layout stays (B, L, D); states cross
+the API as the reference's (B, D, N) fp32.
+
+Not ported yet: the backward of the ``with_state`` form (``_make_scan_x0``:
+``_bwd_kernel``'s gfin in, dx0 out), so ``selective_scan`` raises under grad
+with ``initial_state`` or ``return_final_state``; the backward without the
+softplus (``delta_softplus=False`` under grad raises); the opt-in kernels
+``_bwd_kernel_fused`` and ``_fwd_kernel_dual_direct``.
 
 On CPU tensors every wrapper runs its plain PyTorch version (the sequential
 oracle of ``ops/scan_ref.py``; the plain backward recomputes through it under
-autograd); on CUDA tensors it launches its kernel or raises. Launch counts:
-``selective_scan_dual.launches`` (every forward launch),
-``selective_scan_dual.save_states_launches`` (those that saved states) and
-``selective_scan_bwd.launches``, each raised where the kernel is launched.
+autograd); on CUDA tensors it launches its kernel or raises. Launch counts,
+each raised where the kernel is launched: ``selective_scan_dual.launches``
+(every dual forward launch) and ``.save_states_launches`` (those that saved
+states); ``selective_scan.launches`` (every single-direction forward launch),
+``.save_states_launches`` and ``.with_state_launches``;
+``selective_scan_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -50,11 +65,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _prep_dt(delta: torch.Tensor, delta_bias: torch.Tensor | None) -> torch.Tensor:
+def _prep_dt(delta: torch.Tensor, delta_bias: torch.Tensor | None,
+             softplus: bool = True) -> torch.Tensor:
     dt = delta.float()
     if delta_bias is not None:
         dt = dt + delta_bias.float()
-    return _softplus(dt).to(delta.dtype)
+    return (_softplus(dt) if softplus else dt).to(delta.dtype)
 
 
 # --- plain versions ----------------------------------------------------------
@@ -74,6 +90,22 @@ def selective_scan_dual_plain(fwd: tuple, rev: tuple, save_states: bool = False)
     if save_states:
         return out_f[0], out_r[0], out_f[1], out_r[1]
     return out_f, out_r
+
+
+def selective_scan_plain(args: tuple, reverse: bool, save_states: bool = False,
+                         initial_state: torch.Tensor | None = None,
+                         return_final_state: bool = False):
+    """The single-direction forward kernel's function in plain PyTorch.
+
+    args: (u, dt, A, B, C, D, z) with dt already activated, as
+    ``selective_scan_cuda`` takes them; initial_state: (B, D, N) or None.
+    Returns out, and after it, where asked for, xb (B, ceil(L /
+    STATE_CHUNK), N, D) fp32 and the final state (B, D, N) fp32.
+    """
+    return selective_scan_ref(*args[:6], z=args[6], reverse=reverse,
+                              save_every=STATE_CHUNK if save_states else 0,
+                              initial_state=initial_state,
+                              return_last_state=return_final_state)
 
 
 def selective_scan_bwd_plain(dirs: list, gs: list) -> list:
@@ -108,7 +140,7 @@ class _ScanDir(ctypes.Structure):
     """Mirror of ``ScanDir`` in csrc/selective_scan.cu."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in
-                ("u", "dt", "z", "B", "C", "A", "Dskip", "out", "xb")] + [
+                ("u", "dt", "z", "B", "C", "A", "Dskip", "out", "xb", "x0", "xfin")] + [
         (name, ctypes.c_longlong) for name in _STREAM_STRIDES]
 
 
@@ -168,18 +200,26 @@ def _n_chunks(seqlen: int) -> int:
     return math.ceil(seqlen / STATE_CHUNK)
 
 
-def _scan_dir_args(u, dt, A, B, C, D, z, save_states):
+def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None):
+    """The kernel's arguments for one direction; ``x0`` (B, N, D) fp32
+    contiguous selects the with_state form, whose final state is returned
+    beside the outputs (xfin, else None)."""
     u, dt, A, B, C, D, z = _check_dir(u, dt, A, B, C, D, z)
     bsz, seqlen, d = u.shape
-    out = torch.empty((bsz, seqlen, d), dtype=u.dtype, device=u.device)
-    xb = (torch.empty((bsz, _n_chunks(seqlen), A.shape[1], d), dtype=torch.float32,
-                      device=u.device) if save_states else None)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=u.device)
+
+    out = empty(bsz, seqlen, d, dtype=u.dtype)
+    xb = empty(bsz, _n_chunks(seqlen), A.shape[1], d) if save_states else None
+    xfin = None if x0 is None else empty(*x0.shape)
     args = _ScanDir(
         u.data_ptr(), dt.data_ptr(), z.data_ptr(), B.data_ptr(), C.data_ptr(),
         A.data_ptr(), D.data_ptr(), out.data_ptr(),
-        None if xb is None else xb.data_ptr(), *_stream_strides(u, dt, z, B, C))
+        *(None if t is None else t.data_ptr() for t in (xb, x0, xfin)),
+        *_stream_strides(u, dt, z, B, C))
     # Keep every buffer alive until the launch is enqueued.
-    return args, out, xb, (u, dt, z, B, C, A, D)
+    return args, out, xb, xfin, (u, dt, z, B, C, A, D, x0)
 
 
 def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False):
@@ -190,8 +230,8 @@ def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False):
     u = fwd[0]
     if rev[0].shape != u.shape or rev[0].dtype != u.dtype or rev[0].device != u.device:
         raise ValueError("both directions must share shape, dtype and device")
-    args_f, out_f, xb_f, keep_f = _scan_dir_args(*fwd, save_states)
-    args_r, out_r, xb_r, keep_r = _scan_dir_args(*rev, save_states)
+    args_f, out_f, xb_f, _, keep_f = _scan_dir_args(*fwd, save_states)
+    args_r, out_r, xb_r, _, keep_r = _scan_dir_args(*rev, save_states)
     lib = _lib()
     bsz, seqlen, d = u.shape
     with torch.cuda.device(u.device):
@@ -207,6 +247,49 @@ def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False):
         selective_scan_dual.save_states_launches += 1
         return out_f, out_r, xb_f, xb_r
     return out_f, out_r
+
+
+def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
+                        initial_state: torch.Tensor | None = None,
+                        return_final_state: bool = False):
+    """Launch the single-direction forward kernel on (u, dt, A, B, C, D, z).
+
+    Returns what ``selective_scan_plain`` returns. The with_state form runs
+    when an initial state is given or the final state is asked for (from
+    zeros when only the latter); states cross in (B, D, N) and the kernel
+    takes (B, N, D), so the wrapper transposes them.
+    """
+    u, A = args[0], args[2]
+    bsz, _, d = u.shape
+    n = A.shape[1]
+    with_state = initial_state is not None or return_final_state
+    x0 = None
+    if with_state:
+        if initial_state is None:
+            x0 = torch.zeros((bsz, n, d), dtype=torch.float32, device=u.device)
+        elif tuple(initial_state.shape) != (bsz, d, n) or initial_state.device != u.device:
+            raise ValueError(f"initial_state {tuple(initial_state.shape)} on "
+                             f"{initial_state.device} must be ({bsz}, {d}, {n}) on {u.device}")
+        else:
+            x0 = initial_state.float().transpose(1, 2).contiguous()
+    kargs, out, xb, xfin, keep = _scan_dir_args(*args, save_states, x0)
+    lib = _lib()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        status = lib.aum_selective_scan_fwd(ctypes.byref(kargs), int(bool(reverse)),
+                                            *u.shape, n, _DTYPE_CODES[u.dtype], stream)
+    del keep
+    _build.check_status(status, lib.aum_scan_error_string, "selective_scan kernel launch")
+    selective_scan.launches += 1
+    result = (out,)
+    if save_states:
+        selective_scan.save_states_launches += 1
+        result += (xb,)
+    if with_state:
+        selective_scan.with_state_launches += 1
+        if return_final_state:
+            result += (xfin.transpose(1, 2),)
+    return result if len(result) > 1 else out
 
 
 def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list) -> list:
@@ -285,6 +368,9 @@ def _lib() -> ctypes.CDLL:
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.aum_selective_scan_fwd
+    fn.argtypes = [ctypes.POINTER(_ScanDir)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.aum_scan_error_string.argtypes = [ctypes.c_int]
     lib.aum_scan_error_string.restype = ctypes.c_char_p
     _check_chunk(lib, "aum_scan_state_chunk")
@@ -303,14 +389,19 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _on_cpu(t: torch.Tensor, what: str) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA one (kernel);
+    any other device raises before any work is done."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
+    return t.device.type == "cpu"
+
+
 def selective_scan_bwd(dirs: list, gs: list, xbs: list) -> list:
     """The scan backward of one or two directions: the kernel on CUDA tensors
     (one launch), the plain version on CPU tensors (``xbs`` unused there)."""
-    device = dirs[0][0].device
-    if device.type == "cpu":
+    if _on_cpu(dirs[0][0], "selective_scan_bwd"):
         return selective_scan_bwd_plain(dirs, gs)
-    if device.type != "cuda":
-        raise ValueError(f"selective_scan_bwd runs on cpu or cuda, not {device}")
     return selective_scan_bwd_cuda(dirs, gs, xbs)
 
 
@@ -330,12 +421,9 @@ def _prep_both(args_fwd: tuple, args_rev: tuple):
 
 
 def _forward(fwd: tuple, rev: tuple, save_states: bool):
-    device = fwd[0].device
-    if device.type == "cpu":
+    if _on_cpu(fwd[0], "selective_scan_dual"):
         # The plain backward recomputes from the inputs: no states to keep.
         return selective_scan_dual_plain(fwd, rev) + ((None, None) if save_states else ())
-    if device.type != "cuda":
-        raise ValueError(f"selective_scan_dual runs on cpu or cuda, not {device}")
     return selective_scan_dual_cuda(fwd, rev, save_states)
 
 
@@ -387,6 +475,7 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple
     backward kernel runs in the backward pass; otherwise the eval forward
     runs alone.
     """
+    _on_cpu(args_fwd[0], "selective_scan_dual")
     tensors = [t for t in args_fwd + args_rev if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _DualScan.apply(*args_fwd, *args_rev)
@@ -396,3 +485,71 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple
 
 selective_scan_dual.launches = 0
 selective_scan_dual.save_states_launches = 0
+
+
+class _Scan(torch.autograd.Function):
+    """One direction's (u, delta, A, B, C, D, z, delta_bias) -> y, with the
+    chunk-entry states saved for the backward kernel (one direction)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z, delta_bias, reverse):
+        args = (u, _prep_dt(delta, delta_bias), A, B, C, D, z)
+        if _on_cpu(u, "selective_scan"):
+            # The plain backward recomputes from the inputs: no states to keep.
+            y, xb = selective_scan_plain(args, reverse), None
+        else:
+            y, xb = selective_scan_cuda(args, reverse, save_states=True)
+        ctx.save_for_backward(*args, xb)
+        ctx.reverse, ctx.has_bias = reverse, delta_bias is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        *args, xb = ctx.saved_tensors
+        du, ddelta, dA, dB, dC, dD, dz, dbias = selective_scan_bwd(
+            [tuple(args) + (ctx.reverse,)], [g], [xb])[0]
+        return du, ddelta, dA, dB, dC, dD, dz, dbias if ctx.has_bias else None, None
+
+
+def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, z: torch.Tensor,
+                   delta_bias: torch.Tensor | None = None, delta_softplus: bool = False,
+                   reverse: bool = False, initial_state: torch.Tensor | None = None,
+                   return_final_state: bool = False):
+    """Single-direction selective scan (see ``ops/scan_ref.py`` for the math).
+
+    u, delta, z: (B, L, D); A: (D, N); B, C: (B, L, N); D, delta_bias: (D,);
+    ``reverse`` scans right to left. D and z are required, as in the JAX
+    kernel path. ``initial_state`` (B, D, N) starts the recurrence from a
+    carried state, and ``return_final_state`` also returns the (B, D, N) fp32
+    state after the last processed step (position 0 when reversed).
+    Returns y (B, L, D) in u's dtype, or (y, final state).
+
+    Differentiable with ``delta_softplus`` and without the state arguments:
+    when a grad is needed the forward kernel saves its chunk-entry states and
+    the one-direction backward kernel runs in the backward pass. The state
+    arguments and the no-softplus form run without grad only.
+    """
+    if D is None or z is None:
+        raise ValueError("selective_scan takes D and z (the kernel path's form)")
+    on_cpu = _on_cpu(u, "selective_scan")
+    tensors = [t for t in (u, delta, A, B, C, D, z, delta_bias, initial_state)
+               if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if initial_state is not None or return_final_state:
+            raise NotImplementedError(
+                "the backward of the with_state scan (_bwd_kernel's gfin/dx0) is not "
+                "ported yet; run initial_state / return_final_state without grad")
+        if not delta_softplus:
+            raise NotImplementedError(
+                "the scan backward chain-rules the softplus; delta_softplus=False "
+                "runs without grad only")
+        return _Scan.apply(u, delta, A, B, C, D, z, delta_bias, bool(reverse))
+    args = (u, _prep_dt(delta, delta_bias, delta_softplus), A, B, C, D, z)
+    return (selective_scan_plain if on_cpu else selective_scan_cuda)(
+        args, reverse, initial_state=initial_state, return_final_state=return_final_state)
+
+
+selective_scan.launches = 0
+selective_scan.save_states_launches = 0
+selective_scan.with_state_launches = 0

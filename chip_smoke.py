@@ -11,45 +11,62 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    versions; build: nvcc compiles every kernel from ``aum_tpu_torch/csrc/``
    (all sources at once) and the build time is printed.
 2. kernels: each kernel against its plain PyTorch version on the card, in
-   fp32 and bf16, v1 (shared operands) and v2 (separate), both scan
-   directions, conv causal and anti-causal: the eval forward at the eval
-   path's shapes (B=8, L=513, D=1536, N=16, strided operands as the model
-   passes them); the forward with saved states (outputs and states), the
-   scan backward in both forms (one launch for both directions, one launch
-   per direction; all 8 grads per direction) and the conv backward at the
-   train path's shapes (B=12, L=513); all of them at ragged shapes (L=37,
-   D=40; L=150, three state chunks, the last one short).
+   fp32 and bf16. The dual scan forward, v1 (shared operands) and v2
+   (separate), both directions, at the Fo-Bi eval path's shapes (B=8, L=513,
+   D=1536, N=16, strided operands as the model passes them); its saving form
+   (outputs and states), the scan backward in both forms (one launch for both
+   directions, one launch per direction; all 8 grads per direction) and the
+   conv backward at the train path's shapes (B=12, L=513). The
+   single-direction scan forward, forward and reverse: at the Fo-Fo eval
+   shapes (B=8) as is and in its with_state form (outputs and final state
+   from a random x0); its saving form (outputs and states) and the backward
+   of its autograd op (all 8 grads, through the one-direction backward) at
+   B=12. The conv forward, causal and anti-causal. All of them also at
+   ragged shapes (L=37, D=40; L=150, three state chunks, the last short).
 3. model: AuM-Base Fo-Bi at full width and depth 24. fp32, B=2: the card
    (with kernels) against the same weights on the CPU (plain path). Then the
    eval path itself, ``aum_tpu_torch.entry.entry()`` (bf16, B=8), with every
    launch counter set to 0 just before and read just after: it must show 24
-   scan and 24 conv launches, and (8, 527) finite logits; then its latency
-   (CUDA events, 10 forwards after warm-up).
-4. train: AuM-Base Fo-Bi at full width, depth 2, fp32, B=2: the loss and the
-   grads of in_proj, A_log, A_b_log, dt_proj.bias and conv1d.weight, and
-   those params after one full train step (Adam, no warmup), on the card
-   against the same weights on the CPU (plain path).
-   Then the train path itself, ``aum_tpu_torch.entry.train_entry()`` (depth
-   24, bf16, B=12, split remat): three steps with finite losses, one of them
-   between a reset and a read of every launch counter (24 saving forwards,
-   24 backwards, 96 conv launches: forward, split recompute, and the
-   backward's pre-activation and dx); then ms per step and clips/s (CUDA
+   dual-scan and 24 conv launches and no other, and (8, 527) finite logits;
+   then its latency (CUDA events, 10 forwards after warm-up).
+4. wav: AuM-Base Fo-Fo at full width and depth 24 from 10 s waveforms
+   (160,000 samples: the Kaldi fbank, pad to 1024 frames, AudioSet's
+   normalization, the model). fp32, B=2: the card (kernels and frontend)
+   against the same weights on the CPU. Then the path itself,
+   ``aum_tpu_torch.entry.wav_entry()`` (bf16, B=8), between a reset and a read
+   of every launch counter: 24 single-direction scan and 24 conv launches
+   and no other, no graph, (8, 527) finite logits; then its latency and the
+   frontend's share of it, timed alone.
+5. train: at full width, depth 2, fp32, B=2, for Fo-Bi and for Fo-Fo: the
+   loss and the grads of in_proj, A_log (and Fo-Bi's A_b_log), dt_proj.bias
+   and conv1d.weight, and those params after one full train step (Adam, no
+   warmup), on the card against the same weights on the CPU (plain path);
+   the launches of the card's forward and backward are read (Fo-Fo: 2 saving
+   single-direction forwards and 2 one-direction backwards).
+   Then the train path itself, ``aum_tpu_torch.entry.train_entry()`` (Fo-Bi,
+   depth 24, bf16, B=12, split remat): three steps with finite losses, one of
+   them between a reset and a read of every launch counter (24 saving
+   forwards, 24 backwards, 96 conv launches: forward, split recompute, and
+   the backward's pre-activation and dx); then ms per step and clips/s (CUDA
    events after warm-up), peak memory, SM clock and power.
-5. bench: the ``bench.py`` workload (B=64 x 1024 x 128, bf16): clips/s with
-   CUDA events after warm-up, then per kernel at the shapes that forward gives
-   it: ms per launch, the plain version's ms, the least time the card could
-   take (bound), and for the conv one PyTorch call computing the same function
-   (``F.conv1d(groups=D)`` + SiLU) as a yardstick the port never calls. The
-   scan's bound lets a share of its exponentials run on the FP32 pipe
-   (``exp_floor_s``). nvidia-smi samples the SM clock and power draw during
-   the timed forwards and the timed kernel launches. Then the train path's
-   scan kernels at its shapes (B=12, bf16, v1): the saving forward and the
-   backward (both directions in one launch), each beside its plain version
-   and its bound.
-6. profile: one such forward, then one train step, under ``torch.profiler``:
-   device time by kernel category (scan forward, scan backward, conv, matrix
-   products, other), the top kernels, and the device's idle share of the
-   wall time.
+6. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
+   clips/s with CUDA events after warm-up; then ``wav_entry``'s model at
+   B=64 from waveforms: clips/s, and the frontend's ms alone. Then per kernel
+   at the shapes those forwards give it: ms per launch, the plain version's
+   ms, the least time the card could take (bound), and for the conv one
+   PyTorch call computing the same function (``F.conv1d(groups=D)`` + SiLU)
+   as a yardstick the port never calls. The scan bounds let a share of the
+   exponentials run on the FP32 pipe (``exp_floor_s``). nvidia-smi samples
+   the SM clock and power draw during the timed forwards and the timed
+   kernel launches. Then the train shapes' scan kernels (B=12, bf16): the
+   saving dual forward, the backward (both directions in one launch, and one
+   direction), and the saving single-direction forward, each beside its plain
+   version and its bound.
+7. profile: one Fo-Bi bench forward, one Fo-Fo forward from waveforms
+   (B=64), then one train step, under ``torch.profiler``: device time by
+   kernel category (dual and single scan forward, scan backward, conv,
+   frontend FFTs, matrix products, other), the top kernels, and the device's
+   idle share of the wall time.
 
 The line before the last is nvidia-smi's name and power limit; the one before
 it the kernels summary; the last line is exactly
@@ -99,6 +116,12 @@ XB_TOL = (1e-4, 1e-4)
 # one ulp of 2^-8 relative at most.
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 MODEL_FP32_TOL = (2e-3, 2e-3)
+# The paths' scan and conv shapes (batch, tokens, d_inner) at AuM-Base's 513
+# tokens and d_inner 1536: the eval entries' B=8, the train entry's B=12;
+# and the bench batch.
+EVAL_DIMS = (8, 513, 1536)
+TRAIN_DIMS = (12, 513, 1536)
+BENCH_BATCH = 64
 # fp32 train step, card (kernels) against CPU (plain): loss relative, grads
 # as max |err| over max |ref|; the two sum in other orders over 2 layers.
 # The params after one Adam step, as ||card - cpu|| over the norm of the
@@ -323,6 +346,61 @@ def _check_scan(label, dims, dtype, shared, train: bool) -> list[dict]:
     return results
 
 
+def _check_scan_single(label, dims, dtype, reverse, train: bool) -> list[dict]:
+    """The single-direction forward and its with_state form, or (train) its
+    saving form and the backward of the autograd op (``selective_scan``
+    under grad: the saving forward, then the one-direction backward kernel),
+    against their plain versions."""
+    from aum_tpu_torch.ops.selective_scan import (
+        _prep_dt,
+        selective_scan,
+        selective_scan_bwd_plain,
+        selective_scan_cuda,
+        selective_scan_plain,
+    )
+
+    bsz, seqlen, d = dims
+    tag = dict(shape=label, dims=[bsz, seqlen, d, 16], dtype=str(dtype),
+               direction="reverse" if reverse else "forward")
+    raw = scan_inputs(bsz, seqlen, d, 16, dtype, seed=11)
+    args = (raw[0], _prep_dt(raw[1], raw[7])) + raw[2:7]
+    atol, rtol = SCAN_TOL[dtype]
+    g = torch.Generator().manual_seed(12)
+    results = []
+
+    def check(got, want, tol, **kw):
+        results.append({**compare(got, want, *tol), "kernel": "selective_scan_fwd", **kw, **tag})
+
+    if not train:
+        got = selective_scan_cuda(args, reverse)
+        torch.cuda.synchronize()
+        check(got, selective_scan_plain(args, reverse), (atol, rtol))
+        x0 = torch.randn((bsz, d, 16), generator=g).cuda()
+        got, fin = selective_scan_cuda(args, reverse, initial_state=x0, return_final_state=True)
+        torch.cuda.synchronize()
+        want, want_fin = selective_scan_plain(args, reverse, initial_state=x0,
+                                              return_final_state=True)
+        check(got, want, (atol, rtol), with_state=True, output="out")
+        check(fin, want_fin, XB_TOL, with_state=True, output="final_state")
+        return results
+    got, xb = selective_scan_cuda(args, reverse, save_states=True)
+    torch.cuda.synchronize()
+    want, want_xb = selective_scan_plain(args, reverse, save_states=True)
+    check(got, want, (atol, rtol), save_states=True, output="out")
+    check(xb, want_xb, XB_TOL, save_states=True, output="xb")
+    gout = torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype)
+    leaves = [t.detach().requires_grad_() for t in raw]  # strided views stay strided
+    y = selective_scan(*leaves[:7], delta_bias=leaves[7], delta_softplus=True,
+                       reverse=reverse)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    want = selective_scan_bwd_plain([args + (reverse,)], [gout])[0]
+    results.append({**_grad_checks(GRAD_NAMES, [t.grad for t in leaves], want,
+                                   GRAD_TOL[dtype]),
+                    "kernel": "selective_scan_bwd", "form": "one_direction_autograd", **tag})
+    return results
+
+
 def _grad_checks(names, got, want, tol) -> dict:
     """One line for a set of grads: each one's max abs and scaled error, the
     largest abs error over all of them, ok if each is within tol."""
@@ -370,7 +448,7 @@ def _check_conv(label, dims, dtype, train: bool) -> list[dict]:
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the largest absolute
     error of each at the paths' shapes in bf16."""
-    shapes = {"eval": ((8, 513, 1536), False), "train": ((12, 513, 1536), True),
+    shapes = {"eval": (EVAL_DIMS, False), "train": (TRAIN_DIMS, True),
               "ragged": ((2, 37, 40), None), "multi_chunk": ((2, 150, 40), None)}
     results = []
     for label, (dims, train) in shapes.items():
@@ -379,12 +457,15 @@ def phase_kernels() -> dict:
             for mode in modes:
                 for shared in (True, False):
                     results += _check_scan(label, dims, dtype, shared, mode)
+                for reverse in (False, True):
+                    results += _check_scan_single(label, dims, dtype, reverse, mode)
                 results += _check_conv(label, dims, dtype, mode)
     worst = {}
     for r in results:
         emit({"phase": "kernels", **r})
         if r["shape"] in ("eval", "train") and r["dtype"] == str(torch.bfloat16):
-            key = r["kernel"] + ("_save_states" if r.get("save_states") else "")
+            key = r["kernel"] + ("_save_states" if r.get("save_states") else "") + (
+                "_with_state" if r.get("with_state") else "")
             worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
     failed = [r for r in results if not r["ok"]]
     emit({"phase": "kernels_summary", "checks": len(results), "failed": len(failed),
@@ -433,63 +514,134 @@ def phase_model() -> dict:
     depth = flagship_config().depth
     if tuple(logits.shape) != (8, 527) or not finite:
         raise RuntimeError("main path logits are not (8, 527) finite values")
-    expected = {"selective_scan_dual_fwd": depth, "selective_scan_dual_fwd_save_states": 0,
-                "selective_scan_bwd": 0, "causal_conv1d_fwd": depth}
+    expected = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
     if launches != expected or logits.requires_grad:
         raise RuntimeError(f"expected {expected} launches and no graph, got {launches}")
     return launches
 
 
-def _reset_counters() -> None:
-    from aum_tpu_torch.ops import causal_conv1d, selective_scan_bwd, selective_scan_dual
-
-    selective_scan_dual.launches = 0
-    selective_scan_dual.save_states_launches = 0
-    selective_scan_bwd.launches = 0
-    causal_conv1d.launches = 0
-
-
-def _read_counters() -> dict:
-    from aum_tpu_torch.ops import causal_conv1d, selective_scan_bwd, selective_scan_dual
-
-    return {"selective_scan_dual_fwd": selective_scan_dual.launches,
-            "selective_scan_dual_fwd_save_states": selective_scan_dual.save_states_launches,
-            "selective_scan_bwd": selective_scan_bwd.launches,
-            "causal_conv1d_fwd": causal_conv1d.launches}
-
-
-def phase_train() -> dict:
-    import dataclasses
-
+def phase_wav() -> dict:
+    """AuM-Base Fo-Fo from waveforms: fp32 card against CPU, then
+    ``wav_entry()``'s launches, logits and latency."""
     from aum_tpu_torch.entry import (
-        STEPS_PER_EPOCH,
-        TRAIN_BATCH,
-        TRAIN_HP,
+        CLIP_SAMPLES,
+        WAV_BATCH,
         flagship_config,
-        train_entry,
+        wav_entry,
+        wav_forward_fn,
+        wav_frontend_fn,
     )
     from aum_tpu_torch.models import AudioMamba
-    from aum_tpu_torch.train import init_train_state, loss_fn_of, make_optimizer, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # fp32, full width, depth 2 (the CPU oracle's backward stays short): the
-    # loss and grads of one forward and backward, then one full train step
-    # without warmup (its lr is the schedule's 5e-5, not the warmup's 0).
-    cfg = flagship_config(dtype="float32", depth=2, remat=True, remat_mode="split")
+    cfg32 = flagship_config("Fo-Fo", dtype="float32")
+    wav = 0.1 * torch.randn((2, CLIP_SAMPLES), generator=torch.Generator().manual_seed(7))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        gpu = AudioMamba(cfg32, device="cuda", seed=0)
+        got = wav_forward_fn(gpu)(wav.cuda()).cpu()
+        del gpu
+        t1 = time.perf_counter()
+        want = wav_forward_fn(AudioMamba(cfg32, device="cpu", seed=0))(wav)
+    t2 = time.perf_counter()
+    r = compare(got, want, *MODEL_FP32_TOL)
+    emit({"phase": "wav_fp32_vs_cpu", "batch": 2, "samples": CLIP_SAMPLES,
+          "depth": cfg32.depth, "width": cfg32.embed_dim, "bimamba": cfg32.bimamba_type,
+          "logits_shape": list(got.shape), "gpu_s": t1 - t0, "cpu_s": t2 - t1, **r})
+    if not r["ok"]:
+        raise RuntimeError("fp32 Fo-Fo from waveforms on the card disagrees with the CPU")
+
+    fn, (wav,) = wav_entry()
+    torch.cuda.synchronize()
+    _reset_counters()
+    logits = fn(wav)
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    finite = bool(torch.isfinite(logits.float()).all())
+    latency_ms = cuda_ms(lambda: fn(wav), iters=10)
+    frontend = wav_frontend_fn(cfg32)
+    frontend_ms = cuda_ms(lambda: frontend(wav), iters=10)
+    emit({"phase": "wav_path", "entry": "aum_tpu_torch.entry.wav_entry", "batch": WAV_BATCH,
+          "samples": CLIP_SAMPLES, "logits_shape": list(logits.shape),
+          "dtype": str(logits.dtype), "finite": finite, "launches": launches,
+          "graph_built": logits.requires_grad, "ms_per_forward": latency_ms,
+          "frontend_ms": frontend_ms})
+    depth = cfg32.depth
+    if tuple(logits.shape) != (WAV_BATCH, 527) or not finite:
+        raise RuntimeError("wav path logits are not (8, 527) finite values")
+    expected = _launches(selective_scan_fwd=depth, causal_conv1d_fwd=depth)
+    if launches != expected or logits.requires_grad:
+        raise RuntimeError(f"expected {expected} launches and no graph, got {launches}")
+    return launches
+
+
+def _counters() -> dict:
+    """Every launch counter: name -> (holder, attribute)."""
+    from aum_tpu_torch.ops import (
+        causal_conv1d,
+        selective_scan,
+        selective_scan_bwd,
+        selective_scan_dual,
+    )
+
+    return {"selective_scan_dual_fwd": (selective_scan_dual, "launches"),
+            "selective_scan_dual_fwd_save_states": (selective_scan_dual,
+                                                    "save_states_launches"),
+            "selective_scan_fwd": (selective_scan, "launches"),
+            "selective_scan_fwd_save_states": (selective_scan, "save_states_launches"),
+            "selective_scan_fwd_with_state": (selective_scan, "with_state_launches"),
+            "selective_scan_bwd": (selective_scan_bwd, "launches"),
+            "causal_conv1d_fwd": (causal_conv1d, "launches")}
+
+
+def _reset_counters() -> None:
+    for holder, attr in _counters().values():
+        setattr(holder, attr, 0)
+
+
+def _read_counters() -> dict:
+    return {name: getattr(holder, attr) for name, (holder, attr) in _counters().items()}
+
+
+def _launches(**counts) -> dict:
+    """Every counter at 0 but those given."""
+    return {**dict.fromkeys(_counters(), 0), **counts}
+
+
+def _train_fp32_check(aum_type: str) -> dict:
+    """fp32, full width, depth 2 (the CPU oracle's backward stays short): the
+    loss and grads of one forward and backward, then one full train step
+    without warmup (its lr is the schedule's 5e-5, not the warmup's 0), card
+    against CPU. Returns the launches of the card's forward and backward."""
+    import dataclasses
+
+    from aum_tpu_torch.entry import STEPS_PER_EPOCH, TRAIN_HP, flagship_config
+    from aum_tpu_torch.models import AudioMamba
+    from aum_tpu_torch.train import init_train_state, loss_fn_of, make_optimizer, make_train_step
+
+    cfg = flagship_config(aum_type, dtype="float32", depth=2, remat=True, remat_mode="split")
     hp = dataclasses.replace(TRAIN_HP, warmup=False)
     g = torch.Generator().manual_seed(8)
     x = torch.randn((2, 1024, 128), generator=g)
     y = torch.nn.functional.one_hot(torch.arange(2) % 527, 527).float()
-    names = [f"layers.{i}.mixer.{k}" for i in range(cfg.depth)
-             for k in ("in_proj.weight", "A_log", "A_b_log", "dt_proj.bias", "conv1d.weight")]
+    keys = ("in_proj.weight", "A_log", "A_b_log", "dt_proj.bias", "conv1d.weight")
+    if cfg.bimamba_type == "none":  # Fo-Fo has no A_b_log
+        keys = tuple(k for k in keys if k != "A_b_log")
+    names = [f"layers.{i}.mixer.{k}" for i in range(cfg.depth) for k in keys]
     runs = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
         model = AudioMamba(cfg, device=device, seed=0)
         batch = {"x": x.to(device), "y": y.to(device)}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _reset_counters()
         loss = loss_fn_of("BCE")(model(batch["x"], train=True), batch["y"])
         loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = _read_counters()
         params = dict(model.named_parameters())
         grads = {k: params[k].grad.cpu() for k in names}
         before = {k: params[k].detach().cpu().clone() for k in names}
@@ -507,16 +659,35 @@ def phase_train() -> dict:
         moved = (after_c[k] - before_c[k]).norm().item()
         updates[k] = {"err_norm": err, "update_norm": moved,
                       "ok": moved > 0 and err <= TRAIN_FP32_TOL["update"] * moved}
+    # Per layer: split remat runs the conv four times (forward, recompute,
+    # the backward's pre-activation and dx), each scan saves and is undone once.
+    depth = cfg.depth
+    scans = ({"selective_scan_fwd": depth, "selective_scan_fwd_save_states": depth}
+             if cfg.bimamba_type == "none" else
+             {"selective_scan_dual_fwd": depth, "selective_scan_dual_fwd_save_states": depth})
+    expected = _launches(**scans, selective_scan_bwd=depth, causal_conv1d_fwd=4 * depth)
     loss_ok = abs(loss_g - loss_c) <= TRAIN_FP32_TOL["loss_rtol"] * abs(loss_c)
     ok = (loss_ok and all(c["ok"] for c in checks.values())
-          and all(u["ok"] for u in updates.values()))
-    emit({"phase": "train_fp32_vs_cpu", "batch": 2, "depth": cfg.depth,
+          and all(u["ok"] for u in updates.values()) and launches == expected)
+    emit({"phase": "train_fp32_vs_cpu", "aum_type": aum_type, "batch": 2, "depth": depth,
           "width": cfg.embed_dim, "loss_gpu": loss_g, "loss_cpu": loss_c,
           "loss_rtol": TRAIN_FP32_TOL["loss_rtol"], "grads": checks, "lr": hp.lr,
           "params_after_step": updates, "update_tol": TRAIN_FP32_TOL["update"],
+          "launches": launches, "expected_launches": expected,
           "gpu_s": s_g, "cpu_s": s_c, "ok": ok})
     if not ok:
-        raise RuntimeError("fp32 train step on the card disagrees with the CPU plain path")
+        raise RuntimeError(f"fp32 {aum_type} train step on the card disagrees with the CPU "
+                           "plain path, or launched other kernels than expected")
+    return launches
+
+
+def phase_train() -> dict:
+    from aum_tpu_torch.entry import TRAIN_BATCH, train_entry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fofo_launches = _train_fp32_check("Fo-Fo")
+    _train_fp32_check("Fo-Bi")
 
     step, state, batch = train_entry()
     depth = state.model.config.depth
@@ -530,8 +701,8 @@ def phase_train() -> dict:
         if i == 1:
             launches = _read_counters()
         losses.append(loss.item())
-    expected = {"selective_scan_dual_fwd": depth, "selective_scan_dual_fwd_save_states": depth,
-                "selective_scan_bwd": depth, "causal_conv1d_fwd": 4 * depth}
+    expected = _launches(selective_scan_dual_fwd=depth, selective_scan_dual_fwd_save_states=depth,
+                         selective_scan_bwd=depth, causal_conv1d_fwd=4 * depth)
     finite = all(math.isfinite(v) for v in losses)
     torch.cuda.reset_peak_memory_stats()
     with sample_clocks({}) as card:
@@ -542,7 +713,7 @@ def phase_train() -> dict:
            "losses": losses, "finite": finite, "launches_per_step": launches,
            "expected_launches": expected, "ms_per_step": step_ms,
            "clips_per_s": TRAIN_BATCH / (step_ms / 1e3), "peak_mem_bytes": peak,
-           "card": card}
+           "card": card, "fofo_check_launches": fofo_launches}
     emit(out)
     if not finite:
         raise RuntimeError(f"train path losses are not finite: {losses}")
@@ -562,7 +733,8 @@ def phase_bench(device_info: dict) -> dict:
         selective_scan_dual_plain,
     )
 
-    bsz, seqlen, d, n, k = 64, 513, 1536, 16, 4
+    (_, seqlen, d), n, k = EVAL_DIMS, 16, 4
+    bsz = BENCH_BATCH
     dtype = torch.bfloat16
     es = 2
     model = AudioMamba(flagship_config(), device="cuda", seed=0)
@@ -579,6 +751,7 @@ def phase_bench(device_info: dict) -> dict:
     del model
     emit({"phase": "bench", "batch": bsz, "dtype": "bfloat16", "ms_per_forward": fwd_ms,
           "clips_per_s": bsz / (fwd_ms / 1e3), "peak_mem_bytes": peak, "card": card})
+    wav = bench_wav()
 
     # Scan at the forward's shapes: v1, both directions on shared operands.
     u, delta, A, B, C, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed=4)
@@ -619,8 +792,95 @@ def phase_bench(device_info: dict) -> dict:
     emit({"phase": "bench_kernels", "dims": [bsz, seqlen, d, n], "dtype": "bfloat16", **out,
           "card": {"scan": card, "conv": card_conv}})
     del xc, w, b
+    single = bench_single_kernels(sfu_rate)
     train = bench_train_kernels(sfu_rate)
-    return {**out, **train}
+    return {**out, **single, **train, "wav": wav}
+
+
+def bench_wav() -> dict:
+    """``wav_entry``'s model (AuM-Base Fo-Fo, bf16) at B=64 from waveforms:
+    clips/s, and the frontend alone."""
+    from aum_tpu_torch.entry import (
+        CLIP_SAMPLES,
+        flagship_config,
+        wav_forward_fn,
+        wav_frontend_fn,
+    )
+    from aum_tpu_torch.models import AudioMamba
+
+    bsz = BENCH_BATCH
+    model = AudioMamba(flagship_config("Fo-Fo"), device="cuda", seed=0)
+    fn = wav_forward_fn(model)
+    wav = (0.1 * torch.randn((bsz, CLIP_SAMPLES), generator=torch.Generator().manual_seed(1))
+           ).cuda()
+    frontend = wav_frontend_fn(model.config)
+    torch.cuda.reset_peak_memory_stats()
+
+    def forward():
+        with torch.inference_mode():
+            return fn(wav)
+
+    with sample_clocks({}) as card:
+        fwd_ms = cuda_ms(forward, iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    frontend_ms = cuda_ms(lambda: frontend(wav), iters=10)
+    del model, fn
+    out = {"phase": "bench_wav", "batch": bsz, "samples": CLIP_SAMPLES, "dtype": "bfloat16",
+           "bimamba": "none", "ms_per_forward": fwd_ms, "clips_per_s": bsz / (fwd_ms / 1e3),
+           "frontend_ms": frontend_ms, "peak_mem_bytes": peak, "card": card}
+    emit(out)
+    return out
+
+
+def _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra_bytes=0) -> dict:
+    """One direction's scan forward: u, dt, z, B, C, A, D read once, out
+    written once (plus ``extra_bytes`` of states); one exp2 and
+    SCAN_FP32_OPS_PER_ELEMENT FP32-pipe instructions per (b, l, d, n)."""
+    elems = bsz * seqlen * d * n
+    nbytes = (4 * bsz * seqlen * d + 2 * bsz * seqlen * n) * es + (n + 1) * d * 4 + extra_bytes
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": exp_floor_s(elems, SCAN_FP32_OPS_PER_ELEMENT * elems, sfu_rate) * 1e3}
+
+
+def bench_single_kernels(sfu_rate: float) -> dict:
+    """The single-direction scan forward (bf16): at the Fo-Fo bench forward's
+    shapes (B=64) as is and in its with_state form, and its saving form at
+    the train shapes (B=12)."""
+    from aum_tpu_torch.ops.selective_scan import (
+        STATE_CHUNK,
+        _prep_dt,
+        selective_scan_cuda,
+        selective_scan_plain,
+    )
+
+    (_, seqlen, d), n, es = EVAL_DIMS, 16, 2
+    dtype = torch.bfloat16
+    out, cards = {}, {}
+    for bsz, form in ((BENCH_BATCH, "eval"), (BENCH_BATCH, "with_state"),
+                      (TRAIN_DIMS[0], "save_states")):
+        u, delta, A, B, C, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed=13)
+        args = (u, _prep_dt(delta, bias), A, B, C, D, z)
+        kw, extra = {}, 0
+        if form == "with_state":
+            kw = {"initial_state": torch.zeros((bsz, d, n), device="cuda"),
+                  "return_final_state": True}
+            extra = 2 * bsz * n * d * 4
+        elif form == "save_states":
+            kw = {"save_states": True}
+            extra = bsz * math.ceil(seqlen / STATE_CHUNK) * n * d * 4
+        # Enough launches (about a second) that the clock sampler, which
+        # takes a few hundred ms to start, sees the kernel alone.
+        with sample_clocks({}) as cards[form]:
+            ms = cuda_ms(lambda: selective_scan_cuda(args, False, **kw), iters=1500)
+        plain_ms = cuda_ms(lambda: selective_scan_plain(args, False, **kw), iters=2, warmup=1)
+        out[f"scan_single_{form}"] = {
+            "ms": ms, "plain_ms": plain_ms, "batch": bsz,
+            "bounds_ms": _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra),
+            "other_floors_ms": {"sfu_only": bsz * seqlen * d * n / sfu_rate * 1e3}}
+        del u, delta, z, B, C, args
+    emit({"phase": "bench_single_kernels", "dims": [seqlen, d, n], "dtype": "bfloat16", **out,
+          "card": cards})
+    return out
 
 
 def bench_train_kernels(sfu_rate: float) -> dict:
@@ -635,7 +895,7 @@ def bench_train_kernels(sfu_rate: float) -> dict:
         selective_scan_dual_plain,
     )
 
-    bsz, seqlen, d, n = 12, 513, 1536, 16
+    (bsz, seqlen, d), n = TRAIN_DIMS, 16
     dtype, es = torch.bfloat16, 2
     dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, shared=True)
     with sample_clocks({}) as card_save:
@@ -693,10 +953,14 @@ def _kernel_category(name: str) -> str:
         return "scan_bwd_kernel"
     if "scan_dual_fwd_kernel" in low:
         return "scan_fwd_kernel"
+    if "scan_single_fwd_kernel" in low:
+        return "scan_single_fwd_kernel"
     if "conv1d_fwd_kernel" in low:
         return "conv_kernel"
     if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul"
+    if "fft" in low or "radix" in low:  # cuFFT's kernels: the frontend's rfft
+        return "frontend_fft"
     return "other"
 
 
@@ -740,20 +1004,40 @@ def _profile(label: str, fn, **info) -> dict:
 
 
 def phase_profile() -> dict:
-    """One bench forward (B=64), then one train step of the train path."""
-    from aum_tpu_torch.entry import TRAIN_BATCH, flagship_config, train_entry
+    """One Fo-Bi bench forward (B=64), one Fo-Fo forward from waveforms
+    (B=64), then one train step of the train path."""
+    from aum_tpu_torch.entry import (
+        CLIP_SAMPLES,
+        TRAIN_BATCH,
+        flagship_config,
+        train_entry,
+        wav_forward_fn,
+    )
     from aum_tpu_torch.models import AudioMamba
 
     model = AudioMamba(flagship_config(), device="cuda", seed=0)
-    x = torch.randn((64, 1024, 128), generator=torch.Generator().manual_seed(1)).cuda()
+    x = torch.randn((BENCH_BATCH, *reversed(model.config.spectrogram_size)),
+                    generator=torch.Generator().manual_seed(1)).cuda()
 
     def forward():
         with torch.inference_mode():
             model(x)
 
     forward()
-    out = {"eval": _profile("profile", forward, batch=64, dtype="bfloat16")}
+    out = {"eval": _profile("profile", forward, batch=BENCH_BATCH, dtype="bfloat16")}
     del model, x
+    fn = wav_forward_fn(AudioMamba(flagship_config("Fo-Fo"), device="cuda", seed=0))
+    wav = (0.1 * torch.randn((BENCH_BATCH, CLIP_SAMPLES),
+                             generator=torch.Generator().manual_seed(1))).cuda()
+
+    def wav_forward():
+        with torch.inference_mode():
+            fn(wav)
+
+    wav_forward()
+    out["wav"] = _profile("profile_wav", wav_forward, batch=BENCH_BATCH, dtype="bfloat16",
+                          bimamba="none", samples=CLIP_SAMPLES)
+    del fn, wav
     step, state, batch = train_entry()
     step(state, batch)
     out["train"] = _profile("profile_train_step", lambda: step(state, batch),
@@ -785,8 +1069,10 @@ def main() -> int:
     phase_build()
     worst = phase_kernels()
     eval_launches = phase_model()
+    wav_launches = phase_wav()
     train = phase_train()
     train_launches = train["launches_per_step"]
+    fofo_launches = train["fofo_check_launches"]
     bench = phase_bench(device_info)
     phase_profile()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
@@ -806,19 +1092,41 @@ def main() -> int:
         "aum_tpu/ops/selective_scan.py:392", train_launches["selective_scan_bwd"],
         worst["selective_scan_bwd"], bench["scan_bwd"])
     bwd["also_replaces"] = "aum_tpu/ops/selective_scan.py:822 (both directions in one launch)"
-    bwd["launches_by_path"] = {"eval": 0, "train": train_launches["selective_scan_bwd"]}
-    # The same kernel on one direction, the form of _bwd_kernel; no path
-    # launches it (the train path takes both directions at once).
+    bwd["launches_by_path"] = {"eval": 0, "wav": 0, "train": train_launches["selective_scan_bwd"],
+                               "fofo_train_check": fofo_launches["selective_scan_bwd"]}
+    # The same kernel on one direction, the form of _bwd_kernel: the Fo-Fo
+    # train check launches it (the train path takes both directions at once).
     bwd["one_direction"] = _kernel_entry(
-        "selective_scan_bwd", bwd["source"], bwd["replaces"], 0, worst["selective_scan_bwd"],
+        "selective_scan_bwd", bwd["source"], bwd["replaces"],
+        fofo_launches["selective_scan_bwd"], worst["selective_scan_bwd"],
         bench["scan_bwd_one_direction"])
+    single = _kernel_entry(
+        "selective_scan_fwd", "aum_tpu_torch/csrc/selective_scan.cu",
+        "aum_tpu/ops/selective_scan.py:111", wav_launches["selective_scan_fwd"],
+        worst["selective_scan_fwd"], bench["scan_single_eval"])
+    # Its saving form, under grad (the Fo-Fo train check), and its with_state
+    # form, which no path runs yet (the LM prefill and sequence parallelism).
+    single["save_states"] = _kernel_entry(
+        "selective_scan_fwd", single["source"], single["replaces"],
+        fofo_launches["selective_scan_fwd_save_states"],
+        worst["selective_scan_fwd_save_states"], bench["scan_single_save_states"])
+    single["with_state"] = _kernel_entry(
+        "selective_scan_fwd", single["source"], single["replaces"],
+        wav_launches["selective_scan_fwd_with_state"],
+        worst["selective_scan_fwd_with_state"], bench["scan_single_with_state"])
+    single["launches_by_path"] = {"eval": eval_launches["selective_scan_fwd"],
+                                  "wav": wav_launches["selective_scan_fwd"],
+                                  "train": train_launches["selective_scan_fwd"],
+                                  "fofo_train_check": fofo_launches["selective_scan_fwd"]}
     conv = _kernel_entry(
         "causal_conv1d_fwd", "aum_tpu_torch/csrc/conv1d.cu", "aum_tpu/ops/conv1d.py:107",
         eval_launches["causal_conv1d_fwd"], worst["causal_conv1d_fwd"], bench["conv"],
         library_ms=bench["conv"]["library_ms"])
     conv["launches_by_path"] = {"eval": eval_launches["causal_conv1d_fwd"],
+                                "wav": wav_launches["causal_conv1d_fwd"],
                                 "train": train_launches["causal_conv1d_fwd"]}
-    emit({"kernels": [scan, bwd, conv]})
+    scan["launches_by_path"]["wav"] = wav_launches["selective_scan_dual_fwd"]
+    emit({"kernels": [scan, single, bwd, conv]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

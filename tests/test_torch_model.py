@@ -4,8 +4,9 @@
   loads into the port's module tree with ``strict=True``;
 - the slice as a whole: the port's AudioMamba, with weights carried from the
   JAX init that recorded ``tests/goldens/``, reproduces the committed
-  reference logits, and agrees with ``AudioMamba(cfg, use_kernel=False)``
-  of the JAX package in fp32 and bf16;
+  reference logits of all 8 goldens (Fo-Fo, Fo-Bi, Bi-Bi, if_bidirectional),
+  and agrees with ``AudioMamba(cfg, use_kernel=False)`` of the JAX package
+  in fp32 and bf16 (Bi-Bi) and in fp32 (Fo-Fo, if_bidirectional);
 - hygiene: the package imports neither JAX nor ``aum_tpu``; without a card
   and without ``device=`` the entry points raise; CPU tensors never launch a
   kernel.
@@ -34,10 +35,9 @@ from scripts.record_goldens import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# The goldens whose variants the port covers (Fo-Fo and if_bidirectional
-# are not ported yet).
+# The goldens whose variants the port covers: all of them.
 PORTED_GOLDENS = ["v1_middle", "v2_middle", "v1_end_cls", "v2_double_cls",
-                  "v1_transpose", "v1_depth24_tiny"]
+                  "v1_transpose", "v1_depth24_tiny", "none_middle", "none_bidirectional"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,7 +70,7 @@ def _port_model(name, **overrides):
     return model
 
 
-@pytest.mark.parametrize("name", ["v1_middle", "v2_double_cls"])
+@pytest.mark.parametrize("name", ["v1_middle", "v2_double_cls", "none_bidirectional"])
 def test_state_dict_from_jax_matches_exporter(name):
     import torch
 
@@ -95,7 +95,8 @@ def test_port_reproduces_golden_logits(name):
     import torch
 
     data = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
-    assert json.loads(str(data["config"]))["bimamba_type"] in ("v1", "v2")
+    assert json.loads(str(data["config"])) == {  # the golden is of this config
+        k: list(v) if isinstance(v, tuple) else v for k, v in GOLDENS[name][0].items()}
     cfg = _golden_params(name)[0]
     x = golden_input(cfg, int(data["seed"]))
     got = _eval(_port_model(name), x)
@@ -113,7 +114,7 @@ def test_port_matches_jax_model(dtype):
     jcfg, params = _golden_params(name)
     jcfg = jcfg.__class__(**{**GOLDENS[name][0], "dtype": dtype})
     x = golden_input(jcfg, 3)
-    want = np.asarray(JaxAudioMamba(jcfg, use_kernel=False).apply(
+    want = np.asarray(jax.jit(JaxAudioMamba(jcfg, use_kernel=False).apply)(
         params, jnp.asarray(x)), np.float32)
     got = _eval(_port_model(name, dtype=dtype), x)
     if dtype == "float32":
@@ -125,6 +126,19 @@ def test_port_matches_jax_model(dtype):
         # dt to bf16 (the kernel contract) and sums the taps in fp32. Over
         # 4 layers that is about one bf16 ulp (2^-9) of logits of size ~0.4.
         np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("name", ["none_middle", "none_bidirectional"])
+def test_port_matches_jax_model_fofo(name):
+    """Fo-Fo, alone and in if_bidirectional layer pairs, in fp32."""
+    from aum_tpu.models import AudioMamba as JaxAudioMamba
+
+    jcfg, params = _golden_params(name)
+    x = golden_input(jcfg, 3)
+    want = np.asarray(jax.jit(JaxAudioMamba(jcfg, use_kernel=False).apply)(
+        params, jnp.asarray(x)))
+    # Same fp32 math; reduction orders differ.
+    np.testing.assert_allclose(_eval(_port_model(name), x), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("readout", ["front_cls", "mean", "max", "all", "none"])
@@ -145,7 +159,7 @@ def test_port_readouts_match_jax_model(readout):
     params = port_aum_state_dict(
         {k: v.numpy() for k, v in model.state_dict().items()}, jcfg)
     x = golden_input(jcfg, 11)
-    want = np.asarray(jmodel.apply(params, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jmodel.apply)(params, jnp.asarray(x)))
     got = _eval(model, x)
     assert got.shape == want.shape
     # fp32 on both sides; reduction orders differ.
@@ -157,6 +171,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import aum_tpu_torch, aum_tpu_torch.ops, aum_tpu_torch.models\n"
         "import aum_tpu_torch.convert, aum_tpu_torch.entry, aum_tpu_torch.train\n"
+        "import aum_tpu_torch.audio, aum_tpu_torch.serving\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'aum_tpu')]\n"
@@ -195,6 +210,25 @@ def test_param_count_base_fobi():
     assert abs(sum(p.numel() for p in model.parameters()) - 92.1e6) < 0.05e6
 
 
+def test_param_count_base_fofo():
+    """AuM-Base Fo-Fo has exactly the JAX model's parameters (no A_b_log)."""
+    from aum_tpu.models import AudioMamba as JaxAudioMamba
+    from aum_tpu.models import AudioMambaConfig as JaxConfig
+
+    from aum_tpu_torch.entry import flagship_config
+    from aum_tpu_torch.models import AudioMamba
+
+    cfg = flagship_config("Fo-Fo")
+    jcfg = JaxConfig.from_variant("base", "Fo-Fo", num_classes=527)
+    f, t = jcfg.spectrogram_size
+    shapes = jax.eval_shape(JaxAudioMamba(jcfg, use_kernel=False).init,
+                            jax.random.PRNGKey(0), jnp.zeros((1, t, f)))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    model = AudioMamba(cfg, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == want
+    assert not any("A_b_log" in k for k in model.state_dict())
+
+
 def test_cpu_tensors_take_the_plain_path():
     import torch
 
@@ -210,7 +244,7 @@ def test_cpu_tensors_take_the_plain_path():
 def test_wrappers_refuse_other_devices():
     import torch
 
-    from aum_tpu_torch.ops import causal_conv1d, selective_scan_dual
+    from aum_tpu_torch.ops import causal_conv1d, selective_scan, selective_scan_dual
 
     x = torch.empty((1, 5, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -219,14 +253,19 @@ def test_wrappers_refuse_other_devices():
             torch.empty((1, 5, 4), device="meta"), torch.empty(8, device="meta"), x, None)
     with pytest.raises(ValueError, match="cpu or cuda"):
         selective_scan_dual(args, args)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        selective_scan(*args)
 
 
-@pytest.mark.parametrize("kind", ["fo_fo", "bidirectional"])
+@pytest.mark.parametrize("kind", ["sequence_flip", "token_shuffle"])
 def test_unported_variants_raise(kind):
+    import torch
+
     from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
 
-    kw = dict(depth=2, embed_dim=32, spectrogram_size=(32, 32), num_classes=3)
-    cfg = (AudioMambaConfig(bimamba_type="none", **kw) if kind == "fo_fo"
-           else AudioMambaConfig(bimamba_type="v1", if_bidirectional=True, **kw))
+    model = AudioMamba(AudioMambaConfig(depth=2, embed_dim=32, spectrogram_size=(32, 32),
+                                        num_classes=3, bimamba_type="none"), device="cpu")
+    kw = ({"flip_sequence_prob": 0.5} if kind == "sequence_flip"
+          else {"if_random_token_rank": True})
     with pytest.raises(NotImplementedError):
-        AudioMamba(cfg, device="cpu")
+        model(torch.zeros((1, 32, 32)), train=True, **kw)

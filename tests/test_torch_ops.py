@@ -4,19 +4,25 @@ On a CPU tensor each port wrapper runs its kernel's plain PyTorch version, so
 these tests hold that version to the JAX op; the CUDA kernels themselves are
 held to the plain versions on the card by ``chip_smoke.py``. The JAX scan and
 conv kernels run here in Pallas interpret mode, as the JAX package's own
-tests run them. Inputs are drawn with numpy from fixed seeds and handed to
-both frameworks. torch is imported inside the tests, as in the other test
-modules that use it.
+tests run them: the dual scan, and the single-direction scan (forward,
+``with_state``, and its grads through ``_fwd_kernel_z`` with saved states and
+``_bwd_kernel``), each jitted once per form and shared. Inputs are drawn with
+numpy from fixed seeds and handed to both frameworks. torch is imported
+inside the tests, as in the other test modules that use it.
 """
+
+import functools
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from aum_tpu.ops import conv1d as jconv
 from aum_tpu.ops import norms as jnorms
 from aum_tpu.ops.scan_ref import selective_scan_ref as jscan_ref
+from aum_tpu.ops.selective_scan import selective_scan as jscan
 from aum_tpu.ops.selective_scan import selective_scan_dual as jscan_dual
 
 DTYPES = ("float32", "bfloat16")
@@ -65,6 +71,9 @@ def _as_torch(args, dtype):
 # (2^-7 relative at most); dt is rounded to bf16 identically on both sides.
 SCAN_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
+# One compile per (n, dtype): the v1 and v2 cases share it.
+_jscan_dual = jax.jit(functools.partial(jscan_dual, d_block=8, l_chunk=16))
+
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [4, 16])
@@ -76,8 +85,7 @@ def test_selective_scan_dual_matches_jax_kernel(shared, n, dtype):
     args_r = args_f if shared else _scan_args(20 + n, n=n)
     if shared:  # bimamba v1: same operands, its own A
         args_r = args_f[:2] + (args_f[2] * 0.5,) + args_f[3:]
-    want = jscan_dual(_as_jax(args_f, dtype), _as_jax(args_r, dtype),
-                      d_block=8, l_chunk=16)
+    want = _jscan_dual(_as_jax(args_f, dtype), _as_jax(args_r, dtype))
     tf = _as_torch(args_f, dtype)
     tr = _as_torch(args_r, dtype)
     if shared:  # the same tensors, as the v1 mixer passes them
@@ -87,6 +95,110 @@ def test_selective_scan_dual_matches_jax_kernel(shared, n, dtype):
     for g, w in zip(got, want):
         assert str(g.dtype) == f"torch.{dtype}"
         np.testing.assert_allclose(_np(g), np.asarray(w, np.float32), rtol=tol, atol=tol)
+
+
+# --- the single-direction scan -------------------------------------------------
+
+def _single_args():
+    """(u, delta, A, B, C, D, z, delta_bias) at B=2, L=37, D=32, N=16."""
+    return _scan_args(40, d=32, n=16)
+
+
+@pytest.fixture(scope="module")
+def jax_single_scan():
+    """The JAX ``selective_scan(use_kernel=True, interpret=True)`` on
+    ``_single_args()``, l_chunk 8 (an overhang chunk at L=37), with bias,
+    softplus, D and z, per direction: fp32 (out, the 8 grads of sum(out *
+    w)) from one jitted vjp, bf16 out, and the with_state form's (out, final
+    state) from a random x0."""
+    rng = np.random.default_rng(41)
+    x0 = rng.standard_normal((2, 32, 16))
+    w = rng.standard_normal((2, 37, 32))
+    args = _single_args()
+    out = {"x0": x0, "w": w}
+    for reverse in (False, True):
+        def scan(*a, **kw):
+            return jscan(*a[:6], z=a[6], delta_bias=a[7], delta_softplus=True,
+                         reverse=reverse, use_kernel=True, interpret=True, l_chunk=8, **kw)
+
+        def out_and_grads(a, w):
+            y, vjp = jax.vjp(scan, *a)
+            return y, vjp(w)
+
+        out["float32", reverse] = jax.jit(out_and_grads)(_as_jax(args, "float32"),
+                                                         jnp.asarray(w, jnp.float32))
+        out["bfloat16", reverse] = (jax.jit(scan)(*_as_jax(args, "bfloat16")), None)
+        out["state", reverse] = jax.jit(functools.partial(scan, return_final_state=True))(
+            *_as_jax(args, "float32"), initial_state=jnp.asarray(x0, jnp.float32))
+    return {k: jax.device_get(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_selective_scan_matches_jax_kernel(jax_single_scan, reverse, dtype):
+    from aum_tpu_torch.ops import selective_scan
+
+    args = _as_torch(_single_args(), dtype)
+    got = selective_scan(*args[:7], delta_bias=args[7], delta_softplus=True, reverse=reverse)
+    want = jax_single_scan[dtype, reverse][0]
+    assert str(got.dtype) == f"torch.{dtype}"
+    tol = SCAN_TOL[dtype]  # the dual scan's bounds, for the same reasons
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_selective_scan_with_state_matches_jax_kernel(jax_single_scan, reverse):
+    """Out and final state (the state after position 0 when reversed) from a
+    carried-in state, in the reference's (B, D, N) layout."""
+    import torch
+
+    from aum_tpu_torch.ops import selective_scan
+
+    args = _as_torch(_single_args(), "float32")
+    got, fin = selective_scan(*args[:7], delta_bias=args[7], delta_softplus=True,
+                              reverse=reverse, initial_state=_torch(jax_single_scan["x0"]),
+                              return_final_state=True)
+    want, want_fin = jax_single_scan["state", reverse]
+    assert tuple(fin.shape) == (2, 32, 16) and fin.dtype == torch.float32
+    # fp32 recurrences, exp vs exp2: the forward's bound.
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(fin), np.asarray(want_fin), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_selective_scan_grads_match_jax_kernels(jax_single_scan, reverse):
+    """All 8 grads of the single-direction scan (``_Scan``; its plain
+    backward here) against JAX's save_states ``_fwd_kernel_z`` +
+    ``_bwd_kernel``, fp32, each within 2e-4 of its largest element (the JAX
+    package's own bound for its kernel's grads)."""
+    from aum_tpu_torch.ops import selective_scan
+
+    leaves = [t.requires_grad_() for t in _as_torch(_single_args(), "float32")]
+    y = selective_scan(*leaves[:7], delta_bias=leaves[7], delta_softplus=True, reverse=reverse)
+    (y * _torch(jax_single_scan["w"])).sum().backward()
+    for name, t, w in zip(("u", "delta", "A", "B", "C", "D", "z", "bias"), leaves,
+                          jax_single_scan["float32", reverse][1]):
+        w = np.asarray(w, np.float32)
+        err = float(np.abs(_np(t.grad) - w).max() / np.abs(w).max())
+        assert err <= 2e-4, (name, err)
+
+
+def test_selective_scan_state_forms_run_without_grad_only():
+    import torch
+
+    from aum_tpu_torch.ops import selective_scan
+
+    args = [t.requires_grad_() for t in _as_torch(_scan_args(3), "float32")]
+    with pytest.raises(NotImplementedError, match="with_state"):
+        selective_scan(*args[:7], delta_bias=args[7], delta_softplus=True,
+                       return_final_state=True)
+    with pytest.raises(NotImplementedError, match="softplus"):
+        selective_scan(*args[:7], delta_bias=args[7])
+    with pytest.raises(ValueError, match="D and z"):
+        selective_scan(*args[:5], None, args[6])
+    with torch.no_grad():
+        y, fin = selective_scan(*args[:7], delta_bias=args[7], return_final_state=True)
+    assert y.shape == args[0].shape and tuple(fin.shape) == (2, 16, 4)
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -329,7 +329,7 @@ def port_run():
     return {"steps": steps, "state": state, "after_first": after_first}
 
 
-@pytest.mark.parametrize("bimamba", ["v1", "v2"])
+@pytest.mark.parametrize("bimamba", ["v1", "v2", "none"])
 def test_model_loss_and_grads_match_jax(bimamba):
     """The loss and every parameter grad against those of JAX's first train
     step (``jax.value_and_grad`` of the model in train mode, BCE)."""
@@ -501,12 +501,19 @@ def test_block_remat_reuses_the_drop_path_masks():
 
 
 def test_cpu_backward_launches_no_kernel():
-    from aum_tpu_torch.ops import causal_conv1d, selective_scan_bwd, selective_scan_dual
+    from aum_tpu_torch.ops import (
+        causal_conv1d,
+        selective_scan,
+        selective_scan_bwd,
+        selective_scan_dual,
+    )
 
     x, y = _batch(1)
-    _grads(_tiny_port("v2", remat=True, remat_mode="split"), x, y)
+    for bimamba in ("v2", "none"):
+        _grads(_tiny_port(bimamba, remat=True, remat_mode="split"), x, y)
     assert (selective_scan_dual.launches, selective_scan_dual.save_states_launches,
-            selective_scan_bwd.launches, causal_conv1d.launches) == (0, 0, 0, 0)
+            selective_scan.launches, selective_scan.save_states_launches,
+            selective_scan_bwd.launches, causal_conv1d.launches) == (0, 0, 0, 0, 0, 0)
 
 
 def test_eval_step_and_unported_augmentation():
