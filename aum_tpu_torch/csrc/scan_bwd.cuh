@@ -1,0 +1,165 @@
+// What the two selective-scan backward kernels share (sm_90a): the operand
+// struct of their C entries, the lane layout of a chain, and the warp-level
+// sums. selective_scan_bwd.cu recomputes a chunk's states on two levels;
+// selective_scan_bwd_fused.cu once. See each source for its design.
+#pragma once
+
+#include "common.cuh"
+
+// One direction's operands and outputs. Strides are in elements; every
+// (B, L, D) or (B, L, N) stream has channel stride 1.
+struct ScanBwdDir {
+  const void* u;
+  const void* dt;
+  const void* z;
+  const void* B;
+  const void* C;
+  const float* A;      // (D, N) fp32, contiguous
+  const float* Dskip;  // (D,) fp32
+  const void* g;       // cotangent of out
+  const float* xb;     // (batch, ceil(L / kChunk), N, D) fp32 entry states
+  void* du;            // (batch, L, D), contiguous, stream dtype
+  void* ddelta;        // (batch, L, D), contiguous, stream dtype
+  void* dz;            // (batch, L, D), contiguous, stream dtype
+  float* dA_part;      // (batch, N, D)
+  float* dD_part;      // (batch, D)
+  float* dbias_part;   // (batch, D)
+  float* dbc_part;     // (ceil(D / channels per block), batch, L, 32): [n] dB, [16 + n] dC
+  const float* gfin;   // (batch, N, D) fp32 cotangent of the final state, or null
+  float* dx0;          // (batch, N, D) fp32 grad of the starting state, or null
+  long long u_sb, u_sl;
+  long long dt_sb, dt_sl;
+  long long z_sb, z_sl;
+  long long B_sb, B_sl;
+  long long C_sb, C_sl;
+  long long g_sb, g_sl;
+  int reverse;
+  int softplus;  // 1: ddelta = ddt (1 - exp(-dt)), through the softplus; 0: ddelta = ddt
+};
+
+struct ScanBwdArgs {
+  ScanBwdDir dir[2];
+};
+
+namespace aum {
+namespace bwd {
+
+constexpr int kWarp = 32;
+constexpr int kGroup = 4;                    // lanes per chain
+constexpr int kMaxN = 16;
+constexpr int kNL = kMaxN / kGroup;          // states per lane
+constexpr int kChanPerWarp = kWarp / kGroup;  // 8
+constexpr int kChunk = 64;  // the forward's state-save interval (selective_scan.cu)
+constexpr int kSub = 8;     // steps whose per-step streams are loaded at once
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRow = 2 * kMaxN;  // floats per partial row: N dB then N dC sums
+static_assert(2 * kNL == kChanPerWarp, "the reduce-scatter leaves one sum per lane");
+static_assert(kRow == kWarp, "a warp's lanes hold one row");
+
+template <typename T>
+__device__ __forceinline__ float load(const T* p, long long offset, bool active) {
+  return active ? aum::to_float(p[offset]) : 0.0f;
+}
+
+// One step of the forward recurrence on this lane's states n = q * kNL + k.
+__device__ __forceinline__ void advance(float (&x)[kNL], const float (&A)[kNL],
+                                        const float* bt, float dtv, float uv) {
+  const float dtl = dtv * kLog2e;
+  const float dtu = dtv * uv;
+#pragma unroll
+  for (int k = 0; k < kNL; ++k) x[k] = exp2f(dtl * A[k]) * x[k] + dtu * bt[k];
+}
+
+// The sum of v over the kGroup lanes of a chain, in every one of them.
+__device__ __forceinline__ float group_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One level of the butterfly over lanes of equal state group: lanes with
+// bit kLane set keep the upper half of v[0, 2 kHalf), the others the lower
+// half, and each adds its partner's.
+template <int kLane, int kHalf>
+__device__ __forceinline__ void reduce_level(float (&v)[2 * kNL], int lane) {
+  const bool upper = (lane & kLane) != 0;
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const float send = upper ? v[j] : v[j + kHalf];
+    const float keep = upper ? v[j + kHalf] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, kLane);
+  }
+}
+
+// Sums v[i] over the warp's 8 channels: afterwards v[0] of a lane in
+// channel group c (lane / kGroup) holds the sum of v[c]. Every index is a
+// compile-time constant, so v stays in registers.
+__device__ __forceinline__ void channel_reduce_scatter(float (&v)[2 * kNL], int lane) {
+  reduce_level<16, 4>(v, lane);
+  reduce_level<8, 2>(v, lane);
+  reduce_level<4, 1>(v, lane);
+}
+
+// Where a lane's channel sum lands in the row of 32: dB_n at n, dC_n at 16 + n.
+__device__ __forceinline__ int row_position(int ch, int n0) {
+  return ch < kNL ? n0 + ch : kMaxN + n0 + ch - kNL;
+}
+
+// One adjoint step at processed step t, against the scan's direction, on
+// this lane's states: recomputes a_t and x_t from the state before the step
+// (xprev[k * xstride]), y_t, the gate grads; lam_t = C_t gy_t + lam, and on
+// return lam = a_t lam_t (the carry to the step before); adds to dA, dD and
+// dbias; writes du, ddelta and dz at element o when `write`. Returns this
+// lane's share of the step's dB/dC row (see channel_reduce_scatter). Both
+// backward kernels run this one step, so they cannot drift apart.
+// kSoftplus: dt came through the softplus (a template flag, so the step
+// carries no select for it).
+template <typename T, bool kSoftplus>
+__device__ __forceinline__ float adjoint_step(
+    const float* xprev, int xstride, const float* bt, const float* ct,
+    const float (&A)[kNL], float (&lam)[kNL], float (&dA)[kNL], float& dD, float& dbias,
+    float dtv, float uv, float zv, float gv, float dskip, bool write,
+    T* du, T* ddelta, T* dz, long long o, int lane) {
+  const float dtl = dtv * kLog2e;
+  const float dtu = dtv * uv;
+  float a[kNL], xt[kNL];
+  float y = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kNL; ++k) {
+    a[k] = exp2f(dtl * A[k]);
+    xt[k] = a[k] * xprev[k * xstride] + dtu * bt[k];
+    y += ct[k] * xt[k];
+  }
+  y = group_sum(y);
+  const float sig = 1.0f / (1.0f + expf(-zv));
+  const float gy = gv * zv * sig;
+  const float dzv = gv * (y + dskip * uv) * (sig * (1.0f + zv * (1.0f - sig)));
+  dD += gy * uv;
+
+  float v[2 * kNL];
+  float dla_a = 0.0f, gdtu = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kNL; ++k) {
+    const float l = ct[k] * gy + lam[k];
+    const float dla = l * a[k] * xprev[k * xstride];  // read again: fewer live registers
+    dA[k] += dtv * dla;
+    dla_a += dla * A[k];
+    gdtu += l * bt[k];
+    v[k] = l * dtu;           // dB_t[n], this channel's share
+    v[kNL + k] = xt[k] * gy;  // dC_t[n], this channel's share
+    lam[k] = a[k] * l;
+  }
+  gdtu = group_sum(gdtu);
+  const float ddt = group_sum(dla_a) + gdtu * uv;
+  const float dd = kSoftplus ? ddt * (1.0f - expf(-dtv)) : ddt;  // sigmoid(delta + bias)
+  dbias += dd;
+  if (write) {
+    du[o] = aum::from_float<T>(gy * dskip + gdtu * dtv);
+    ddelta[o] = aum::from_float<T>(dd);
+    dz[o] = aum::from_float<T>(dzv);
+  }
+  channel_reduce_scatter(v, lane);
+  return v[0];
+}
+
+}  // namespace bwd
+}  // namespace aum

@@ -3,7 +3,10 @@
 // scan_dual_fwd_kernel replaces the TPU kernel
 // aum_tpu/ops/selective_scan.py:_fwd_kernel_dual in its default configuration
 // (fused y-readout, per-step decay), in eval and, with saved chunk states, in
-// the train forward. scan_single_fwd_kernel replaces _fwd_kernel_z: one
+// the train forward. scan_dual_direct_fwd_kernel replaces
+// _fwd_kernel_dual_direct (the opt-in behind AUM_SCAN_DIRECT=1): the same
+// function with no staging of B/C (below); its plain version is the staged
+// kernel's, selective_scan_dual_plain. scan_single_fwd_kernel replaces _fwd_kernel_z: one
 // direction, chosen at run time, with the same saved states and, in its
 // with_state form, a carried-in initial state and the final state out. Per
 // direction, per (batch b, channel d), with the pre-activated dt =
@@ -29,10 +32,14 @@
 // read u, dt, z and write out with neighbouring threads on neighbouring
 // addresses. B_t and C_t are the same for every channel of a row, so the
 // block stages a chunk of kChunk steps of them in shared memory and every
-// thread reads them as broadcasts. A CUDA loop runs exactly L steps, so
+// thread reads them as broadcasts. The direct kernel does not stage them:
+// every thread reads B_t and C_t straight from global memory at every step,
+// broadcasts within a warp that L1 or the read-only path serves; it tests
+// whether the staging (and its two block barriers per chunk) pays on this
+// card. A CUDA loop runs exactly L steps, so
 // unlike the TPU kernels (whose blocks overhang the array) nothing is masked.
-// There is no chunk carry across blocks and no padding of N. Both kernels run
-// one walk, scan_chain, so they cannot drift apart.
+// There is no chunk carry across blocks and no padding of N. All three
+// kernels run one walk, scan_chain, so they cannot drift apart.
 //
 // What bounds it: per element of (batch, length, channel, state) and
 // direction the chain does one exp2 and four FP32-pipe instructions (two
@@ -82,8 +89,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // The walk of chain (b, d) of one direction. Every thread of the block calls
 // it (the staging of B/C synchronises the block); threads past the last
-// channel stage and wait but compute nothing.
-template <typename T, bool kSave, bool kState>
+// channel stage and wait but compute nothing. kDirect reads B/C from global
+// memory at every step instead (s_B and s_C unused, no barriers).
+template <typename T, bool kSave, bool kState, bool kDirect>
 __device__ __forceinline__ void scan_chain(const ScanDir& p, bool reverse, int seqlen,
                                            int dim, int dstate, float (*s_B)[kMaxN],
                                            float (*s_C)[kMaxN]) {
@@ -111,15 +119,17 @@ __device__ __forceinline__ void scan_chain(const ScanDir& p, bool reverse, int s
 
   for (int c0 = 0; c0 < seqlen; c0 += kChunk) {
     const int len = min(kChunk, seqlen - c0);
-    __syncthreads();  // the previous chunk's readers are done with s_B/s_C
-    for (int idx = threadIdx.x; idx < len * dstate; idx += kThreads) {
-      const int i = idx / dstate;
-      const int n = idx - i * dstate;
-      const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
-      s_B[i][n] = aum::to_float(Bm[t * p.B_sl + n]);
-      s_C[i][n] = aum::to_float(Cm[t * p.C_sl + n]);
+    if constexpr (!kDirect) {
+      __syncthreads();  // the previous chunk's readers are done with s_B/s_C
+      for (int idx = threadIdx.x; idx < len * dstate; idx += kThreads) {
+        const int i = idx / dstate;
+        const int n = idx - i * dstate;
+        const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
+        s_B[i][n] = aum::to_float(Bm[t * p.B_sl + n]);
+        s_C[i][n] = aum::to_float(Cm[t * p.C_sl + n]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
     if (!active) continue;
     if (kSave) {
       float* xb = p.xb + ((static_cast<long long>(b) * ((seqlen + kChunk - 1) / kChunk)
@@ -137,11 +147,23 @@ __device__ __forceinline__ void scan_chain(const ScanDir& p, bool reverse, int s
       const float dtl = dtv * kLog2e;
       const float dtu = dtv * uv;
       float y = 0.0f;
+      if constexpr (kDirect) {
+        const T* bt = Bm + t * p.B_sl;
+        const T* ct = Cm + t * p.C_sl;
 #pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        if (n < dstate) {
-          x[n] = exp2f(dtl * a[n]) * x[n] + dtu * s_B[i][n];
-          y += s_C[i][n] * x[n];
+        for (int n = 0; n < kMaxN; ++n) {
+          if (n < dstate) {
+            x[n] = exp2f(dtl * a[n]) * x[n] + dtu * aum::to_float(__ldg(bt + n));
+            y += aum::to_float(__ldg(ct + n)) * x[n];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < kMaxN; ++n) {
+          if (n < dstate) {
+            x[n] = exp2f(dtl * a[n]) * x[n] + dtu * s_B[i][n];
+            y += s_C[i][n] * x[n];
+          }
         }
       }
       out[static_cast<long long>(t) * dim] =
@@ -163,7 +185,18 @@ scan_dual_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim, 
   __shared__ float s_B[kChunk][kMaxN];
   __shared__ float s_C[kChunk][kMaxN];
   const bool reverse = blockIdx.z == 1;
-  scan_chain<T, kSave, false>(reverse ? rev : fwd, reverse, seqlen, dim, dstate, s_B, s_C);
+  scan_chain<T, kSave, false, false>(reverse ? rev : fwd, reverse, seqlen, dim, dstate, s_B,
+                                     s_C);
+}
+
+// The same, reading B/C per step from global memory.
+template <typename T, bool kSave>
+__global__ void __launch_bounds__(kThreads)
+scan_dual_direct_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim,
+                            int dstate) {
+  const bool reverse = blockIdx.z == 1;
+  scan_chain<T, kSave, false, true>(reverse ? rev : fwd, reverse, seqlen, dim, dstate,
+                                    nullptr, nullptr);
 }
 
 // One direction, reversed or not at run time.
@@ -172,14 +205,21 @@ __global__ void __launch_bounds__(kThreads)
 scan_single_fwd_kernel(const ScanDir p, int reverse, int seqlen, int dim, int dstate) {
   __shared__ float s_B[kChunk][kMaxN];
   __shared__ float s_C[kChunk][kMaxN];
-  scan_chain<T, kSave, kState>(p, reverse != 0, seqlen, dim, dstate, s_B, s_C);
+  scan_chain<T, kSave, kState, false>(p, reverse != 0, seqlen, dim, dstate, s_B, s_C);
 }
 
 template <typename T>
-void launch_dual(const ScanDir& fwd, const ScanDir& rev, int batch, int seqlen, int dim,
-                 int dstate, cudaStream_t s) {
+void launch_dual(const ScanDir& fwd, const ScanDir& rev, bool direct, int batch, int seqlen,
+                 int dim, int dstate, cudaStream_t s) {
   const dim3 grid((dim + kThreads - 1) / kThreads, batch, 2);
-  if (fwd.xb != nullptr) {
+  const bool save = fwd.xb != nullptr;
+  if (direct && save) {
+    scan_dual_direct_fwd_kernel<T, true><<<grid, kThreads, 0, s>>>(fwd, rev, seqlen, dim,
+                                                                    dstate);
+  } else if (direct) {
+    scan_dual_direct_fwd_kernel<T, false><<<grid, kThreads, 0, s>>>(fwd, rev, seqlen, dim,
+                                                                     dstate);
+  } else if (save) {
     scan_dual_fwd_kernel<T, true><<<grid, kThreads, 0, s>>>(fwd, rev, seqlen, dim, dstate);
   } else {
     scan_dual_fwd_kernel<T, false><<<grid, kThreads, 0, s>>>(fwd, rev, seqlen, dim, dstate);
@@ -213,6 +253,24 @@ bool bad_sizes(int batch, int seqlen, int dim, int dstate) {
   return dstate < 1 || dstate > kMaxN || batch < 1 || seqlen < 1 || dim < 1;
 }
 
+int dual_fwd(const ScanDir* fwd, const ScanDir* rev, bool direct, int batch, int seqlen,
+             int dim, int dstate, int dtype, void* stream) {
+  if (bad_sizes(batch, seqlen, dim, dstate) ||
+      (fwd->xb == nullptr) != (rev->xb == nullptr) || fwd->x0 != nullptr ||
+      fwd->xfin != nullptr || rev->x0 != nullptr || rev->xfin != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_dual<float>(*fwd, *rev, direct, batch, seqlen, dim, dstate, s);
+  } else if (dtype == 1) {
+    launch_dual<__nv_bfloat16>(*fwd, *rev, direct, batch, seqlen, dim, dstate, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -227,20 +285,14 @@ int aum_scan_state_chunk() { return kChunk; }
 int aum_selective_scan_dual_fwd(const ScanDir* fwd, const ScanDir* rev,
                                 int batch, int seqlen, int dim, int dstate,
                                 int dtype, void* stream) {
-  if (bad_sizes(batch, seqlen, dim, dstate) ||
-      (fwd->xb == nullptr) != (rev->xb == nullptr) || fwd->x0 != nullptr ||
-      fwd->xfin != nullptr || rev->x0 != nullptr || rev->xfin != nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_dual<float>(*fwd, *rev, batch, seqlen, dim, dstate, s);
-  } else if (dtype == 1) {
-    launch_dual<__nv_bfloat16>(*fwd, *rev, batch, seqlen, dim, dstate, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dual_fwd(fwd, rev, false, batch, seqlen, dim, dstate, dtype, stream);
+}
+
+// The same function through the direct kernel (no staging of B/C).
+int aum_selective_scan_dual_direct_fwd(const ScanDir* fwd, const ScanDir* rev,
+                                       int batch, int seqlen, int dim, int dstate,
+                                       int dtype, void* stream) {
+  return dual_fwd(fwd, rev, true, batch, seqlen, dim, dstate, dtype, stream);
 }
 
 // One direction; reverse != 0 walks t = L-1 .. 0. x0 and xfin are both set

@@ -1,7 +1,7 @@
 // Selective-scan backward, one or both directions in one launch (sm_90a).
 //
 // Replaces the TPU kernel aum_tpu/ops/selective_scan.py:_bwd_kernel in its
-// default configuration (dla_mode "xprev", no carried-in state); launched
+// default dla_mode "xprev", with and without its with_state form; launched
 // with both directions it is also the counterpart of _bwd_kernel_dual, which
 // gives the same outputs as two _bwd_kernel calls. Per direction, per
 // (batch b, channel d), with dt the pre-activated, rounded softplus(delta +
@@ -15,8 +15,16 @@
 //   ddt  = sum_n lam a x_{t-1} A + (sum_n lam B) u
 //   du   = gy D + (sum_n lam B) dt
 //   dB_t = sum_d lam dt u,     dC_t = sum_d x_t gy
-//   ddelta = ddt (1 - exp(-dt))   (sigmoid(delta + bias), from dt alone)
+//   ddelta = ddt (1 - exp(-dt))   (sigmoid(delta + bias), from dt alone;
+//                                  ddelta = ddt where dt had no softplus)
 //   dbias += ddelta               (the fp32 value, before ddelta's cast)
+//
+// The with_state form (one direction; the backward of a scan that started
+// from a carried state x0 and returned its final state) seeds the carry
+// with gfin, the final state's cotangent, where a state beyond the last
+// processed step would inject it, and writes dx0 = a_first lam_first, the
+// carry after the first processed step (position 0 when reversed). Both
+// cross as (batch, N, D) fp32, coalesced over channels like xb.
 //
 // Design: a chain (batch, channel, direction) is split over a group of
 // kGroup = 4 lanes, each holding kNL = 4 of its N <= 16 states, so a warp
@@ -56,104 +64,22 @@
 
 #include <cstdint>
 
-#include "common.cuh"
-
-// One direction's operands and outputs. Strides are in elements; every
-// (B, L, D) or (B, L, N) stream has channel stride 1.
-struct ScanBwdDir {
-  const void* u;
-  const void* dt;
-  const void* z;
-  const void* B;
-  const void* C;
-  const float* A;      // (D, N) fp32, contiguous
-  const float* Dskip;  // (D,) fp32
-  const void* g;       // cotangent of out
-  const float* xb;     // (batch, ceil(L / kChunk), N, D) fp32 entry states
-  void* du;            // (batch, L, D), contiguous, stream dtype
-  void* ddelta;        // (batch, L, D), contiguous, stream dtype
-  void* dz;            // (batch, L, D), contiguous, stream dtype
-  float* dA_part;      // (batch, N, D)
-  float* dD_part;      // (batch, D)
-  float* dbias_part;   // (batch, D)
-  float* dbc_part;     // (ceil(D / 32), batch, L, 32): [n] dB, [16 + n] dC
-  long long u_sb, u_sl;
-  long long dt_sb, dt_sl;
-  long long z_sb, z_sl;
-  long long B_sb, B_sl;
-  long long C_sb, C_sl;
-  long long g_sb, g_sl;
-  int reverse;
-};
-
-struct ScanBwdArgs {
-  ScanBwdDir dir[2];
-};
+#include "scan_bwd.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using namespace aum::bwd;
+
 constexpr int kWarps = 4;                    // warps per block
 constexpr int kThreads = kWarp * kWarps;
-constexpr int kGroup = 4;                    // lanes per chain
-constexpr int kMaxN = 16;
-constexpr int kNL = kMaxN / kGroup;          // states per lane
-constexpr int kChanPerWarp = kWarp / kGroup;  // 8
 constexpr int kChanPerBlock = kChanPerWarp * kWarps;  // 32, one partial row
-constexpr int kChunk = 64;  // the forward's state-save interval (selective_scan.cu)
-constexpr int kSub = 8;     // steps whose states are held at once
 constexpr int kNSub = kChunk / kSub;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kRow = 2 * kMaxN;  // floats per partial row: N dB then N dC sums
-static_assert(2 * kNL == kChanPerWarp, "the reduce-scatter leaves one sum per lane");
-static_assert(kRow == kWarp, "a warp's lanes hold one row");
-
-template <typename T>
-__device__ __forceinline__ float load(const T* p, long long offset, bool active) {
-  return active ? aum::to_float(p[offset]) : 0.0f;
-}
-
-// One step of the forward recurrence on this lane's states n = q * kNL + k.
-__device__ __forceinline__ void advance(float (&x)[kNL], const float (&A)[kNL],
-                                        const float* bt, float dtv, float uv) {
-  const float dtl = dtv * kLog2e;
-  const float dtu = dtv * uv;
-#pragma unroll
-  for (int k = 0; k < kNL; ++k) x[k] = exp2f(dtl * A[k]) * x[k] + dtu * bt[k];
-}
-
-// The sum of v over the kGroup lanes of a chain, in every one of them.
-__device__ __forceinline__ float group_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// One level of the butterfly over lanes of equal state group: lanes with
-// bit kLane set keep the upper half of v[0, 2 kHalf), the others the lower
-// half, and each adds its partner's.
-template <int kLane, int kHalf>
-__device__ __forceinline__ void reduce_level(float (&v)[2 * kNL], int lane) {
-  const bool upper = (lane & kLane) != 0;
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) {
-    const float send = upper ? v[j] : v[j + kHalf];
-    const float keep = upper ? v[j + kHalf] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, kLane);
-  }
-}
-
-// Sums v[i] over the warp's 8 channels: afterwards v[0] of a lane in
-// channel group c (lane / kGroup) holds the sum of v[c]. Every index is a
-// compile-time constant, so v stays in registers.
-__device__ __forceinline__ void channel_reduce_scatter(float (&v)[2 * kNL], int lane) {
-  reduce_level<16, 4>(v, lane);
-  reduce_level<8, 2>(v, lane);
-  reduce_level<4, 1>(v, lane);
-}
 
 // 5 blocks per SM: what the shared memory allows, with registers capped to
 // match (96, a few bytes of spills; measured faster than 4 blocks at 128).
-template <typename T>
+// kState: the with_state form (gfin seeds the carry, dx0 is written);
+// kSoftplus: dt came through the softplus.
+template <typename T, bool kState, bool kSoftplus>
 __global__ void __launch_bounds__(kThreads, 5)
 scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dstate) {
   __shared__ float s_B[kChunk][kMaxN];
@@ -174,8 +100,7 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   const bool active = d < dim;
   const int dc = active ? d : 0;  // inactive channels compute on zeros
   const int n0 = q * kNL;
-  // Where this lane's channel sum lands in the row of 32: dB_n at n, dC_n at 16 + n.
-  const int row_pos = ch < kNL ? n0 + ch : kMaxN + n0 + ch - kNL;
+  const int row_pos = row_position(ch, n0);
 
   const T* u = static_cast<const T*>(p.u) + b * p.u_sb + dc;
   const T* dt = static_cast<const T*>(p.dt) + b * p.dt_sb + dc;
@@ -189,6 +114,7 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   T* dz = static_cast<T*>(p.dz) + row;
   float* dbc = p.dbc_part + (static_cast<long long>(blockIdx.x) * batch + b) * seqlen * kRow;
   const int n_chunks = (seqlen + kChunk - 1) / kChunk;
+  const long long state_row = (static_cast<long long>(b) * dstate + n0) * dim + dc;  // [b, n0, d]
 
   float A[kNL], lam[kNL], dA[kNL];
   bool has_n[kNL];
@@ -196,7 +122,9 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   for (int k = 0; k < kNL; ++k) {
     has_n[k] = active && n0 + k < dstate;
     A[k] = has_n[k] ? p.A[static_cast<long long>(d) * dstate + n0 + k] : 0.0f;
-    lam[k] = 0.0f;  // a_{t+1} lam_{t+1}: zero beyond the last processed step
+    // a_{t+1} lam_{t+1}: beyond the last processed step, the final state's
+    // cotangent (with_state) or zero.
+    lam[k] = (kState && has_n[k]) ? p.gfin[state_row + static_cast<long long>(k) * dim] : 0.0f;
     dA[k] = 0.0f;
   }
   const float dskip = active ? p.Dskip[d] : 0.0f;
@@ -271,49 +199,10 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
         if (j >= slen) continue;
         const int i = i0 + j;
         const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
-        const float dtv = dtr[j], uv = ur[j], zv = zr[j], gv = gr[j];
-        const float dtl = dtv * kLog2e;
-        const float dtu = dtv * uv;
-
-        float a[kNL], xt[kNL];
-        float y = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kNL; ++k) {
-          a[k] = exp2f(dtl * A[k]);
-          xt[k] = a[k] * s_x[j][k][tid] + dtu * s_B[i][n0 + k];
-          y += s_C[i][n0 + k] * xt[k];
-        }
-        y = group_sum(y);
-        const float sig = 1.0f / (1.0f + expf(-zv));
-        const float gy = gv * zv * sig;
-        const float dzv = gv * (y + dskip * uv) * (sig * (1.0f + zv * (1.0f - sig)));
-        dD += gy * uv;
-
-        float v[2 * kNL];
-        float dla_a = 0.0f, gdtu = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kNL; ++k) {
-          const float l = s_C[i][n0 + k] * gy + lam[k];
-          const float dla = l * a[k] * s_x[j][k][tid];
-          dA[k] += dtv * dla;
-          dla_a += dla * A[k];
-          gdtu += l * s_B[i][n0 + k];
-          v[k] = l * dtu;             // dB_t[n], this channel's share
-          v[kNL + k] = xt[k] * gy;    // dC_t[n], this channel's share
-          lam[k] = a[k] * l;
-        }
-        gdtu = group_sum(gdtu);
-        const float ddt = group_sum(dla_a) + gdtu * uv;
-        const float dd = ddt * (1.0f - expf(-dtv));
-        dbias += dd;
-        if (active && q == 0) {
-          const long long o = static_cast<long long>(t) * dim;
-          du[o] = aum::from_float<T>(gy * dskip + gdtu * dtv);
-          ddelta[o] = aum::from_float<T>(dd);
-          dz[o] = aum::from_float<T>(dzv);
-        }
-        channel_reduce_scatter(v, lane);
-        s_dbc[j][warp][row_pos] = v[0];
+        s_dbc[j][warp][row_pos] = adjoint_step<T, kSoftplus>(
+            &s_x[j][0][tid], kThreads, &s_B[i][n0], &s_C[i][n0], A, lam, dA, dD, dbias,
+            dtr[j], ur[j], zr[j], gr[j], dskip, active && q == 0, du, ddelta, dz,
+            static_cast<long long>(t) * dim, lane);
       }
       // The block's dB/dC row of each step: the sum of its warps' rows.
       __syncthreads();
@@ -333,11 +222,38 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
 
 #pragma unroll
   for (int k = 0; k < kNL; ++k) {
-    if (has_n[k]) p.dA_part[(static_cast<long long>(b) * dstate + n0 + k) * dim + d] = dA[k];
+    if (has_n[k]) {
+      p.dA_part[(static_cast<long long>(b) * dstate + n0 + k) * dim + d] = dA[k];
+      // After the first processed step lam = a_first lam_first = dL/dx0.
+      if (kState) p.dx0[state_row + static_cast<long long>(k) * dim] = lam[k];
+    }
   }
   if (active && q == 0) {
     p.dD_part[static_cast<long long>(b) * dim + d] = dD;
     p.dbias_part[static_cast<long long>(b) * dim + d] = dbias;
+  }
+}
+
+template <typename T, bool kSoftplus>
+void launch_form(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int dim, int dstate,
+                 cudaStream_t s) {
+  const dim3 grid((dim + kChanPerBlock - 1) / kChanPerBlock, batch, ndir);
+  if (args.dir[0].gfin != nullptr) {
+    scan_bwd_kernel<T, true, kSoftplus><<<grid, kThreads, 0, s>>>(args, batch, seqlen, dim,
+                                                                   dstate);
+  } else {
+    scan_bwd_kernel<T, false, kSoftplus><<<grid, kThreads, 0, s>>>(args, batch, seqlen, dim,
+                                                                    dstate);
+  }
+}
+
+template <typename T>
+void launch(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int dim, int dstate,
+            cudaStream_t s) {
+  if (args.dir[0].softplus != 0) {
+    launch_form<T, true>(args, ndir, batch, seqlen, dim, dstate, s);
+  } else {
+    launch_form<T, false>(args, ndir, batch, seqlen, dim, dstate, s);
   }
 }
 
@@ -349,20 +265,30 @@ extern "C" {
 int aum_scan_bwd_state_chunk() { return kChunk; }
 
 // ndir directions (1 or 2) from args->dir[0 .. ndir-1]; dtype: 0 = fp32
-// streams, 1 = bf16 streams. Returns cudaGetLastError() after the launch
-// (0 on success); a refused launch never runs.
+// streams, 1 = bf16 streams. gfin and dx0 are both set (the with_state
+// form, one direction) or both null in every direction; both directions
+// share softplus. Returns
+// cudaGetLastError() after the launch (0 on success); a refused launch
+// never runs.
 int aum_selective_scan_bwd(const ScanBwdArgs* args, int ndir, int batch, int seqlen,
                            int dim, int dstate, int dtype, void* stream) {
   if (ndir < 1 || ndir > 2 || dstate < 1 || dstate > kMaxN || batch < 1 || seqlen < 1 ||
       dim < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((dim + kChanPerBlock - 1) / kChanPerBlock, batch, ndir);
+  const bool state = args->dir[0].gfin != nullptr;
+  for (int i = 0; i < ndir; ++i) {
+    const ScanBwdDir& p = args->dir[i];
+    if ((p.gfin != nullptr) != state || (p.dx0 != nullptr) != state || (state && ndir != 1) ||
+        p.softplus != args->dir[0].softplus) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    scan_bwd_kernel<float><<<grid, kThreads, 0, s>>>(*args, batch, seqlen, dim, dstate);
+    launch<float>(*args, ndir, batch, seqlen, dim, dstate, s);
   } else if (dtype == 1) {
-    scan_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*args, batch, seqlen, dim, dstate);
+    launch<__nv_bfloat16>(*args, ndir, batch, seqlen, dim, dstate, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

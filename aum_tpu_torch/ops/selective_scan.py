@@ -5,18 +5,24 @@ Counterpart of ``aum_tpu/ops/selective_scan.py``: ``selective_scan_dual``
 with its custom VJP (``_make_dual_scan``, ``_dual_bwd_impl``), and
 ``selective_scan`` with its custom VJP (``_make_scan``). CUDA kernels:
 
-- ``csrc/selective_scan.cu`` holds two forward kernels on one per-chain walk.
-  ``scan_dual_fwd_kernel`` replaces the TPU kernel ``_fwd_kernel_dual`` in
-  its default configuration (fused y-readout, per-step decay);
+- ``csrc/selective_scan.cu`` holds three forward kernels on one per-chain
+  walk. ``scan_dual_fwd_kernel`` replaces the TPU kernel ``_fwd_kernel_dual``
+  in its default configuration (fused y-readout, per-step decay);
+  ``scan_dual_direct_fwd_kernel`` replaces ``_fwd_kernel_dual_direct`` (the
+  same function, B/C read per step with no staging; AUM_SCAN_DIRECT=1);
   ``scan_single_fwd_kernel`` replaces ``_fwd_kernel_z``: one direction with a
   ``reverse`` flag, and the ``with_state`` form (a carried-in initial state,
-  the final state out). In eval both write the outputs only; when a grad is
+  the final state out). In eval they write the outputs only; when a grad is
   needed they also save the state at the entry of every chunk of
   ``STATE_CHUNK`` steps (``save_states``).
-- ``csrc/selective_scan_bwd.cu`` replaces ``_bwd_kernel`` (dla mode
-  "xprev", no carried-in state): it restarts each chunk from its saved state
-  and runs the adjoint. One launch takes one or both directions, so launched
-  with both it is also the counterpart of ``_bwd_kernel_dual``.
+- ``csrc/selective_scan_bwd.cu`` (K2) replaces ``_bwd_kernel`` (dla mode
+  "xprev"), with its ``with_state`` form (the final state's cotangent in,
+  the grad of the initial state out): it restarts each chunk from its saved
+  state and runs the adjoint. One launch takes one or both directions, so
+  launched with both it is also the counterpart of ``_bwd_kernel_dual``.
+- ``csrc/selective_scan_bwd_fused.cu`` replaces ``_bwd_kernel_fused`` (the
+  same function as K2 without ``with_state``, each chunk recomputed once;
+  AUM_SCAN_BWD_FUSED=1), one or both directions per launch.
 
 The sources say what bounds each kernel on the card and what its design does
 about that.
@@ -28,20 +34,24 @@ alone, ``ddt * (1 - exp(-dt))``, writes it in dt's dtype and sums dbias in
 fp32 from the value before that cast. Layout stays (B, L, D); states cross
 the API as the reference's (B, D, N) fp32.
 
-Not ported yet: the backward of the ``with_state`` form (``_make_scan_x0``:
-``_bwd_kernel``'s gfin in, dx0 out), so ``selective_scan`` raises under grad
-with ``initial_state`` or ``return_final_state``; the backward without the
-softplus (``delta_softplus=False`` under grad raises); the opt-in kernels
-``_bwd_kernel_fused`` and ``_fwd_kernel_dual_direct``.
-
-On CPU tensors every wrapper runs its plain PyTorch version (the sequential
-oracle of ``ops/scan_ref.py``; the plain backward recomputes through it under
-autograd); on CUDA tensors it launches its kernel or raises. Launch counts,
-each raised where the kernel is launched: ``selective_scan_dual.launches``
-(every dual forward launch) and ``.save_states_launches`` (those that saved
-states); ``selective_scan.launches`` (every single-direction forward launch),
-``.save_states_launches`` and ``.with_state_launches``;
-``selective_scan_bwd.launches``.
+The switches of ``aum_tpu`` choose among the kernels as there, read at every
+call (JAX reads them at every trace): AUM_SCAN_DIRECT=1 the direct dual
+forward (eval and saving); AUM_SCAN_BWD_FUSED=1 the fused backward, for the
+dual scan and the single-direction one, except that AUM_SCAN_DUAL_BWD=1
+keeps the dual scan on K2 with both directions (the port's counterpart of
+``_bwd_kernel_dual``) and the ``with_state`` backward is never fused. On CPU
+tensors every wrapper runs its plain PyTorch version (the sequential oracle
+of ``ops/scan_ref.py``; the plain backward recomputes through it under
+autograd), whatever the switches: the kernels they choose among compute one
+function. On CUDA tensors the chosen kernel launches or the call raises.
+Launch counts, each raised where the kernel is launched:
+``selective_scan_dual.launches`` (every staged dual forward launch) and
+``.save_states_launches`` (those that saved states),
+``.direct_launches`` and ``.direct_save_states_launches`` (the direct
+kernel's); ``selective_scan.launches`` (every single-direction forward
+launch), ``.save_states_launches`` and ``.with_state_launches``;
+``selective_scan_bwd.launches`` (K2) and ``.with_state_launches`` (those of
+its with_state form), ``.fused_launches``.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
@@ -57,7 +68,30 @@ from aum_tpu_torch.ops.scan_ref import selective_scan_ref
 
 MAX_D_STATE = 16
 STATE_CHUNK = 64  # kChunk of both kernels: the interval of the saved states
-BWD_BLOCK_CHANNELS = 32  # channels per block of the backward: one dB/dC partial row each
+BWD_BLOCK_CHANNELS = 32  # channels per block of K2: one dB/dC partial row each
+BWD_FUSED_BLOCK_CHANNELS = 16  # the same for the fused backward
+
+
+def _env_int(name: str, default: int) -> int:
+    """A switch from the environment, parsed as ``aum_tpu`` parses its own
+    (unset or empty: the default; otherwise an integer)."""
+    value = os.environ.get(name)
+    return int(value) if value else default
+
+
+def direct_forward_chosen() -> bool:
+    """AUM_SCAN_DIRECT=1: the dual forward runs ``_fwd_kernel_dual_direct``'s
+    counterpart, in eval and when saving states."""
+    return _env_int("AUM_SCAN_DIRECT", 0) != 0
+
+
+def fused_backward_chosen(ndir: int) -> bool:
+    """AUM_SCAN_BWD_FUSED=1: the scan backward of ``ndir`` directions runs the
+    fused kernel; for the dual scan (two directions) AUM_SCAN_DUAL_BWD=1 takes
+    precedence and keeps K2, as ``_dual_bwd_impl`` takes ``_bwd_kernel_dual``."""
+    if ndir == 2 and _env_int("AUM_SCAN_DUAL_BWD", 0):
+        return False
+    return _env_int("AUM_SCAN_BWD_FUSED", 0) != 0
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +110,8 @@ def _prep_dt(delta: torch.Tensor, delta_bias: torch.Tensor | None,
 # --- plain versions ----------------------------------------------------------
 
 def selective_scan_dual_plain(fwd: tuple, rev: tuple, save_states: bool = False):
-    """The forward kernel's function in plain PyTorch: the oracle per direction.
+    """The dual forward kernels' function in plain PyTorch (the staged and the
+    direct kernel compute the same): the oracle per direction.
 
     fwd / rev: (u, dt, A, B, C, D, z) with dt already activated, as
     ``selective_scan_dual_cuda`` takes them. Returns (y_fwd, y_rev), and with
@@ -108,24 +143,38 @@ def selective_scan_plain(args: tuple, reverse: bool, save_states: bool = False,
                               return_last_state=return_final_state)
 
 
-def selective_scan_bwd_plain(dirs: list, gs: list) -> list:
-    """The backward kernel's function in plain PyTorch.
+def selective_scan_bwd_plain(dirs: list, gs: list, softplus: bool = True,
+                             states: list | None = None) -> list:
+    """The backward kernels' function in plain PyTorch (K2 and the fused
+    kernel compute the same).
 
     dirs: per direction (u, dt, A, B, C, D, z, reverse); gs: the cotangent of
-    each direction's output. Recomputes the oracle in fp32 under autograd and
-    returns per direction (du, ddelta, dA, dB, dC, dD, dz, dbias): ddelta =
-    ddt * (1 - exp(-dt)) in dt's dtype, dbias its fp32 sum taken before that
-    cast, dA, dD fp32, the rest in their input's dtype.
+    each direction's output; ``states``: per direction (x0, gfin) for the
+    with_state form, the (B, D, N) starting state and the cotangent of the
+    final state. Recomputes the oracle in fp32 under autograd and returns per
+    direction (du, ddelta, dA, dB, dC, dD, dz, dbias), then dx0 (B, D, N)
+    fp32 in the with_state form: ddelta = ddt * (1 - exp(-dt)) through the
+    softplus (ddt without it) in dt's dtype, dbias its fp32 sum taken before
+    that cast, dA, dD fp32, the rest in their input's dtype.
     """
     grads = []
-    for (u, dt, A, B, C, D, z, reverse), g in zip(dirs, gs):
+    for i, ((u, dt, A, B, C, D, z, reverse), g) in enumerate(zip(dirs, gs)):
         with torch.enable_grad():
             leaves = [t.detach().float().requires_grad_() for t in (u, dt, A, B, C, D, z)]
-            y = selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse)
-            du, ddt, dA, dB, dC, dD, dz = torch.autograd.grad(y, leaves, g.float())
-        ddelta = ddt * (1.0 - torch.exp(-dt.float()))  # sigmoid(delta + bias)
+            if states is None:
+                outs = (selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse),)
+                cots = (g.float(),)
+            else:
+                x0, gfin = states[i]
+                leaves.append(x0.detach().float().requires_grad_())
+                outs = selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse,
+                                          initial_state=leaves[7], return_last_state=True)
+                cots = (g.float(), gfin.float())
+            du, ddt, dA, dB, dC, dD, dz, *dx0 = torch.autograd.grad(outs, leaves, cots)
+        # sigmoid(delta + bias), from dt alone
+        ddelta = ddt * (1.0 - torch.exp(-dt.float())) if softplus else ddt
         grads.append((du.to(u.dtype), ddelta.to(dt.dtype), dA, dB.to(B.dtype),
-                      dC.to(C.dtype), dD, dz.to(z.dtype), ddelta.sum(dim=(0, 1))))
+                      dC.to(C.dtype), dD, dz.to(z.dtype), ddelta.sum(dim=(0, 1)), *dx0))
     return grads
 
 
@@ -145,13 +194,13 @@ class _ScanDir(ctypes.Structure):
 
 
 class _ScanBwdDir(ctypes.Structure):
-    """Mirror of ``ScanBwdDir`` in csrc/selective_scan_bwd.cu."""
+    """Mirror of ``ScanBwdDir`` in csrc/scan_bwd.cuh."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in
                 ("u", "dt", "z", "B", "C", "A", "Dskip", "g", "xb", "du", "ddelta",
-                 "dz", "dA_part", "dD_part", "dbias_part", "dbc_part")] + [
+                 "dz", "dA_part", "dD_part", "dbias_part", "dbc_part", "gfin", "dx0")] + [
         (name, ctypes.c_longlong) for name in _STREAM_STRIDES + ("g_sb", "g_sl")] + [
-        ("reverse", ctypes.c_int)]
+        ("reverse", ctypes.c_int), ("softplus", ctypes.c_int)]
 
 
 class _ScanBwdArgs(ctypes.Structure):
@@ -223,7 +272,8 @@ def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None):
 
 
 def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False):
-    """Launch the forward kernel on (u, dt, A, B, C, D, z) per direction.
+    """Launch a dual forward kernel on (u, dt, A, B, C, D, z) per direction:
+    the staged one, or the direct one under AUM_SCAN_DIRECT=1.
 
     Returns (y_fwd, y_rev), and with ``save_states`` also (xb_fwd, xb_rev).
     """
@@ -233,20 +283,23 @@ def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False):
     args_f, out_f, xb_f, _, keep_f = _scan_dir_args(*fwd, save_states)
     args_r, out_r, xb_r, _, keep_r = _scan_dir_args(*rev, save_states)
     lib = _lib()
+    direct = direct_forward_chosen()
+    launch = lib.aum_selective_scan_dual_direct_fwd if direct else lib.aum_selective_scan_dual_fwd
     bsz, seqlen, d = u.shape
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        status = lib.aum_selective_scan_dual_fwd(
-            ctypes.byref(args_f), ctypes.byref(args_r), bsz, seqlen, d,
-            fwd[2].shape[1], _DTYPE_CODES[u.dtype], stream)
+        status = launch(ctypes.byref(args_f), ctypes.byref(args_r), bsz, seqlen, d,
+                        fwd[2].shape[1], _DTYPE_CODES[u.dtype], stream)
     del keep_f, keep_r
     _build.check_status(status, lib.aum_scan_error_string,
                         "selective_scan_dual kernel launch")
-    selective_scan_dual.launches += 1
-    if save_states:
-        selective_scan_dual.save_states_launches += 1
-        return out_f, out_r, xb_f, xb_r
-    return out_f, out_r
+    if direct:
+        selective_scan_dual.direct_launches += 1
+        selective_scan_dual.direct_save_states_launches += save_states
+    else:
+        selective_scan_dual.launches += 1
+        selective_scan_dual.save_states_launches += save_states
+    return (out_f, out_r, xb_f, xb_r) if save_states else (out_f, out_r)
 
 
 def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
@@ -292,19 +345,27 @@ def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
     return result if len(result) > 1 else out
 
 
-def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list) -> list:
-    """Launch the backward kernel once for one or two directions.
+def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = True,
+                            gfins: list | None = None) -> list:
+    """Launch a backward kernel once for one or two directions: K2, or the
+    fused kernel under AUM_SCAN_BWD_FUSED=1 (see ``fused_backward_chosen``).
 
     dirs: per direction (u, dt, A, B, C, D, z, reverse); gs: the output
-    cotangents; xbs: the forward's saved states. Returns what
-    ``selective_scan_bwd_plain`` returns.
+    cotangents; xbs: the forward's saved states; ``gfins``: per direction the
+    (B, D, N) cotangent of the final state, for K2's with_state form (one
+    direction; never fused), whose starting state is xb's first entry.
+    Returns what ``selective_scan_bwd_plain`` returns.
     """
     if not 1 <= len(dirs) <= 2 or len(gs) != len(dirs) or len(xbs) != len(dirs):
-        raise ValueError("the backward kernel takes one or two directions")
+        raise ValueError("the backward kernels take one or two directions")
+    with_state = gfins is not None
+    if with_state and (len(dirs) != 1 or len(gfins) != 1):
+        raise ValueError("the with_state backward takes one direction")
+    fused = not with_state and fused_backward_chosen(len(dirs))
     u0 = dirs[0][0]
     bsz, seqlen, d = u0.shape
     n = dirs[0][2].shape[1]
-    n_parts = math.ceil(d / BWD_BLOCK_CHANNELS)
+    n_parts = math.ceil(d / (BWD_FUSED_BLOCK_CHANNELS if fused else BWD_BLOCK_CHANNELS))
     args = _ScanBwdArgs()
     outs, keep = [], []
     for i, ((u, dt, A, B, C, D, z, reverse), g, xb) in enumerate(zip(dirs, gs, xbs)):
@@ -324,6 +385,13 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list) -> list:
         def empty(*shape, dtype=torch.float32):
             return torch.empty(shape, dtype=dtype, device=u.device)
 
+        gfin = dx0 = None
+        if with_state:
+            if tuple(gfins[i].shape) != (bsz, d, n) or gfins[i].device != u.device:
+                raise ValueError(f"the final state's cotangent {tuple(gfins[i].shape)} on "
+                                 f"{gfins[i].device} must be ({bsz}, {d}, {n}) on {u.device}")
+            gfin = gfins[i].float().transpose(1, 2).contiguous()  # the kernel's (B, N, D)
+            dx0 = empty(bsz, n, d)
         du, ddelta, dz = (empty(bsz, seqlen, d, dtype=u.dtype) for _ in range(3))
         dA_p, dD_p, dbias_p = empty(bsz, n, d), empty(bsz, d), empty(bsz, d)
         dbc_p = empty(n_parts, bsz, seqlen, 2 * MAX_D_STATE)
@@ -331,61 +399,80 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list) -> list:
             u.data_ptr(), dt.data_ptr(), z.data_ptr(), B.data_ptr(), C.data_ptr(),
             A.data_ptr(), D.data_ptr(), g.data_ptr(), xb.data_ptr(), du.data_ptr(),
             ddelta.data_ptr(), dz.data_ptr(), dA_p.data_ptr(), dD_p.data_ptr(),
-            dbias_p.data_ptr(), dbc_p.data_ptr(), *_stream_strides(u, dt, z, B, C),
-            g.stride(0), g.stride(1), int(bool(reverse)))
-        outs.append((du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, B.dtype, C.dtype))
-        keep.append((u, dt, z, B, C, A, D, g, xb))
-    lib = _bwd_lib()
+            dbias_p.data_ptr(), dbc_p.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (gfin, dx0)),
+            *_stream_strides(u, dt, z, B, C), g.stride(0), g.stride(1), int(bool(reverse)),
+            int(bool(softplus)))
+        outs.append((du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, B.dtype, C.dtype, dx0))
+        keep.append((u, dt, z, B, C, A, D, g, xb, gfin))
+    lib, prefix = (_bwd_fused_lib(), "scan_bwd_fused") if fused else (_bwd_lib(), "scan_bwd")
     with torch.cuda.device(u0.device):
         stream = torch.cuda.current_stream(u0.device).cuda_stream
-        status = lib.aum_selective_scan_bwd(
+        status = getattr(lib, f"aum_selective_{prefix}")(
             ctypes.byref(args), len(dirs), bsz, seqlen, d, n, _DTYPE_CODES[u0.dtype], stream)
     del keep
-    _build.check_status(status, lib.aum_scan_bwd_error_string,
-                        "selective_scan_bwd kernel launch")
-    selective_scan_bwd.launches += 1
+    _build.check_status(status, getattr(lib, f"aum_{prefix}_error_string"),
+                        f"selective_{prefix} kernel launch")
+    if fused:
+        selective_scan_bwd.fused_launches += 1
+    else:
+        selective_scan_bwd.launches += 1
+        selective_scan_bwd.with_state_launches += with_state
     grads = []
-    for du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, b_dtype, c_dtype in outs:
+    for du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, b_dtype, c_dtype, dx0 in outs:
         dbc = dbc_p.sum(dim=0)  # (B, L, 32): [:N] dB, [16:16+N] dC
         grads.append((du, ddelta, dA_p.sum(dim=0).t(), dbc[..., :n].to(b_dtype),
                       dbc[..., MAX_D_STATE:MAX_D_STATE + n].to(c_dtype),
-                      dD_p.sum(dim=0), dz, dbias_p.sum(dim=0)))
+                      dD_p.sum(dim=0), dz, dbias_p.sum(dim=0))
+                     + (() if dx0 is None else (dx0.transpose(1, 2),)))
     return grads
 
 
-def _check_chunk(lib: ctypes.CDLL, fn_name: str) -> None:
+def _check_constant(lib: ctypes.CDLL, fn_name: str, value: int) -> None:
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
-    if fn() != STATE_CHUNK:
-        raise RuntimeError(f"{fn_name}() = {fn()} but STATE_CHUNK = {STATE_CHUNK}")
+    if fn() != value:
+        raise RuntimeError(f"{fn_name}() = {fn()} but the wrapper assumes {value}")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("selective_scan")
-    fn = lib.aum_selective_scan_dual_fwd
-    fn.argtypes = [ctypes.POINTER(_ScanDir), ctypes.POINTER(_ScanDir),
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.aum_selective_scan_dual_fwd, lib.aum_selective_scan_dual_direct_fwd):
+        fn.argtypes = [ctypes.POINTER(_ScanDir), ctypes.POINTER(_ScanDir),
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     fn = lib.aum_selective_scan_fwd
     fn.argtypes = [ctypes.POINTER(_ScanDir)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.aum_scan_error_string.argtypes = [ctypes.c_int]
     lib.aum_scan_error_string.restype = ctypes.c_char_p
-    _check_chunk(lib, "aum_scan_state_chunk")
+    _check_constant(lib, "aum_scan_state_chunk", STATE_CHUNK)
+    return lib
+
+
+def _load_bwd_lib(name: str, prefix: str) -> ctypes.CDLL:
+    lib = _build.library(name)
+    fn = getattr(lib, f"aum_selective_{prefix}")
+    fn.argtypes = [ctypes.POINTER(_ScanBwdArgs)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    errors = getattr(lib, f"aum_{prefix}_error_string")
+    errors.argtypes = [ctypes.c_int]
+    errors.restype = ctypes.c_char_p
+    _check_constant(lib, f"aum_{prefix}_state_chunk", STATE_CHUNK)
     return lib
 
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.library("selective_scan_bwd")
-    fn = lib.aum_selective_scan_bwd
-    fn.argtypes = [ctypes.POINTER(_ScanBwdArgs)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.aum_scan_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.aum_scan_bwd_error_string.restype = ctypes.c_char_p
-    _check_chunk(lib, "aum_scan_bwd_state_chunk")
+    return _load_bwd_lib("selective_scan_bwd", "scan_bwd")
+
+
+@functools.cache
+def _bwd_fused_lib() -> ctypes.CDLL:
+    lib = _load_bwd_lib("selective_scan_bwd_fused", "scan_bwd_fused")
+    _check_constant(lib, "aum_scan_bwd_fused_block_channels", BWD_FUSED_BLOCK_CHANNELS)
     return lib
 
 
@@ -397,15 +484,21 @@ def _on_cpu(t: torch.Tensor, what: str) -> bool:
     return t.device.type == "cpu"
 
 
-def selective_scan_bwd(dirs: list, gs: list, xbs: list) -> list:
-    """The scan backward of one or two directions: the kernel on CUDA tensors
-    (one launch), the plain version on CPU tensors (``xbs`` unused there)."""
+def selective_scan_bwd(dirs: list, gs: list, xbs: list, softplus: bool = True,
+                       states: list | None = None) -> list:
+    """The scan backward of one or two directions: a kernel on CUDA tensors
+    (one launch), the plain version on CPU tensors (``xbs`` unused there).
+    ``states``: per direction (x0, gfin), the with_state form (see
+    ``selective_scan_bwd_plain``; the kernel restarts from xb, which holds x0)."""
     if _on_cpu(dirs[0][0], "selective_scan_bwd"):
-        return selective_scan_bwd_plain(dirs, gs)
-    return selective_scan_bwd_cuda(dirs, gs, xbs)
+        return selective_scan_bwd_plain(dirs, gs, softplus, states)
+    return selective_scan_bwd_cuda(dirs, gs, xbs, softplus,
+                                   None if states is None else [s[1] for s in states])
 
 
 selective_scan_bwd.launches = 0
+selective_scan_bwd.with_state_launches = 0
+selective_scan_bwd.fused_launches = 0
 
 
 # --- the op ----------------------------------------------------------------------
@@ -485,30 +578,42 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple
 
 selective_scan_dual.launches = 0
 selective_scan_dual.save_states_launches = 0
+selective_scan_dual.direct_launches = 0
+selective_scan_dual.direct_save_states_launches = 0
 
 
 class _Scan(torch.autograd.Function):
-    """One direction's (u, delta, A, B, C, D, z, delta_bias) -> y, with the
-    chunk-entry states saved for the backward kernel (one direction)."""
+    """One direction's (u, delta, A, B, C, D, z, delta_bias, x0) -> y, or
+    (y, final state) in the with_state form, with the chunk-entry states
+    saved for the backward kernel (one direction)."""
 
     @staticmethod
-    def forward(ctx, u, delta, A, B, C, D, z, delta_bias, reverse):
-        args = (u, _prep_dt(delta, delta_bias), A, B, C, D, z)
+    def forward(ctx, u, delta, A, B, C, D, z, delta_bias, x0, reverse, softplus, with_state):
+        args = (u, _prep_dt(delta, delta_bias, softplus), A, B, C, D, z)
+        ctx.has_x0 = x0 is not None
+        if with_state and x0 is None:
+            x0 = torch.zeros((u.shape[0], u.shape[2], A.shape[1]), device=u.device)
+        kw = {"initial_state": x0, "return_final_state": with_state}
         if _on_cpu(u, "selective_scan"):
             # The plain backward recomputes from the inputs: no states to keep.
-            y, xb = selective_scan_plain(args, reverse), None
+            out = selective_scan_plain(args, reverse, **kw)
+            (y, fin), xb = (out if with_state else (out, None)), None
         else:
-            y, xb = selective_scan_cuda(args, reverse, save_states=True)
-        ctx.save_for_backward(*args, xb)
-        ctx.reverse, ctx.has_bias = reverse, delta_bias is not None
-        return y
+            y, xb, *fin = selective_scan_cuda(args, reverse, save_states=True, **kw)
+            fin = fin[0] if with_state else None
+        ctx.save_for_backward(*args, xb, x0)
+        ctx.reverse, ctx.softplus, ctx.with_state = reverse, softplus, with_state
+        ctx.has_bias = delta_bias is not None
+        return (y, fin) if with_state else y
 
     @staticmethod
-    def backward(ctx, g):
-        *args, xb = ctx.saved_tensors
-        du, ddelta, dA, dB, dC, dD, dz, dbias = selective_scan_bwd(
-            [tuple(args) + (ctx.reverse,)], [g], [xb])[0]
-        return du, ddelta, dA, dB, dC, dD, dz, dbias if ctx.has_bias else None, None
+    def backward(ctx, g, gfin=None):
+        *args, xb, x0 = ctx.saved_tensors
+        states = [(x0, gfin)] if ctx.with_state else None
+        du, ddelta, dA, dB, dC, dD, dz, dbias, *dx0 = selective_scan_bwd(
+            [tuple(args) + (ctx.reverse,)], [g], [xb], ctx.softplus, states)[0]
+        return (du, ddelta, dA, dB, dC, dD, dz, dbias if ctx.has_bias else None,
+                dx0[0] if ctx.has_x0 else None, None, None, None)
 
 
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -525,26 +630,23 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     state after the last processed step (position 0 when reversed).
     Returns y (B, L, D) in u's dtype, or (y, final state).
 
-    Differentiable with ``delta_softplus`` and without the state arguments:
-    when a grad is needed the forward kernel saves its chunk-entry states and
-    the one-direction backward kernel runs in the backward pass. The state
-    arguments and the no-softplus form run without grad only.
+    Differentiable in every form: when a grad is needed the forward kernel
+    saves its chunk-entry states and a one-direction backward kernel runs in
+    the backward pass; with a carried or returned state it is K2's with_state
+    form, which also gives the grad of ``initial_state``, so chained segments
+    (each started from the previous one's final state) differentiate as one
+    scan.
     """
     if D is None or z is None:
         raise ValueError("selective_scan takes D and z (the kernel path's form)")
     on_cpu = _on_cpu(u, "selective_scan")
     tensors = [t for t in (u, delta, A, B, C, D, z, delta_bias, initial_state)
                if t is not None]
+    with_state = initial_state is not None or return_final_state
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        if initial_state is not None or return_final_state:
-            raise NotImplementedError(
-                "the backward of the with_state scan (_bwd_kernel's gfin/dx0) is not "
-                "ported yet; run initial_state / return_final_state without grad")
-        if not delta_softplus:
-            raise NotImplementedError(
-                "the scan backward chain-rules the softplus; delta_softplus=False "
-                "runs without grad only")
-        return _Scan.apply(u, delta, A, B, C, D, z, delta_bias, bool(reverse))
+        out = _Scan.apply(u, delta, A, B, C, D, z, delta_bias, initial_state, bool(reverse),
+                          bool(delta_softplus), with_state)
+        return out[0] if with_state and not return_final_state else out
     args = (u, _prep_dt(delta, delta_bias, delta_softplus), A, B, C, D, z)
     return (selective_scan_plain if on_cpu else selective_scan_cuda)(
         args, reverse, initial_state=initial_state, return_final_state=return_final_state)

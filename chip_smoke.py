@@ -23,12 +23,23 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    of its autograd op (all 8 grads, through the one-direction backward) at
    B=12. The conv forward, causal and anti-causal. All of them also at
    ragged shapes (L=37, D=40; L=150, three state chunks, the last short).
+   The kernels behind ``aum_tpu``'s switches, at the same shapes: the
+   direct dual forward (AUM_SCAN_DIRECT=1; eval and saving) against the
+   plain version and the staged kernel, the fused backward
+   (AUM_SCAN_BWD_FUSED=1; one and both directions) against the plain
+   backward and K2; K2's with_state form (the 9 grads, d(x0) the last, from
+   a random x0 and final-state cotangent) and its form without the softplus
+   through the autograd op; and a scan split at an uneven point into two
+   segments chained by their states against the unsplit scan, outputs and
+   grads, forward and reverse (train and ragged shapes).
 3. model: AuM-Base Fo-Bi at full width and depth 24. fp32, B=2: the card
    (with kernels) against the same weights on the CPU (plain path). Then the
    eval path itself, ``aum_tpu_torch.entry.entry()`` (bf16, B=8), with every
    launch counter set to 0 just before and read just after: it must show 24
    dual-scan and 24 conv launches and no other, and (8, 527) finite logits;
-   then its latency (CUDA events, 10 forwards after warm-up).
+   then its latency (CUDA events, 10 forwards after warm-up). Then the fp32
+   check and ``entry()`` again under AUM_SCAN_DIRECT=1: 24 direct launches
+   and no staged one.
 4. wav: AuM-Base Fo-Fo at full width and depth 24 from 10 s waveforms
    (160,000 samples: the Kaldi fbank, pad to 1024 frames, AudioSet's
    normalization, the model). fp32, B=2: the card (kernels and frontend)
@@ -48,7 +59,11 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    them between a reset and a read of every launch counter (24 saving
    forwards, 24 backwards, 96 conv launches: forward, split recompute, and
    the backward's pre-activation and dx); then ms per step and clips/s (CUDA
-   events after warm-up), peak memory, SM clock and power.
+   events after warm-up), peak memory, SM clock and power. The fp32 checks
+   also run under the switches (Fo-Fo: AUM_SCAN_BWD_FUSED=1; Fo-Bi: both),
+   and the train path under both switches launches 24 direct saving
+   forwards, 24 fused backwards and no K2; its ms per step are timed in
+   turns with the default path's (default, switched, switched, default).
 6. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
    clips/s with CUDA events after warm-up; then ``wav_entry``'s model at
    B=64 from waveforms: clips/s, and the frontend's ms alone. Then per kernel
@@ -61,15 +76,19 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    kernel launches. Then the train shapes' scan kernels (B=12, bf16): the
    saving dual forward, the backward (both directions in one launch, and one
    direction), and the saving single-direction forward, each beside its plain
-   version and its bound.
+   version and its bound; the direct and fused kernels beside them, and
+   K2's with_state form. B=64 Fo-Bi clips/s are timed in turns with and
+   without AUM_SCAN_DIRECT=1.
 7. profile: one Fo-Bi bench forward, one Fo-Fo forward from waveforms
    (B=64), then one train step, under ``torch.profiler``: device time by
    kernel category (dual and single scan forward, scan backward, conv,
    frontend FFTs, matrix products, other), the top kernels, and the device's
    idle share of the wall time.
 
-The line before the last is nvidia-smi's name and power limit; the one before
-it the kernels summary; the last line is exactly
+Every phase runs with the three switches (``SWITCHES``) off and sets them
+itself, restoring the environment after; each prints its seconds. The line
+before the last is nvidia-smi's name and power limit; the one before it the
+kernels summary; the last line is exactly
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -78,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -159,6 +179,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+SWITCHES = ("AUM_SCAN_DIRECT", "AUM_SCAN_BWD_FUSED", "AUM_SCAN_DUAL_BWD")
+
+
+@contextlib.contextmanager
+def scan_switches(**switches):
+    """The port's scan switches (``SWITCHES``, each on or off) for the block;
+    the environment is restored after it."""
+    saved = {name: os.environ.get(name) for name in switches}
+    os.environ.update({name: str(int(bool(on))) for name, on in switches.items()})
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 @contextlib.contextmanager
@@ -276,7 +315,8 @@ def phase_build() -> None:
     for name, path in paths.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        ptxas[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+        ptxas[name] = [ln.strip() for ln in lines
+                       if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": seconds, "libraries": [p.name for p in paths.values()],
           "ptxas": ptxas})
 
@@ -299,7 +339,9 @@ def _scan_dirs(bsz, seqlen, d, dtype, shared):
 
 def _check_scan(label, dims, dtype, shared, train: bool) -> list[dict]:
     """The eval forward, or (train) the saving forward and both forms of the
-    backward, against their plain versions."""
+    backward, against their plain versions: each through the default kernel
+    and through the one its switch chooses (the direct forward, the fused
+    backward), which is also held to the default kernel's result."""
     from aum_tpu_torch.ops.selective_scan import (
         selective_scan_bwd_cuda,
         selective_scan_bwd_plain,
@@ -313,36 +355,43 @@ def _check_scan(label, dims, dtype, shared, train: bool) -> list[dict]:
     dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, shared)
     atol, rtol = SCAN_TOL[dtype]
     results = []
-    if not train:
-        got = selective_scan_dual_cuda(dir_f, dir_r)
+    fwd_kernels = {False: "selective_scan_dual_fwd", True: "selective_scan_dual_direct_fwd"}
+    got = {}
+    for direct, kernel in fwd_kernels.items():
+        with scan_switches(AUM_SCAN_DIRECT=direct):
+            got[direct] = selective_scan_dual_cuda(dir_f, dir_r, save_states=train)
         torch.cuda.synchronize()
-        want = selective_scan_dual_plain(dir_f, dir_r)
-        for direction, (y, w) in enumerate(zip(got, want)):
-            results.append({**compare(y, w, atol, rtol), "kernel": "selective_scan_dual_fwd",
-                            "direction": "reverse" if direction else "forward", **tag})
+    want = selective_scan_dual_plain(dir_f, dir_r, save_states=train)
+    for direct, kernel in fwd_kernels.items():
+        refs = {"plain": want, **({"staged_kernel": got[False]} if direct else {})}
+        for against, ref in refs.items():
+            for i, (y, w) in enumerate(zip(got[direct], ref)):
+                tol = (atol, rtol) if i < 2 else XB_TOL
+                extra = {"save_states": True, "output": "out" if i < 2 else "xb"} if train else {}
+                results.append({**compare(y, w, *tol), "kernel": kernel, "against": against,
+                                **extra, "direction": "reverse" if i % 2 else "forward", **tag})
+    if not train:
         return results
-    got = selective_scan_dual_cuda(dir_f, dir_r, save_states=True)
-    torch.cuda.synchronize()
-    want = selective_scan_dual_plain(dir_f, dir_r, save_states=True)
-    for i, (y, w) in enumerate(zip(got, want)):
-        tol = (atol, rtol) if i < 2 else XB_TOL
-        results.append({**compare(y, w, *tol), "kernel": "selective_scan_dual_fwd",
-                        "save_states": True, "output": "out" if i < 2 else "xb",
-                        "direction": "reverse" if i % 2 else "forward", **tag})
-    xb_f, xb_r = got[2:]
+    xb_f, xb_r = got[False][2:]
     g = torch.Generator().manual_seed(5)
     gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
     dirs = [dir_f + (False,), dir_r + (True,)]
-    forms = {"two_directions": selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
-             "one_direction": [selective_scan_bwd_cuda([dirs[i]], [gs[i]], [xb])[0]
-                               for i, xb in enumerate((xb_f, xb_r))]}
-    torch.cuda.synchronize()
     want = selective_scan_bwd_plain(dirs, gs)
-    for form, grads in forms.items():
-        for direction, (gr, wr) in enumerate(zip(grads, want)):
-            results.append({**_grad_checks(GRAD_NAMES, gr, wr, GRAD_TOL[dtype]),
-                            "kernel": "selective_scan_bwd", "form": form,
-                            "direction": "reverse" if direction else "forward", **tag})
+    k2 = {}
+    for fused, kernel in ((False, "selective_scan_bwd"), (True, "selective_scan_bwd_fused")):
+        with scan_switches(AUM_SCAN_BWD_FUSED=fused):
+            forms = {"two_directions": selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
+                     "one_direction": [selective_scan_bwd_cuda([dirs[i]], [gs[i]], [xb])[0]
+                                       for i, xb in enumerate((xb_f, xb_r))]}
+        torch.cuda.synchronize()
+        for form, grads in forms.items():
+            refs = {"plain": want, **({"k2": k2[form]} if fused else {})}
+            for against, ref in refs.items():
+                for direction, (gr, wr) in enumerate(zip(grads, ref)):
+                    results.append({**_grad_checks(GRAD_NAMES, gr, wr, GRAD_TOL[dtype]),
+                                    "kernel": kernel, "form": form, "against": against,
+                                    "direction": "reverse" if direction else "forward", **tag})
+        k2 = forms
     return results
 
 
@@ -389,15 +438,87 @@ def _check_scan_single(label, dims, dtype, reverse, train: bool) -> list[dict]:
     check(got, want, (atol, rtol), save_states=True, output="out")
     check(xb, want_xb, XB_TOL, save_states=True, output="xb")
     gout = torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype)
-    leaves = [t.detach().requires_grad_() for t in raw]  # strided views stay strided
-    y = selective_scan(*leaves[:7], delta_bias=leaves[7], delta_softplus=True,
-                       reverse=reverse)
-    y.backward(gout)
-    torch.cuda.synchronize()
-    want = selective_scan_bwd_plain([args + (reverse,)], [gout])[0]
-    results.append({**_grad_checks(GRAD_NAMES, [t.grad for t in leaves], want,
-                                   GRAD_TOL[dtype]),
-                    "kernel": "selective_scan_bwd", "form": "one_direction_autograd", **tag})
+    x0 = torch.randn((bsz, d, 16), generator=g).cuda()
+    gfin = torch.randn((bsz, d, 16), generator=g).cuda()
+    # The autograd op's backward: as the Fo-Fo train step runs it; without
+    # the softplus (ddelta = ddt; delta is then the positive dt itself, with
+    # no bias); and the with_state form from a random x0 with a random
+    # cotangent of the final state (9 grads, dx0 the last).
+    forms = {"one_direction_autograd": (True, False),
+             "one_direction_autograd_no_softplus": (False, False),
+             "with_state_autograd": (True, True)}
+    for form, (softplus, with_state) in forms.items():
+        inputs = raw if softplus else args
+        leaves = [t.detach().requires_grad_() for t in inputs]  # strided views stay strided
+        bias = leaves[7] if softplus else None
+        kw = {}
+        if with_state:
+            leaves.append(x0.clone().requires_grad_())
+            kw = {"initial_state": leaves[-1], "return_final_state": True}
+        out = selective_scan(*leaves[:7], delta_bias=bias, delta_softplus=softplus,
+                             reverse=reverse, **kw)
+        torch.autograd.backward(out, (gout, gfin) if with_state else gout)
+        torch.cuda.synchronize()
+        want = selective_scan_bwd_plain([args + (reverse,)], [gout], softplus,
+                                        [(x0, gfin)] if with_state else None)[0]
+        names = GRAD_NAMES + (("dx0",) if with_state else ())
+        got = [t.grad for t in leaves]
+        if not softplus:  # no bias: compare the 7 grads
+            names, want = names[:7], want[:7]
+        results.append({**_grad_checks(names, got, want, GRAD_TOL[dtype]),
+                        "kernel": "selective_scan_bwd", "form": form,
+                        **({"with_state": True} if with_state else {}), **tag})
+    return results
+
+
+def _check_chained(label, dims, dtype) -> list[dict]:
+    """A scan split at an uneven point, the second segment started from the
+    first one's final state (reverse: the right-hand segment first), against
+    the unsplit scan: outputs and all 8 grads under autograd, forward and
+    reverse (the property sequence parallelism rests on). Runs the
+    single-direction forward's with_state form and K2's with_state backward."""
+    from aum_tpu_torch.ops.selective_scan import selective_scan
+
+    bsz, seqlen, d = dims
+    split = seqlen * 2 // 5 + 1
+    raw = scan_inputs(bsz, seqlen, d, 16, dtype, seed=14)
+    gout = torch.randn((bsz, seqlen, d), generator=torch.Generator().manual_seed(15))
+    gout = gout.to("cuda", dtype)
+    atol, rtol = SCAN_TOL[dtype]
+    results = []
+    for reverse in (False, True):
+        outs, grads = {}, {}
+        for mode in ("unsplit", "chained"):
+            _reset_counters()
+            leaves = [t.detach().requires_grad_() for t in raw]
+            u, delta, A, B, C, D, z, bias = leaves
+
+            def scan(lo, hi, **kw):
+                return selective_scan(u[:, lo:hi], delta[:, lo:hi], A, B[:, lo:hi],
+                                      C[:, lo:hi], D, z[:, lo:hi], delta_bias=bias,
+                                      delta_softplus=True, reverse=reverse, **kw)
+
+            if mode == "unsplit":
+                y = scan(0, seqlen)
+            else:
+                first, second = ((split, seqlen), (0, split)) if reverse else \
+                    ((0, split), (split, seqlen))
+                y_a, state = scan(*first, return_final_state=True)
+                y_b = scan(*second, initial_state=state)
+                y = torch.cat((y_b, y_a) if reverse else (y_a, y_b), dim=1)
+            y.backward(gout)
+            torch.cuda.synchronize()
+            outs[mode], grads[mode] = y.detach(), [t.grad for t in leaves]
+        launches = {k: v for k, v in _read_counters().items() if v}  # of the chained run
+        tag = dict(shape=label, dims=[bsz, seqlen, d, 16], split=split, dtype=str(dtype),
+                   direction="reverse" if reverse else "forward", launches=launches)
+        results.append({**compare(outs["chained"], outs["unsplit"], atol, rtol),
+                        "kernel": "selective_scan_fwd", "check": "chained_segments",
+                        "with_state": True, "output": "out", **tag})
+        results.append({**_grad_checks(GRAD_NAMES, grads["chained"], grads["unsplit"],
+                                       GRAD_TOL[dtype]),
+                        "kernel": "selective_scan_bwd", "check": "chained_segments",
+                        "with_state": True, **tag})
     return results
 
 
@@ -460,12 +581,16 @@ def phase_kernels() -> dict:
                 for reverse in (False, True):
                     results += _check_scan_single(label, dims, dtype, reverse, mode)
                 results += _check_conv(label, dims, dtype, mode)
+            if train is not False:
+                results += _check_chained(label, dims, dtype)
     worst = {}
     for r in results:
         emit({"phase": "kernels", **r})
-        if r["shape"] in ("eval", "train") and r["dtype"] == str(torch.bfloat16):
+        if (r["shape"] in ("eval", "train") and r["dtype"] == str(torch.bfloat16)
+                and r.get("against", "plain") == "plain" and "check" not in r):
             key = r["kernel"] + ("_save_states" if r.get("save_states") else "") + (
-                "_with_state" if r.get("with_state") else "")
+                "_with_state" if r.get("with_state") else "") + (
+                "_no_softplus" if r.get("form", "").endswith("no_softplus") else "")
             worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
     failed = [r for r in results if not r["ok"]]
     emit({"phase": "kernels_summary", "checks": len(results), "failed": len(failed),
@@ -498,26 +623,42 @@ def phase_model() -> dict:
           "gpu_s": t1 - t0, "cpu_s": t2 - t1, **r})
     if not r["ok"]:
         raise RuntimeError("fp32 model on the card disagrees with the CPU plain path")
+    # The same weights and input through the direct dual forward.
+    with scan_switches(AUM_SCAN_DIRECT=True), torch.inference_mode():
+        gpu = AudioMamba(cfg32, device="cuda", seed=0)
+        got = gpu(x.cuda()).cpu()
+        del gpu
+    r = compare(got, want, atol, rtol)
+    emit({"phase": "model_fp32_vs_cpu", "switches": {"AUM_SCAN_DIRECT": 1}, "batch": 2,
+          "depth": cfg32.depth, "width": cfg32.embed_dim, **r})
+    if not r["ok"]:
+        raise RuntimeError("fp32 model through the direct dual forward disagrees with the CPU")
 
-    fn, args = entry()
-    torch.cuda.synchronize()
-    _reset_counters()
-    logits = fn(*args)
-    torch.cuda.synchronize()
-    launches = _read_counters()
-    finite = bool(torch.isfinite(logits.float()).all())
-    latency_ms = cuda_ms(lambda: fn(*args), iters=10)
-    emit({"phase": "main_path", "entry": "aum_tpu_torch.entry.entry", "batch": 8,
-          "logits_shape": list(logits.shape), "dtype": str(logits.dtype),
-          "finite": finite, "launches": launches, "graph_built": logits.requires_grad,
-          "ms_per_forward": latency_ms})
     depth = flagship_config().depth
-    if tuple(logits.shape) != (8, 527) or not finite:
-        raise RuntimeError("main path logits are not (8, 527) finite values")
-    expected = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
-    if launches != expected or logits.requires_grad:
-        raise RuntimeError(f"expected {expected} launches and no graph, got {launches}")
-    return launches
+    fn, args = entry()
+    out = {}
+    for direct in (False, True):
+        with scan_switches(AUM_SCAN_DIRECT=direct):
+            torch.cuda.synchronize()
+            _reset_counters()
+            logits = fn(*args)
+            torch.cuda.synchronize()
+            launches = _read_counters()
+            finite = bool(torch.isfinite(logits.float()).all())
+            latency_ms = cuda_ms(lambda: fn(*args), iters=10)
+        emit({"phase": "main_path", "entry": "aum_tpu_torch.entry.entry", "batch": 8,
+              "switches": {"AUM_SCAN_DIRECT": int(direct)},
+              "logits_shape": list(logits.shape), "dtype": str(logits.dtype),
+              "finite": finite, "launches": launches, "graph_built": logits.requires_grad,
+              "ms_per_forward": latency_ms})
+        if tuple(logits.shape) != (8, 527) or not finite:
+            raise RuntimeError("main path logits are not (8, 527) finite values")
+        scan = "selective_scan_dual_direct_fwd" if direct else "selective_scan_dual_fwd"
+        expected = _launches(**{scan: depth}, causal_conv1d_fwd=depth)
+        if launches != expected or logits.requires_grad:
+            raise RuntimeError(f"expected {expected} launches and no graph, got {launches}")
+        out["direct" if direct else "default"] = launches
+    return out
 
 
 def phase_wav() -> dict:
@@ -588,10 +729,15 @@ def _counters() -> dict:
     return {"selective_scan_dual_fwd": (selective_scan_dual, "launches"),
             "selective_scan_dual_fwd_save_states": (selective_scan_dual,
                                                     "save_states_launches"),
+            "selective_scan_dual_direct_fwd": (selective_scan_dual, "direct_launches"),
+            "selective_scan_dual_direct_fwd_save_states": (selective_scan_dual,
+                                                           "direct_save_states_launches"),
             "selective_scan_fwd": (selective_scan, "launches"),
             "selective_scan_fwd_save_states": (selective_scan, "save_states_launches"),
             "selective_scan_fwd_with_state": (selective_scan, "with_state_launches"),
             "selective_scan_bwd": (selective_scan_bwd, "launches"),
+            "selective_scan_bwd_with_state": (selective_scan_bwd, "with_state_launches"),
+            "selective_scan_bwd_fused": (selective_scan_bwd, "fused_launches"),
             "causal_conv1d_fwd": (causal_conv1d, "launches")}
 
 
@@ -609,11 +755,28 @@ def _launches(**counts) -> dict:
     return {**dict.fromkeys(_counters(), 0), **counts}
 
 
-def _train_fp32_check(aum_type: str) -> dict:
+def _expected_train_launches(aum_type: str, depth: int, switches: dict) -> dict:
+    """What one forward and backward launches per layer: the scan's saving
+    forward and its backward (the kernels the switches choose) and the conv
+    four times (split remat: forward, recompute, the backward's
+    pre-activation and dx)."""
+    if aum_type == "Fo-Fo":
+        scans = {"selective_scan_fwd": depth, "selective_scan_fwd_save_states": depth}
+    elif switches.get("AUM_SCAN_DIRECT"):
+        scans = {"selective_scan_dual_direct_fwd": depth,
+                 "selective_scan_dual_direct_fwd_save_states": depth}
+    else:
+        scans = {"selective_scan_dual_fwd": depth, "selective_scan_dual_fwd_save_states": depth}
+    bwd = "selective_scan_bwd_fused" if switches.get("AUM_SCAN_BWD_FUSED") else "selective_scan_bwd"
+    return _launches(**scans, **{bwd: depth}, causal_conv1d_fwd=4 * depth)
+
+
+def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
     """fp32, full width, depth 2 (the CPU oracle's backward stays short): the
     loss and grads of one forward and backward, then one full train step
     without warmup (its lr is the schedule's 5e-5, not the warmup's 0), card
-    against CPU. Returns the launches of the card's forward and backward."""
+    against CPU. The card runs once per switch set (name -> switches), the CPU
+    once. Returns the launches of each card run's forward and backward."""
     import dataclasses
 
     from aum_tpu_torch.entry import STEPS_PER_EPOCH, TRAIN_HP, flagship_config
@@ -629,8 +792,8 @@ def _train_fp32_check(aum_type: str) -> dict:
     if cfg.bimamba_type == "none":  # Fo-Fo has no A_b_log
         keys = tuple(k for k in keys if k != "A_b_log")
     names = [f"layers.{i}.mixer.{k}" for i in range(cfg.depth) for k in keys]
-    runs = {}
-    for device in ("cuda", "cpu"):
+
+    def run(device):
         t0 = time.perf_counter()
         model = AudioMamba(cfg, device=device, seed=0)
         batch = {"x": x.to(device), "y": y.to(device)}
@@ -639,6 +802,7 @@ def _train_fp32_check(aum_type: str) -> dict:
             _reset_counters()
         loss = loss_fn_of("BCE")(model(batch["x"], train=True), batch["y"])
         loss.backward()
+        launches = None
         if device == "cuda":
             torch.cuda.synchronize()
             launches = _read_counters()
@@ -648,77 +812,97 @@ def _train_fp32_check(aum_type: str) -> dict:
         state = init_train_state(model, make_optimizer(model.parameters(), hp))
         make_train_step(hp, STEPS_PER_EPOCH, "BCE")(state, batch)
         after = {k: params[k].detach().cpu() for k in names}
-        runs[device] = (loss.item(), grads, before, after, time.perf_counter() - t0)
-    (loss_g, grads_g, _, after_g, s_g), (loss_c, grads_c, before_c, after_c, s_c) = (
-        runs["cuda"], runs["cpu"])
-    checks = {k: compare_scaled(grads_g[k], grads_c[k], TRAIN_FP32_TOL["grad"])
-              for k in grads_c}
-    updates = {}
-    for k in names:
-        err = (after_g[k] - after_c[k]).norm().item()
-        moved = (after_c[k] - before_c[k]).norm().item()
-        updates[k] = {"err_norm": err, "update_norm": moved,
-                      "ok": moved > 0 and err <= TRAIN_FP32_TOL["update"] * moved}
-    # Per layer: split remat runs the conv four times (forward, recompute,
-    # the backward's pre-activation and dx), each scan saves and is undone once.
-    depth = cfg.depth
-    scans = ({"selective_scan_fwd": depth, "selective_scan_fwd_save_states": depth}
-             if cfg.bimamba_type == "none" else
-             {"selective_scan_dual_fwd": depth, "selective_scan_dual_fwd_save_states": depth})
-    expected = _launches(**scans, selective_scan_bwd=depth, causal_conv1d_fwd=4 * depth)
-    loss_ok = abs(loss_g - loss_c) <= TRAIN_FP32_TOL["loss_rtol"] * abs(loss_c)
-    ok = (loss_ok and all(c["ok"] for c in checks.values())
-          and all(u["ok"] for u in updates.values()) and launches == expected)
-    emit({"phase": "train_fp32_vs_cpu", "aum_type": aum_type, "batch": 2, "depth": depth,
-          "width": cfg.embed_dim, "loss_gpu": loss_g, "loss_cpu": loss_c,
-          "loss_rtol": TRAIN_FP32_TOL["loss_rtol"], "grads": checks, "lr": hp.lr,
-          "params_after_step": updates, "update_tol": TRAIN_FP32_TOL["update"],
-          "launches": launches, "expected_launches": expected,
-          "gpu_s": s_g, "cpu_s": s_c, "ok": ok})
-    if not ok:
-        raise RuntimeError(f"fp32 {aum_type} train step on the card disagrees with the CPU "
-                           "plain path, or launched other kernels than expected")
-    return launches
+        return loss.item(), grads, before, after, time.perf_counter() - t0, launches
+
+    loss_c, grads_c, before_c, after_c, s_c, _ = run("cpu")
+    out = {}
+    for set_name, switches in switch_sets.items():
+        with scan_switches(**switches):
+            loss_g, grads_g, _, after_g, s_g, launches = run("cuda")
+        checks = {k: compare_scaled(grads_g[k], grads_c[k], TRAIN_FP32_TOL["grad"])
+                  for k in grads_c}
+        updates = {}
+        for k in names:
+            err = (after_g[k] - after_c[k]).norm().item()
+            moved = (after_c[k] - before_c[k]).norm().item()
+            updates[k] = {"err_norm": err, "update_norm": moved,
+                          "ok": moved > 0 and err <= TRAIN_FP32_TOL["update"] * moved}
+        expected = _expected_train_launches(aum_type, cfg.depth, switches)
+        loss_ok = abs(loss_g - loss_c) <= TRAIN_FP32_TOL["loss_rtol"] * abs(loss_c)
+        ok = (loss_ok and all(c["ok"] for c in checks.values())
+              and all(u["ok"] for u in updates.values()) and launches == expected)
+        emit({"phase": "train_fp32_vs_cpu", "aum_type": aum_type,
+              "switches": {k: int(bool(v)) for k, v in switches.items()}, "batch": 2,
+              "depth": cfg.depth, "width": cfg.embed_dim, "loss_gpu": loss_g, "loss_cpu": loss_c,
+              "loss_rtol": TRAIN_FP32_TOL["loss_rtol"], "grads": checks, "lr": hp.lr,
+              "params_after_step": updates, "update_tol": TRAIN_FP32_TOL["update"],
+              "launches": launches, "expected_launches": expected,
+              "gpu_s": s_g, "cpu_s": s_c, "ok": ok})
+        if not ok:
+            raise RuntimeError(f"fp32 {aum_type} train step on the card ({set_name}) disagrees "
+                               "with the CPU plain path, or launched other kernels than expected")
+        out[set_name] = launches
+    return out
+
+
+# The train path's switch sets: the default kernels, and the direct forward
+# with the fused backward (Fo-Fo has no dual forward: the fused backward alone).
+TRAIN_SWITCHES = {"default": {}, "direct_fused": {"AUM_SCAN_DIRECT": True,
+                                                  "AUM_SCAN_BWD_FUSED": True}}
 
 
 def phase_train() -> dict:
+    """The depth-2 fp32 checks, then ``train_entry()`` under each switch set:
+    three steps with their launches, then ms per step in turns (default,
+    switched, switched, default) and each set's peak memory."""
     from aum_tpu_torch.entry import TRAIN_BATCH, train_entry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fofo_launches = _train_fp32_check("Fo-Fo")
-    _train_fp32_check("Fo-Bi")
+    fofo_launches = _train_fp32_check("Fo-Fo", {"default": {},
+                                                "fused": {"AUM_SCAN_BWD_FUSED": True}})
+    _train_fp32_check("Fo-Bi", TRAIN_SWITCHES)
 
     step, state, batch = train_entry()
     depth = state.model.config.depth
-    losses = []
-    for i in range(3):
-        torch.cuda.synchronize()
-        if i == 1:
-            _reset_counters()
-        state, loss = step(state, batch)
-        torch.cuda.synchronize()
-        if i == 1:
-            launches = _read_counters()
-        losses.append(loss.item())
-    expected = _launches(selective_scan_dual_fwd=depth, selective_scan_dual_fwd_save_states=depth,
-                         selective_scan_bwd=depth, causal_conv1d_fwd=4 * depth)
-    finite = all(math.isfinite(v) for v in losses)
-    torch.cuda.reset_peak_memory_stats()
-    with sample_clocks({}) as card:
-        step_ms = cuda_ms(lambda: step(state, batch), iters=5, warmup=1)
-    peak = torch.cuda.max_memory_allocated()
     out = {"phase": "train_path", "entry": "aum_tpu_torch.entry.train_entry",
            "batch": TRAIN_BATCH, "depth": depth, "dtype": "bfloat16", "remat_mode": "split",
-           "losses": losses, "finite": finite, "launches_per_step": launches,
-           "expected_launches": expected, "ms_per_step": step_ms,
-           "clips_per_s": TRAIN_BATCH / (step_ms / 1e3), "peak_mem_bytes": peak,
-           "card": card, "fofo_check_launches": fofo_launches}
+           "fofo_check_launches": fofo_launches}
+    for set_name, switches in TRAIN_SWITCHES.items():
+        losses = []
+        with scan_switches(**switches):
+            for i in range(3):
+                torch.cuda.synchronize()
+                if i == 1:
+                    _reset_counters()
+                state, loss = step(state, batch)
+                torch.cuda.synchronize()
+                if i == 1:
+                    launches = _read_counters()
+                losses.append(loss.item())
+            torch.cuda.reset_peak_memory_stats()
+            step(state, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        expected = _expected_train_launches("Fo-Bi", depth, switches)
+        finite = all(math.isfinite(v) for v in losses)
+        out[set_name] = {"switches": {k: int(bool(v)) for k, v in switches.items()},
+                         "losses": losses, "finite": finite, "launches_per_step": launches,
+                         "expected_launches": expected, "peak_mem_bytes": peak, "ms_per_step": []}
+        if not finite:
+            raise RuntimeError(f"train path losses are not finite ({set_name}): {losses}")
+        if launches != expected:
+            raise RuntimeError(f"expected {expected} launches per train step ({set_name}), "
+                               f"got {launches}")
+    for set_name in ("default", "direct_fused", "direct_fused", "default"):
+        with scan_switches(**TRAIN_SWITCHES[set_name]), sample_clocks({}) as card:
+            ms = cuda_ms(lambda: step(state, batch), iters=5, warmup=1)
+        out[set_name]["ms_per_step"].append(ms)
+        out[set_name].setdefault("card", []).append(card)
+    for set_name in TRAIN_SWITCHES:
+        ms = sum(out[set_name]["ms_per_step"]) / 2
+        out[set_name]["clips_per_s"] = TRAIN_BATCH / (ms / 1e3)
     emit(out)
-    if not finite:
-        raise RuntimeError(f"train path losses are not finite: {losses}")
-    if launches != expected:
-        raise RuntimeError(f"expected {expected} launches per train step, got {launches}")
     del step, state, batch
     return out
 
@@ -739,18 +923,29 @@ def phase_bench(device_info: dict) -> dict:
     es = 2
     model = AudioMamba(flagship_config(), device="cuda", seed=0)
     x = torch.randn((bsz, 1024, 128), generator=torch.Generator().manual_seed(1)).cuda()
-    torch.cuda.reset_peak_memory_stats()
 
     def forward():
         with torch.inference_mode():
             return model(x)
 
-    with sample_clocks({}) as card:
-        fwd_ms = cuda_ms(forward, iters=10, warmup=2)
-    peak = torch.cuda.max_memory_allocated()
+    # The default path, then the direct dual forward (AUM_SCAN_DIRECT=1), in
+    # turns: default, direct, direct, default.
+    runs = {"default": {"ms_per_forward": [], "card": []},
+            "direct": {"ms_per_forward": [], "card": []}}
+    for name in ("default", "direct", "direct", "default"):
+        with scan_switches(AUM_SCAN_DIRECT=name == "direct"):
+            torch.cuda.reset_peak_memory_stats()
+            with sample_clocks({}) as card:
+                runs[name]["ms_per_forward"].append(cuda_ms(forward, iters=10, warmup=2))
+            runs[name]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        runs[name]["card"].append(card)
     del model
+    for run in runs.values():
+        run["clips_per_s"] = [bsz / (ms / 1e3) for ms in run["ms_per_forward"]]
+    fwd_ms = runs["default"]["ms_per_forward"][0]
     emit({"phase": "bench", "batch": bsz, "dtype": "bfloat16", "ms_per_forward": fwd_ms,
-          "clips_per_s": bsz / (fwd_ms / 1e3), "peak_mem_bytes": peak, "card": card})
+          "clips_per_s": bsz / (fwd_ms / 1e3), "peak_mem_bytes": runs["default"]["peak_mem_bytes"],
+          "card": runs["default"]["card"][0], "in_turns": runs})
     wav = bench_wav()
 
     # Scan at the forward's shapes: v1, both directions on shared operands.
@@ -761,6 +956,9 @@ def phase_bench(device_info: dict) -> dict:
     # Enough launches that the clock sampler sees the kernel alone (~0.6 s).
     with sample_clocks({}) as card:
         scan_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=400)
+    with scan_switches(AUM_SCAN_DIRECT=True), sample_clocks({}) as card_direct:
+        direct_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=400)
+    scan_again_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=400)
     scan_plain_ms = cuda_ms(lambda: selective_scan_dual_plain(fwd, rev), iters=2, warmup=1)
     elems = 2 * bsz * seqlen * d * n  # (b, l, d, n) per direction
     scan_bytes = (3 * bsz * seqlen * d + 2 * bsz * seqlen * n) * es \
@@ -785,12 +983,15 @@ def phase_bench(device_info: dict) -> dict:
     conv_bytes = 2 * bsz * seqlen * d * es + d * (k + 1) * es
     conv_bounds = {"bytes": conv_bytes / HBM_BYTES_PER_S * 1e3,
                    "fp32_flops": (2 * k + 4) * bsz * seqlen * d / FP32_FLOPS_PER_S * 1e3}
+    # The direct kernel computes the staged one's function: the same plain
+    # version and bounds; the staged kernel timed again after it.
     out = {"scan": {"ms": scan_ms, "plain_ms": scan_plain_ms, "bounds_ms": scan_bounds,
-                    "other_floors_ms": scan_other},
+                    "other_floors_ms": scan_other, "ms_after_direct": scan_again_ms},
+           "scan_direct": {"ms": direct_ms, "plain_ms": scan_plain_ms, "bounds_ms": scan_bounds},
            "conv": {"ms": conv_ms, "plain_ms": conv_plain_ms, "library_ms": conv_lib_ms,
                     "bounds_ms": conv_bounds}}
     emit({"phase": "bench_kernels", "dims": [bsz, seqlen, d, n], "dtype": "bfloat16", **out,
-          "card": {"scan": card, "conv": card_conv}})
+          "card": {"scan": card, "scan_direct": card_direct, "conv": card_conv}})
     del xc, w, b
     single = bench_single_kernels(sfu_rate)
     train = bench_train_kernels(sfu_rate)
@@ -885,12 +1086,15 @@ def bench_single_kernels(sfu_rate: float) -> dict:
 
 def bench_train_kernels(sfu_rate: float) -> dict:
     """The train path's scan kernels at its shapes (v1, B=12, bf16): the
-    saving forward, and the backward of both directions in one launch (the
-    train path's form) and of the forward direction alone."""
+    saving forward, staged and direct; the backward of both directions in one
+    launch (the train path's form) and of the forward direction alone, K2
+    and fused (K2 timed again after the fused kernel); and K2's with_state
+    form on one direction."""
     from aum_tpu_torch.ops.selective_scan import (
         STATE_CHUNK,
         selective_scan_bwd_cuda,
         selective_scan_bwd_plain,
+        selective_scan_cuda,
         selective_scan_dual_cuda,
         selective_scan_dual_plain,
     )
@@ -901,6 +1105,9 @@ def bench_train_kernels(sfu_rate: float) -> dict:
     with sample_clocks({}) as card_save:
         save_ms = cuda_ms(lambda: selective_scan_dual_cuda(dir_f, dir_r, save_states=True),
                           iters=400)
+    with scan_switches(AUM_SCAN_DIRECT=True), sample_clocks({}) as card_save_direct:
+        save_direct_ms = cuda_ms(
+            lambda: selective_scan_dual_cuda(dir_f, dir_r, save_states=True), iters=400)
     save_plain_ms = cuda_ms(lambda: selective_scan_dual_plain(dir_f, dir_r, save_states=True),
                             iters=1, warmup=1)
     _, _, xb_f, xb_r = selective_scan_dual_cuda(dir_f, dir_r, save_states=True)
@@ -913,6 +1120,24 @@ def bench_train_kernels(sfu_rate: float) -> dict:
     bwd1_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_f]), iters=100)
     bwd1_plain_ms = cuda_ms(lambda: selective_scan_bwd_plain(dirs[:1], gs[:1]),
                             iters=1, warmup=1)
+    with scan_switches(AUM_SCAN_BWD_FUSED=True):
+        with sample_clocks({}) as card_fused:
+            fused_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
+                               iters=100)
+        fused1_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_f]),
+                            iters=100)
+    bwd_again_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]), iters=100)
+    # K2's with_state form: the saving forward from a random x0, then the
+    # backward with a random cotangent of the final state.
+    x0, gfin = (torch.randn((bsz, d, n), generator=g).cuda() for _ in range(2))
+    _, xb_s, _ = selective_scan_cuda(dir_f, False, save_states=True, initial_state=x0,
+                                     return_final_state=True)
+    with sample_clocks({}) as card_state:
+        state_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_s],
+                                                           gfins=[gfin]), iters=1000)
+    state_plain_ms = cuda_ms(lambda: selective_scan_bwd_plain(dirs[:1], gs[:1],
+                                                              states=[(x0, gfin)]),
+                             iters=1, warmup=1)
 
     bld, bln = bsz * seqlen * d, bsz * seqlen * n
     xb_bytes = bsz * math.ceil(seqlen / STATE_CHUNK) * n * d * 4  # one direction
@@ -935,15 +1160,32 @@ def bench_train_kernels(sfu_rate: float) -> dict:
         return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                 "operations": exp_floor_s(ndir * elems, fp32, sfu_rate) * 1e3}
 
+    # The direct and the fused kernels compute the functions of the staged
+    # forward and K2: the same plain versions and bounds. The with_state
+    # backward moves gfin in and dx0 out on top of K2's one direction.
+    state_bounds = bwd_bounds(1)
+    state_bounds["bytes"] += 2 * bsz * n * d * 4 / HBM_BYTES_PER_S * 1e3
     out = {"scan_save": {"ms": save_ms, "plain_ms": save_plain_ms, "bounds_ms": save_bounds},
+           "scan_save_direct": {"ms": save_direct_ms, "plain_ms": save_plain_ms,
+                                "bounds_ms": save_bounds},
            "scan_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2),
                         "other_floors_ms": {"sfu_only": 2 * elems / sfu_rate * 1e3,
                                             "fp32_pipe_only": SCAN_BWD_FP32_OPS_PER_ELEMENT
-                                            * 2 * elems / FP32_PIPE_OPS_PER_S * 1e3}},
+                                            * 2 * elems / FP32_PIPE_OPS_PER_S * 1e3},
+                        "ms_after_fused": bwd_again_ms},
            "scan_bwd_one_direction": {"ms": bwd1_ms, "plain_ms": bwd1_plain_ms,
-                                      "bounds_ms": bwd_bounds(1)}}
+                                      "bounds_ms": bwd_bounds(1)},
+           "scan_bwd_fused": {"ms": fused_ms, "plain_ms": bwd_plain_ms,
+                              "bounds_ms": bwd_bounds(2)},
+           "scan_bwd_fused_one_direction": {"ms": fused1_ms, "plain_ms": bwd1_plain_ms,
+                                            "bounds_ms": bwd_bounds(1)},
+           "scan_bwd_with_state": {"ms": state_ms, "plain_ms": state_plain_ms,
+                                   "bounds_ms": state_bounds}}
     emit({"phase": "bench_train_kernels", "dims": [bsz, seqlen, d, n], "dtype": "bfloat16",
-          "bimamba": "v1", **out, "card": {"scan_save": card_save, "scan_bwd": card_bwd}})
+          "bimamba": "v1", **out, "card": {"scan_save": card_save,
+                                           "scan_save_direct": card_save_direct,
+                                           "scan_bwd": card_bwd, "scan_bwd_fused": card_fused,
+                                           "scan_bwd_with_state": card_state}})
     return out
 
 
@@ -951,8 +1193,12 @@ def _kernel_category(name: str) -> str:
     low = name.lower()
     if "scan_bwd_kernel" in low:
         return "scan_bwd_kernel"
+    if "scan_bwd_fused_kernel" in low:
+        return "scan_bwd_fused_kernel"
     if "scan_dual_fwd_kernel" in low:
         return "scan_fwd_kernel"
+    if "scan_dual_direct_fwd_kernel" in low:
+        return "scan_direct_fwd_kernel"
     if "scan_single_fwd_kernel" in low:
         return "scan_single_fwd_kernel"
     if "conv1d_fwd_kernel" in low:
@@ -1065,17 +1311,32 @@ def main() -> int:
     import aum_tpu_torch  # noqa: F401  (fails here, before any output, outside a checkout)
 
     t0 = time.perf_counter()
-    device_info = phase_device()
-    phase_build()
-    worst = phase_kernels()
-    eval_launches = phase_model()
-    wav_launches = phase_wav()
-    train = phase_train()
-    train_launches = train["launches_per_step"]
-    fofo_launches = train["fofo_check_launches"]
-    bench = phase_bench(device_info)
-    phase_profile()
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    seconds = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        emit({"phase": "seconds", "of": name, "seconds": seconds[name]})
+        return result
+
+    # Every phase starts from the default kernels; each switched run sets its
+    # switches itself.
+    with scan_switches(**dict.fromkeys(SWITCHES, False)):
+        device_info = timed("device", phase_device)
+        timed("build", phase_build)
+        worst = timed("kernels", phase_kernels)
+        eval_runs = timed("model", phase_model)
+        wav_launches = timed("wav", phase_wav)
+        train = timed("train", phase_train)
+        bench = timed("bench", phase_bench, device_info)
+        timed("profile", phase_profile)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
+    eval_launches, eval_direct = eval_runs["default"], eval_runs["direct"]
+    train_launches = train["default"]["launches_per_step"]
+    train_switched = train["direct_fused"]["launches_per_step"]
+    fofo_launches = train["fofo_check_launches"]["default"]
+    fofo_fused = train["fofo_check_launches"]["fused"]
     scan = _kernel_entry(
         "selective_scan_dual_fwd", "aum_tpu_torch/csrc/selective_scan.cu",
         "aum_tpu/ops/selective_scan.py:1648", eval_launches["selective_scan_dual_fwd"],
@@ -1086,20 +1347,56 @@ def main() -> int:
         train_launches["selective_scan_dual_fwd_save_states"],
         worst["selective_scan_dual_fwd_save_states"], bench["scan_save"])
     scan["launches_by_path"] = {"eval": eval_launches["selective_scan_dual_fwd"],
+                                "wav": wav_launches["selective_scan_dual_fwd"],
                                 "train": train_launches["selective_scan_dual_fwd"]}
+    # AUM_SCAN_DIRECT=1: entry() and train_entry() run the direct kernel.
+    direct = _kernel_entry(
+        "selective_scan_dual_direct_fwd", scan["source"], "aum_tpu/ops/selective_scan.py:1856",
+        eval_direct["selective_scan_dual_direct_fwd"], worst["selective_scan_dual_direct_fwd"],
+        bench["scan_direct"])
+    direct["save_states"] = _kernel_entry(
+        "selective_scan_dual_direct_fwd", scan["source"], direct["replaces"],
+        train_switched["selective_scan_dual_direct_fwd_save_states"],
+        worst["selective_scan_dual_direct_fwd_save_states"], bench["scan_save_direct"])
+    direct["launches_by_path"] = {
+        "eval_direct": eval_direct["selective_scan_dual_direct_fwd"],
+        "train_direct_fused": train_switched["selective_scan_dual_direct_fwd"],
+        "eval": eval_launches["selective_scan_dual_direct_fwd"],
+        "train": train_launches["selective_scan_dual_direct_fwd"]}
     bwd = _kernel_entry(
         "selective_scan_bwd", "aum_tpu_torch/csrc/selective_scan_bwd.cu",
         "aum_tpu/ops/selective_scan.py:392", train_launches["selective_scan_bwd"],
         worst["selective_scan_bwd"], bench["scan_bwd"])
     bwd["also_replaces"] = "aum_tpu/ops/selective_scan.py:822 (both directions in one launch)"
     bwd["launches_by_path"] = {"eval": 0, "wav": 0, "train": train_launches["selective_scan_bwd"],
-                               "fofo_train_check": fofo_launches["selective_scan_bwd"]}
+                               "fofo_train_check": fofo_launches["selective_scan_bwd"],
+                               "train_direct_fused": train_switched["selective_scan_bwd"]}
     # The same kernel on one direction, the form of _bwd_kernel: the Fo-Fo
     # train check launches it (the train path takes both directions at once).
     bwd["one_direction"] = _kernel_entry(
         "selective_scan_bwd", bwd["source"], bwd["replaces"],
         fofo_launches["selective_scan_bwd"], worst["selective_scan_bwd"],
         bench["scan_bwd_one_direction"])
+    # Its with_state form, which no entry path runs yet (the LM prefill and
+    # sequence parallelism); the chained-segment kernel check runs it through
+    # selective_scan under autograd.
+    bwd["with_state"] = _kernel_entry(
+        "selective_scan_bwd", bwd["source"], "aum_tpu/ops/selective_scan.py:392 (with_state)",
+        train_launches["selective_scan_bwd_with_state"],
+        worst["selective_scan_bwd_with_state"], bench["scan_bwd_with_state"])
+    # AUM_SCAN_BWD_FUSED=1: train_entry() (both directions per launch) and
+    # the Fo-Fo train check (one direction) run the fused kernel.
+    fused = _kernel_entry(
+        "selective_scan_bwd_fused", "aum_tpu_torch/csrc/selective_scan_bwd_fused.cu",
+        "aum_tpu/ops/selective_scan.py:553", train_switched["selective_scan_bwd_fused"],
+        worst["selective_scan_bwd_fused"], bench["scan_bwd_fused"])
+    fused["one_direction"] = _kernel_entry(
+        "selective_scan_bwd_fused", fused["source"], fused["replaces"],
+        fofo_fused["selective_scan_bwd_fused"], worst["selective_scan_bwd_fused"],
+        bench["scan_bwd_fused_one_direction"])
+    fused["launches_by_path"] = {"train_direct_fused": train_switched["selective_scan_bwd_fused"],
+                                 "fofo_train_check_fused": fofo_fused["selective_scan_bwd_fused"],
+                                 "train": train_launches["selective_scan_bwd_fused"]}
     single = _kernel_entry(
         "selective_scan_fwd", "aum_tpu_torch/csrc/selective_scan.cu",
         "aum_tpu/ops/selective_scan.py:111", wav_launches["selective_scan_fwd"],
@@ -1125,8 +1422,7 @@ def main() -> int:
     conv["launches_by_path"] = {"eval": eval_launches["causal_conv1d_fwd"],
                                 "wav": wav_launches["causal_conv1d_fwd"],
                                 "train": train_launches["causal_conv1d_fwd"]}
-    scan["launches_by_path"]["wav"] = wav_launches["selective_scan_dual_fwd"]
-    emit({"kernels": [scan, single, bwd, conv]})
+    emit({"kernels": [scan, direct, single, bwd, fused, conv]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

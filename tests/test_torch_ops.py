@@ -5,8 +5,9 @@ these tests hold that version to the JAX op; the CUDA kernels themselves are
 held to the plain versions on the card by ``chip_smoke.py``. The JAX scan and
 conv kernels run here in Pallas interpret mode, as the JAX package's own
 tests run them: the dual scan, and the single-direction scan (forward,
-``with_state``, and its grads through ``_fwd_kernel_z`` with saved states and
-``_bwd_kernel``), each jitted once per form and shared. Inputs are drawn with
+``with_state``, and their grads through ``_fwd_kernel_z`` with saved states
+and ``_bwd_kernel``, the with_state grads with its gfin in and dx0 out), each
+jitted once per form and shared. Inputs are drawn with
 numpy from fixed seeds and handed to both frameworks. torch is imported
 inside the tests, as in the other test modules that use it.
 """
@@ -109,13 +110,15 @@ def jax_single_scan():
     """The JAX ``selective_scan(use_kernel=True, interpret=True)`` on
     ``_single_args()``, l_chunk 8 (an overhang chunk at L=37), with bias,
     softplus, D and z, per direction: fp32 (out, the 8 grads of sum(out *
-    w)) from one jitted vjp, bf16 out, and the with_state form's (out, final
-    state) from a random x0."""
+    w)) from one jitted vjp, bf16 out, and the with_state form's ((out, final
+    state), the 9 grads of sum(out * w) + sum(final state * wf), d(x0) last)
+    from a random x0, one jitted vjp (``_make_scan_x0``)."""
     rng = np.random.default_rng(41)
     x0 = rng.standard_normal((2, 32, 16))
     w = rng.standard_normal((2, 37, 32))
+    wf = rng.standard_normal((2, 32, 16))
     args = _single_args()
-    out = {"x0": x0, "w": w}
+    out = {"x0": x0, "w": w, "wf": wf}
     for reverse in (False, True):
         def scan(*a, **kw):
             return jscan(*a[:6], z=a[6], delta_bias=a[7], delta_softplus=True,
@@ -128,8 +131,14 @@ def jax_single_scan():
         out["float32", reverse] = jax.jit(out_and_grads)(_as_jax(args, "float32"),
                                                          jnp.asarray(w, jnp.float32))
         out["bfloat16", reverse] = (jax.jit(scan)(*_as_jax(args, "bfloat16")), None)
-        out["state", reverse] = jax.jit(functools.partial(scan, return_final_state=True))(
-            *_as_jax(args, "float32"), initial_state=jnp.asarray(x0, jnp.float32))
+
+        def state_out_and_grads(a, x0, w, wf):
+            outs, vjp = jax.vjp(lambda *a: scan(*a[:8], initial_state=a[8],
+                                                return_final_state=True), *a, x0)
+            return outs, vjp((w, wf))
+
+        out["state", reverse] = jax.jit(state_out_and_grads)(
+            _as_jax(args, "float32"), *(jnp.asarray(a, jnp.float32) for a in (x0, w, wf)))
     return {k: jax.device_get(v) for k, v in out.items()}
 
 
@@ -158,7 +167,7 @@ def test_selective_scan_with_state_matches_jax_kernel(jax_single_scan, reverse):
     got, fin = selective_scan(*args[:7], delta_bias=args[7], delta_softplus=True,
                               reverse=reverse, initial_state=_torch(jax_single_scan["x0"]),
                               return_final_state=True)
-    want, want_fin = jax_single_scan["state", reverse]
+    (want, want_fin), _ = jax_single_scan["state", reverse]
     assert tuple(fin.shape) == (2, 32, 16) and fin.dtype == torch.float32
     # fp32 recurrences, exp vs exp2: the forward's bound.
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
@@ -184,21 +193,119 @@ def test_selective_scan_grads_match_jax_kernels(jax_single_scan, reverse):
 
 
 def test_selective_scan_state_forms_run_without_grad_only():
+    """D and z are required; without grad the state forms run (the final
+    state in (B, D, N)); under grad the state forms and the form without the
+    softplus run too (their grads: the tests below)."""
     import torch
 
     from aum_tpu_torch.ops import selective_scan
 
     args = [t.requires_grad_() for t in _as_torch(_scan_args(3), "float32")]
-    with pytest.raises(NotImplementedError, match="with_state"):
-        selective_scan(*args[:7], delta_bias=args[7], delta_softplus=True,
-                       return_final_state=True)
-    with pytest.raises(NotImplementedError, match="softplus"):
-        selective_scan(*args[:7], delta_bias=args[7])
     with pytest.raises(ValueError, match="D and z"):
         selective_scan(*args[:5], None, args[6])
     with torch.no_grad():
         y, fin = selective_scan(*args[:7], delta_bias=args[7], return_final_state=True)
     assert y.shape == args[0].shape and tuple(fin.shape) == (2, 16, 4)
+    assert not y.requires_grad and not fin.requires_grad
+    y, fin = selective_scan(*args[:7], delta_bias=args[7], delta_softplus=True,
+                            return_final_state=True)
+    assert y.requires_grad and fin.requires_grad and tuple(fin.shape) == (2, 16, 4)
+    y2 = selective_scan(*args[:7], delta_bias=args[7])
+    (y.sum() + fin.sum() + y2.sum()).backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in args)
+
+
+SCAN_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "bias")
+
+
+def _assert_grads_close(names, got, want, tol):
+    """Each grad within tol of its largest element."""
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w, np.float32)
+        err = float(np.abs(_np(g) - w).max() / np.abs(w).max())
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_selective_scan_with_state_grads_match_jax_kernels(jax_single_scan, reverse):
+    """The 8 grads and d(x0) of the with_state scan under grad (``_Scan`` in
+    its state form; its plain backward here), with a loss that reads both
+    outputs, against JAX's ``_make_scan_x0`` (``_fwd_kernel_z`` with saved
+    states and x0, ``_bwd_kernel`` with gfin in and dx0 out), fp32, 2e-4 of
+    each grad's largest element as for the grads without state."""
+    from aum_tpu_torch.ops import selective_scan
+
+    leaves = [t.requires_grad_() for t in _as_torch(_single_args(), "float32")]
+    x0 = _torch(jax_single_scan["x0"]).requires_grad_()
+    y, fin = selective_scan(*leaves[:7], delta_bias=leaves[7], delta_softplus=True,
+                            reverse=reverse, initial_state=x0, return_final_state=True)
+    ((y * _torch(jax_single_scan["w"])).sum()
+     + (fin * _torch(jax_single_scan["wf"])).sum()).backward()
+    _, want = jax_single_scan["state", reverse]
+    _assert_grads_close(SCAN_NAMES + ("x0",), [t.grad for t in leaves + [x0]], want, 2e-4)
+
+
+def test_selective_scan_no_softplus_grads_match_jax_kernel():
+    """``delta_softplus=False`` under grad: dt = delta + bias as given, and
+    ddelta = ddt (no sigmoid), against JAX's kernels with ``softplus=False``;
+    delta is made positive first (a pre-activated dt), fp32, 2e-4."""
+    from aum_tpu_torch.ops import selective_scan
+
+    args = list(_scan_args(42, d=24, n=8))
+    args[1] = np.log1p(np.exp(args[1]))
+    w = np.random.default_rng(43).standard_normal(args[0].shape)
+
+    def scan(*a):
+        return jscan(*a[:6], z=a[6], delta_bias=a[7], delta_softplus=False,
+                     use_kernel=True, interpret=True, d_block=8, l_chunk=8)
+
+    def grads(a, w):
+        return jax.vjp(scan, *a)[1](w)
+
+    want = jax.jit(grads)(_as_jax(args, "float32"), jnp.asarray(w, jnp.float32))
+    leaves = [t.requires_grad_() for t in _as_torch(args, "float32")]
+    y = selective_scan(*leaves[:7], delta_bias=leaves[7])
+    (y * _torch(w)).sum().backward()
+    _assert_grads_close(SCAN_NAMES, [t.grad for t in leaves], want, 2e-4)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_selective_scan_chained_segments_match_unsplit(reverse):
+    """A scan split at an uneven point, the second segment started from the
+    first one's final state (reverse: the right-hand segment first), gives
+    the unsplit scan's outputs and all grads under autograd: the property
+    sequence parallelism rests on (plain path, fp32)."""
+    import torch
+
+    from aum_tpu_torch.ops import selective_scan
+
+    raw = _as_torch(_scan_args(44, d=24, n=8), "float32")
+    w = _torch(np.random.default_rng(45).standard_normal((2, 37, 24)))
+    split = 15
+    results = []
+    for chained in (False, True):
+        leaves = [t.clone().requires_grad_() for t in raw]
+        u, delta, A, B, C, D, z, bias = leaves
+
+        def scan(lo, hi, **kw):
+            return selective_scan(u[:, lo:hi], delta[:, lo:hi], A, B[:, lo:hi], C[:, lo:hi],
+                                  D, z[:, lo:hi], delta_bias=bias, delta_softplus=True,
+                                  reverse=reverse, **kw)
+
+        if not chained:
+            y = scan(0, 37)
+        else:
+            first, second = ((split, 37), (0, split)) if reverse else ((0, split), (split, 37))
+            y_a, state = scan(*first, return_final_state=True)
+            y_b = scan(*second, initial_state=state)
+            y = torch.cat((y_b, y_a) if reverse else (y_a, y_b), dim=1)
+        (y * w).sum().backward()
+        results.append((y.detach(), [t.grad for t in leaves]))
+    (y_ref, g_ref), (y_got, g_got) = results
+    # The same fp32 steps in the same order; only the sums of dA, dD and
+    # dbias over the two segments are grouped differently.
+    np.testing.assert_allclose(_np(y_got), _np(y_ref), rtol=1e-6, atol=1e-6)
+    _assert_grads_close(SCAN_NAMES, g_got, [_np(g) for g in g_ref], 1e-5)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
