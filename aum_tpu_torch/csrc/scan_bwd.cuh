@@ -67,7 +67,7 @@ __device__ __forceinline__ void advance(float (&x)[kNL], const float (&A)[kNL],
   const float dtl = dtv * kLog2e;
   const float dtu = dtv * uv;
 #pragma unroll
-  for (int k = 0; k < kNL; ++k) x[k] = exp2f(dtl * A[k]) * x[k] + dtu * bt[k];
+  for (int k = 0; k < kNL; ++k) x[k] = aum::exp2_sfu(dtl * A[k]) * x[k] + dtu * bt[k];
 }
 
 // The sum of v over the kGroup lanes of a chain, in every one of them.
@@ -104,35 +104,41 @@ __device__ __forceinline__ int row_position(int ch, int n0) {
   return ch < kNL ? n0 + ch : kMaxN + n0 + ch - kNL;
 }
 
+// The step-wise outputs of the sub-chunk steps a lane writes: each lane of
+// a chain writes steps j = r * kGroup + q of a sub-chunk of kSub, so the
+// gate grads and the stores are spread over the group, not repeated by it.
+constexpr int kOwn = kSub / kGroup;
+static_assert(kSub % kGroup == 0, "every lane writes the same number of steps");
+struct OwnSteps {
+  float yd[kOwn];    // y_t + D u_t
+  float gdtu[kOwn];  // sum_n lam B
+  float ddt[kOwn];   // the grad of dt before the softplus
+};
+
 // One adjoint step at processed step t, against the scan's direction, on
 // this lane's states: recomputes a_t and x_t from the state before the step
-// (xprev[k * xstride]), y_t, the gate grads; lam_t = C_t gy_t + lam, and on
-// return lam = a_t lam_t (the carry to the step before); adds to dA, dD and
-// dbias; writes du, ddelta and dz at element o when `write`. Returns this
+// (xprev[k * xstride]) and y_t; lam_t = C_t gy_t + lam, and on return lam =
+// a_t lam_t (the carry to the step before); adds to dA and dD. Step j of the
+// sub-chunk records y_t + D u_t and the two sums of ddt in `own` on the lane
+// that writes it (write_own forms du, ddelta, dz from them). Returns this
 // lane's share of the step's dB/dC row (see channel_reduce_scatter). Both
 // backward kernels run this one step, so they cannot drift apart.
-// kSoftplus: dt came through the softplus (a template flag, so the step
-// carries no select for it).
-template <typename T, bool kSoftplus>
+// j must be a constant after unrolling: it indexes registers.
 __device__ __forceinline__ float adjoint_step(
-    const float* xprev, int xstride, const float* bt, const float* ct,
-    const float (&A)[kNL], float (&lam)[kNL], float (&dA)[kNL], float& dD, float& dbias,
-    float dtv, float uv, float zv, float gv, float dskip, bool write,
-    T* du, T* ddelta, T* dz, long long o, int lane) {
+    int j, const float* xprev, int xstride, const float* bt, const float* ct,
+    const float (&A)[kNL], float (&lam)[kNL], float (&dA)[kNL], float& dD, OwnSteps& own,
+    float dtv, float uv, float zv, float gv, float dskip, int lane) {
   const float dtl = dtv * kLog2e;
   const float dtu = dtv * uv;
   float a[kNL], xt[kNL];
   float y = 0.0f;
 #pragma unroll
   for (int k = 0; k < kNL; ++k) {
-    a[k] = exp2f(dtl * A[k]);
+    a[k] = aum::exp2_sfu(dtl * A[k]);
     xt[k] = a[k] * xprev[k * xstride] + dtu * bt[k];
     y += ct[k] * xt[k];
   }
-  y = group_sum(y);
-  const float sig = 1.0f / (1.0f + expf(-zv));
-  const float gy = gv * zv * sig;
-  const float dzv = gv * (y + dskip * uv) * (sig * (1.0f + zv * (1.0f - sig)));
+  const float gy = gv * zv * aum::sigmoid_fast(zv);
   dD += gy * uv;
 
   float v[2 * kNL];
@@ -148,17 +154,44 @@ __device__ __forceinline__ float adjoint_step(
     v[kNL + k] = xt[k] * gy;  // dC_t[n], this channel's share
     lam[k] = a[k] * l;
   }
+  y = group_sum(y);
   gdtu = group_sum(gdtu);
-  const float ddt = group_sum(dla_a) + gdtu * uv;
-  const float dd = kSoftplus ? ddt * (1.0f - expf(-dtv)) : ddt;  // sigmoid(delta + bias)
-  dbias += dd;
-  if (write) {
-    du[o] = aum::from_float<T>(gy * dskip + gdtu * dtv);
-    ddelta[o] = aum::from_float<T>(dd);
-    dz[o] = aum::from_float<T>(dzv);
+  dla_a = group_sum(dla_a);
+  if (lane % kGroup == j % kGroup) {
+    own.yd[j / kGroup] = y + dskip * uv;
+    own.gdtu[j / kGroup] = gdtu;
+    own.ddt[j / kGroup] = dla_a + gdtu * uv;
   }
   channel_reduce_scatter(v, lane);
   return v[0];
+}
+
+// This lane's share of a sub-chunk's du, ddelta and dz (its steps j = r *
+// kGroup + q, j < slen, at processed index i0 + j), and their ddelta in
+// dbias. streams(j, dt, u, z, g) gives step j's per-step streams.
+// kSoftplus: dt came through the softplus (ddelta = ddt (1 - exp(-dt))).
+template <typename T, bool kSoftplus, typename StepStreams>
+__device__ __forceinline__ void write_own(
+    const OwnSteps& own, StepStreams streams, T* du, T* ddelta, T* dz, int i0, int slen,
+    int seqlen, bool reverse, int dim, float dskip, bool active, int q, float& dbias) {
+#pragma unroll
+  for (int r = 0; r < kOwn; ++r) {
+    const int j = r * kGroup + q;
+    if (!active || j >= slen) continue;
+    const int t = reverse ? seqlen - 1 - (i0 + j) : i0 + j;
+    float dtv, uv, zv, gv;
+    streams(j, dtv, uv, zv, gv);
+    const float sig = aum::sigmoid_fast(zv);
+    const float gy = gv * zv * sig;
+    // sigmoid(delta + bias) = 1 - exp(-dt), in the plain version's form
+    const float dd = kSoftplus ? own.ddt[r] * (1.0f - aum::exp2_sfu(-dtv * kLog2e))
+                               : own.ddt[r];
+    dbias += dd;
+    const long long o = static_cast<long long>(t) * dim;
+    du[o] = aum::from_float<T>(gy * dskip + own.gdtu[r] * dtv);
+    ddelta[o] = aum::from_float<T>(dd);
+    dz[o] = aum::from_float<T>(gv * own.yd[r] * (sig * (1.0f + zv * (1.0f - sig))));
+  }
 }
 
 }  // namespace bwd

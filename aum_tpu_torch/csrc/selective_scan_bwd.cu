@@ -34,13 +34,24 @@
 // processing order and restarts each from its saved entry state xb. A
 // chunk's 64 x 16 fp32 states do not fit in registers, so the states are
 // recomputed on two levels: one walk through the chunk keeps the entry state
-// of each sub-chunk of kSub steps in shared memory, then each sub-chunk,
-// last first, is walked again keeping the state before every step in shared
-// memory, and the adjoint runs over it backwards. Each sub-chunk's per-step
-// streams are loaded together before they are used. The adjoint carry stays
-// in registers across chunks. Sums over n (y_t, and the two sums of ddt) are
-// taken across the group with two shuffles each. B_t and C_t are staged per
-// chunk in shared memory and read as broadcasts.
+// of each sub-chunk of kSub steps in shared memory (the first one's is xb
+// itself), then each sub-chunk, last first, is walked again keeping the
+// state before every step in shared memory, and the adjoint runs over it
+// backwards. The block stages each sub-chunk's dt, u, z and g for its 32
+// channels in shared memory (coalesced rows, each element loaded once, not
+// once per lane), loading the next sub-chunk's while this one is walked, so
+// neither the level-2 walk nor the adjoint waits on memory and the streams
+// hold no registers (the level-1 walk reads dt and u itself). The adjoint
+// carry stays in registers across chunks. Sums over n (y_t, and the two
+// sums of ddt) are taken across the group with two shuffles each. B_t and
+// C_t are staged per chunk in shared memory and read as broadcasts. Every exponential is one
+// ex2.approx.ftz on the special-function unit (exp2f's range fix-up is three
+// more instructions per state and step), and sigmoid(z) one exp2 and one
+// reciprocal there. What a step computes once per channel (du, ddelta, dz,
+// their gate terms and stores) is spread over the group: each lane keeps
+// y + D u and the two sums of ddt of the sub-chunk steps it owns (steps j
+// = r * kGroup + q) and forms and writes them after the sub-chunk; dbias
+// sums per lane and once across the group at the end.
 //
 // dB_t and dC_t reduce over channels, which span blocks: each warp sums its
 // 8 channels' contributions with a butterfly reduce-scatter over the lanes
@@ -58,9 +69,12 @@
 // the fp32 partials, so like the forward it is bound by operations, not
 // bytes. Each step is a chain of dependent operations, so the kernel needs
 // many warps in flight: splitting N over 4 lanes gives 4x the warps of one
-// thread per chain, and 44 KB of shared memory per 4-warp block leaves 20
-// warps per SM (with registers capped to fit). It still evaluates each a_t
-// three times (both recompute walks and the adjoint).
+// thread per chain, and 44 KB of shared memory per 4-warp block (bf16
+// streams; 46 KB in fp32) leaves 20 warps per SM (registers capped to 96 to
+// match, with some spills). It still evaluates each a_t three times (both
+// recompute walks and the adjoint): measured on an H100, keeping the
+// level-2 states in registers instead (28 KB per block) costs more in
+// registers and spills than it saves, at 3, 4 or 5 blocks per SM.
 
 #include <cstdint>
 
@@ -74,19 +88,28 @@ constexpr int kWarps = 4;                    // warps per block
 constexpr int kThreads = kWarp * kWarps;
 constexpr int kChanPerBlock = kChanPerWarp * kWarps;  // 32, one partial row
 constexpr int kNSub = kChunk / kSub;
-
 // 5 blocks per SM: what the shared memory allows, with registers capped to
-// match (96, a few bytes of spills; measured faster than 4 blocks at 128).
+// match (96, some bytes of spills; measured faster than 4 blocks at 128).
+constexpr int kMinBlocks = 5;
+
+constexpr int kStreams = 4;  // dt, u, z, g
+// Elements of one sub-chunk's streams each thread stages.
+constexpr int kStagePer = kStreams * kSub * kChanPerBlock / kThreads;
+static_assert(kStreams * kSub * kChanPerBlock % kThreads == 0, "whole staging rounds");
+
 // kState: the with_state form (gfin seeds the carry, dx0 is written);
 // kSoftplus: dt came through the softplus.
 template <typename T, bool kState, bool kSoftplus>
-__global__ void __launch_bounds__(kThreads, 5)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dstate) {
-  __shared__ float s_B[kChunk][kMaxN];
-  __shared__ float s_C[kChunk][kMaxN];
-  __shared__ float s_sub[kNSub][kNL][kThreads];  // sub-chunk entry states
+  __shared__ __align__(16) float s_B[kChunk][kMaxN];
+  __shared__ __align__(16) float s_C[kChunk][kMaxN];
+  // Entry states of sub-chunks 1 .. kNSub-1 (sub-chunk 0 starts from xb).
+  __shared__ float s_sub[kNSub - 1][kNL][kThreads];
   __shared__ float s_x[kSub][kNL][kThreads];     // state before each step of a sub-chunk
   __shared__ float s_dbc[kSub][kWarps][kRow];    // each warp's dB/dC sums per step
+  // dt, u, z, g of the sub-chunk being walked, for the block's channels.
+  __shared__ T s_st[kStreams][kSub][kChanPerBlock];
 
   const ScanBwdDir& p = args.dir[blockIdx.z];
   const bool reverse = p.reverse != 0;
@@ -104,8 +127,6 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
 
   const T* u = static_cast<const T*>(p.u) + b * p.u_sb + dc;
   const T* dt = static_cast<const T*>(p.dt) + b * p.dt_sb + dc;
-  const T* z = static_cast<const T*>(p.z) + b * p.z_sb + dc;
-  const T* g = static_cast<const T*>(p.g) + b * p.g_sb + dc;
   const T* Bm = static_cast<const T*>(p.B) + b * p.B_sb;
   const T* Cm = static_cast<const T*>(p.C) + b * p.C_sb;
   const long long row = static_cast<long long>(b) * seqlen * dim + dc;
@@ -130,6 +151,43 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   const float dskip = active ? p.Dskip[d] : 0.0f;
   float dD = 0.0f, dbias = 0.0f;
 
+  auto step_of = [&](int i) { return reverse ? seqlen - 1 - i : i; };
+  // The block's streams of the sub-chunk at processed index i0 (zeros past
+  // the end or the last channel): each thread loads kStagePer of them, to
+  // be stored into s_st once its readers are done.
+  const int chb = warp * kChanPerWarp + ch;  // this lane's channel in the block
+  const int d0 = blockIdx.x * kChanPerBlock;
+  const T* st_base[kStreams] = {static_cast<const T*>(p.dt) + b * p.dt_sb + d0,
+                                static_cast<const T*>(p.u) + b * p.u_sb + d0,
+                                static_cast<const T*>(p.z) + b * p.z_sb + d0,
+                                static_cast<const T*>(p.g) + b * p.g_sb + d0};
+  const long long st_sl[kStreams] = {p.dt_sl, p.u_sl, p.z_sl, p.g_sl};
+  auto load_stage = [&](T (&v)[kStagePer], int i0) {
+#pragma unroll
+    for (int r = 0; r < kStagePer; ++r) {
+      const int e = tid + r * kThreads;
+      const int k = e / (kSub * kChanPerBlock);
+      const int j = e / kChanPerBlock % kSub;
+      const int cc = e % kChanPerBlock;
+      const bool in = i0 + j < seqlen && d0 + cc < dim;
+      const long long t = step_of(min(i0 + j, seqlen - 1));
+      v[r] = in ? st_base[k][t * st_sl[k] + cc] : aum::from_float<T>(0.0f);
+    }
+  };
+  auto store_stage = [&](const T (&v)[kStagePer]) {
+#pragma unroll
+    for (int r = 0; r < kStagePer; ++r) {
+      const int e = tid + r * kThreads;
+      s_st[e / (kSub * kChanPerBlock)][e / kChanPerBlock % kSub][e % kChanPerBlock] = v[r];
+    }
+  };
+  auto st = [&](int k, int j) { return aum::to_float(s_st[k][j][chb]); };
+  {
+    T v[kStagePer];
+    load_stage(v, (seqlen - 1) / kSub * kSub);  // the first sub-chunk processed
+    store_stage(v);  // read after the first chunk's staging barriers
+  }
+
   for (int c = n_chunks - 1; c >= 0; --c) {
     const int c0 = c * kChunk;
     const int len = min(kChunk, seqlen - c0);
@@ -138,7 +196,7 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
     for (int idx = tid; idx < len * kMaxN; idx += kThreads) {
       const int i = idx / kMaxN;
       const int n = idx - i * kMaxN;
-      const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
+      const int t = step_of(c0 + i);
       s_B[i][n] = n < dstate ? aum::to_float(Bm[t * p.B_sl + n]) : 0.0f;
       s_C[i][n] = n < dstate ? aum::to_float(Cm[t * p.C_sl + n]) : 0.0f;
     }
@@ -152,14 +210,15 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
     for (int k = 0; k < kNL; ++k) x[k] = has_n[k] ? xb[static_cast<long long>(k) * dim] : 0.0f;
     const int n_sub = (len + kSub - 1) / kSub;
     for (int s = 0; s < n_sub; ++s) {
+      if (s > 0) {
 #pragma unroll
-      for (int k = 0; k < kNL; ++k) s_sub[s][k][tid] = x[k];
+        for (int k = 0; k < kNL; ++k) s_sub[s - 1][k][tid] = x[k];
+      }
       if (s + 1 == n_sub) break;
       float dtr[kSub], ur[kSub];  // a full sub-chunk: it is not the last
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        const int i = s * kSub + j;
-        const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
+        const int t = step_of(c0 + s * kSub + j);
         dtr[j] = load(dt, t * p.dt_sl, active);
         ur[j] = load(u, t * p.u_sl, active);
       }
@@ -170,56 +229,61 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
     for (int s = n_sub - 1; s >= 0; --s) {
       const int i0 = s * kSub;
       const int slen = min(kSub, len - i0);
-      float dtr[kSub], ur[kSub], zr[kSub], gr[kSub];
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const bool in = active && j < slen;
-        const int i = i0 + j;
-        const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
-        dtr[j] = load(dt, t * p.dt_sl, in);
-        ur[j] = load(u, t * p.u_sl, in);
-        zr[j] = load(z, t * p.z_sl, in);
-        gr[j] = load(g, t * p.g_sl, in);
-      }
+      // The next sub-chunk processed (maybe in the chunk before) is loaded
+      // while this one is walked, and staged after the first barrier below.
+      T nxt[kStagePer];
+      if (c0 + i0 > 0) load_stage(nxt, c0 + i0 - kSub);
       // Level 2: the state before every step of this sub-chunk.
 #pragma unroll
-      for (int k = 0; k < kNL; ++k) x[k] = s_sub[s][k][tid];
+      for (int k = 0; k < kNL; ++k) {
+        x[k] = s > 0 ? s_sub[s - 1][k][tid]
+                     : (has_n[k] ? xb[static_cast<long long>(k) * dim] : 0.0f);
+      }
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
         if (j < slen) {
 #pragma unroll
-          for (int k = 0; k < kNL; ++k) s_x[j][k][tid] = x[k];
-          if (j + 1 < slen) advance(x, A, &s_B[i0 + j][n0], dtr[j], ur[j]);
+          for (int k = 0; k < kNL; ++k) {
+            s_x[j][k][tid] = x[k];
+          }
+          if (j + 1 < slen) advance(x, A, &s_B[i0 + j][n0], st(0, j), st(1, j));
         }
       }
 
       // The adjoint, against the scan's direction.
+      OwnSteps own;
 #pragma unroll
       for (int j = kSub - 1; j >= 0; --j) {
         if (j >= slen) continue;
-        const int i = i0 + j;
-        const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
-        s_dbc[j][warp][row_pos] = adjoint_step<T, kSoftplus>(
-            &s_x[j][0][tid], kThreads, &s_B[i][n0], &s_C[i][n0], A, lam, dA, dD, dbias,
-            dtr[j], ur[j], zr[j], gr[j], dskip, active && q == 0, du, ddelta, dz,
-            static_cast<long long>(t) * dim, lane);
+        s_dbc[j][warp][row_pos] = adjoint_step(
+            j, &s_x[j][0][tid], kThreads, &s_B[i0 + j][n0], &s_C[i0 + j][n0], A, lam, dA, dD,
+            own, st(0, j), st(1, j), st(2, j), st(3, j), dskip, lane);
       }
+      auto streams = [&](int j, float& dtv, float& uv, float& zv, float& gv) {
+        dtv = st(0, j);
+        uv = st(1, j);
+        zv = st(2, j);
+        gv = st(3, j);
+      };
+      write_own<T, kSoftplus>(own, streams, du, ddelta, dz, c0 + i0, slen, seqlen, reverse,
+                              dim, dskip, active, q, dbias);
       // The block's dB/dC row of each step: the sum of its warps' rows.
       __syncthreads();
       for (int idx = tid; idx < slen * kRow; idx += kThreads) {
         const int j = idx / kRow;
         const int r = idx - j * kRow;
-        const int i = i0 + j;
-        const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
+        const int t = step_of(c0 + i0 + j);
         float sum = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) sum += s_dbc[j][w][r];
         dbc[static_cast<long long>(t) * kRow + r] = sum;
       }
-      __syncthreads();  // s_dbc is free for the next sub-chunk
+      if (c0 + i0 > 0) store_stage(nxt);  // every reader of s_st passed the barrier
+      __syncthreads();  // s_dbc is free, s_st holds the next sub-chunk
     }
   }
 
+  dbias = group_sum(dbias);  // each lane summed the steps it wrote
 #pragma unroll
   for (int k = 0; k < kNL; ++k) {
     if (has_n[k]) {
@@ -261,8 +325,32 @@ void launch(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int dim, i
 
 extern "C" {
 
-// The chunk length of the entry states this kernel restarts from.
+// The chunk length of the entry states this kernel restarts from, and the
+// channels of one dB/dC partial row (dbc_part's first axis is ceil(D / it)).
 int aum_scan_bwd_state_chunk() { return kChunk; }
+int aum_scan_bwd_block_channels() { return kChanPerBlock; }
+
+// The resources of the i-th kernel instantiation this library launches
+// (aum_kernel_resources in common.cuh: info[0..5]) and its name; 0 on
+// success, a CUDA error, or -1 past the last one.
+int aum_kernel_info(int i, int* info, const char** name) {
+  int n = 0;
+#define AUM_KERNEL(...)                                             \
+  if (i == n++) {                                                   \
+    *name = #__VA_ARGS__;                                           \
+    return aum_kernel_resources(__VA_ARGS__, kThreads, 0, info);    \
+  }
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, false, true>)
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, false, false>)
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, true, true>)
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, true, false>)
+  AUM_KERNEL(scan_bwd_kernel<float, false, true>)
+  AUM_KERNEL(scan_bwd_kernel<float, false, false>)
+  AUM_KERNEL(scan_bwd_kernel<float, true, true>)
+  AUM_KERNEL(scan_bwd_kernel<float, true, false>)
+#undef AUM_KERNEL
+  return -1;
+}
 
 // ndir directions (1 or 2) from args->dir[0 .. ndir-1]; dtype: 0 = fp32
 // streams, 1 = bf16 streams. gfin and dx0 are both set (the with_state

@@ -150,16 +150,25 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
         zr[j] = load(z, t * p.z_sl, in);
         gr[j] = load(g, t * p.g_sl, in);
       }
+      OwnSteps own;
 #pragma unroll
       for (int j = kSub - 1; j >= 0; --j) {
         if (j >= slen) continue;
         const int i = i0 + j;
-        const int t = reverse ? seqlen - 1 - (c0 + i) : c0 + i;
-        sm.dbc[j][warp][row_pos] = adjoint_step<T, kSoftplus>(
-            &sm.x[i][0][tid], kThreads, &sm.B[i][n0], &sm.C[i][n0], A, lam, dA, dD, dbias,
-            dtr[j], ur[j], zr[j], gr[j], dskip, active && q == 0, du, ddelta, dz,
-            static_cast<long long>(t) * dim, lane);
+        sm.dbc[j][warp][row_pos] = adjoint_step(
+            j, &sm.x[i][0][tid], kThreads, &sm.B[i][n0], &sm.C[i][n0], A, lam, dA, dD, own,
+            dtr[j], ur[j], zr[j], gr[j], dskip, lane);
       }
+      // The lane's own steps' streams, read again (they are in L1).
+      auto streams = [&](int j, float& dtv, float& uv, float& zv, float& gv) {
+        const int t = reverse ? seqlen - 1 - (c0 + i0 + j) : c0 + i0 + j;
+        dtv = aum::to_float(dt[t * p.dt_sl]);
+        uv = aum::to_float(u[t * p.u_sl]);
+        zv = aum::to_float(z[t * p.z_sl]);
+        gv = aum::to_float(g[t * p.g_sl]);
+      };
+      write_own<T, kSoftplus>(own, streams, du, ddelta, dz, c0 + i0, slen, seqlen, reverse,
+                              dim, dskip, active, q, dbias);
       // The block's dB/dC row of each step: the sum of its warps' rows.
       __syncthreads();
       for (int idx = tid; idx < slen * kRow; idx += kThreads) {
@@ -175,6 +184,7 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
     }
   }
 
+  dbias = group_sum(dbias);  // each lane summed the steps it wrote
 #pragma unroll
   for (int k = 0; k < kNL; ++k) {
     if (has_n[k]) p.dA_part[(static_cast<long long>(b) * dstate + n0 + k) * dim + d] = dA[k];
@@ -215,6 +225,27 @@ extern "C" {
 // channels of one dB/dC partial row (dbc_part's first axis is ceil(D / it)).
 int aum_scan_bwd_fused_state_chunk() { return kChunk; }
 int aum_scan_bwd_fused_block_channels() { return kChanPerBlock; }
+
+// The resources of the i-th kernel instantiation this library launches
+// (aum_kernel_resources in common.cuh: info[0..5], at its dynamic shared
+// memory) and its name; 0 on success, a CUDA error, or -1 past the last one.
+int aum_kernel_info(int i, int* info, const char** name) {
+  int n = 0;
+#define AUM_KERNEL(...)                                                          \
+  if (i == n++) {                                                                \
+    *name = #__VA_ARGS__;                                                        \
+    const cudaError_t err = cudaFuncSetAttribute(                                \
+        __VA_ARGS__, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem)); \
+    if (err != cudaSuccess) return static_cast<int>(err);                        \
+    return aum_kernel_resources(__VA_ARGS__, kThreads, sizeof(Smem), info);      \
+  }
+  AUM_KERNEL(scan_bwd_fused_kernel<__nv_bfloat16, true>)
+  AUM_KERNEL(scan_bwd_fused_kernel<__nv_bfloat16, false>)
+  AUM_KERNEL(scan_bwd_fused_kernel<float, true>)
+  AUM_KERNEL(scan_bwd_fused_kernel<float, false>)
+#undef AUM_KERNEL
+  return -1;
+}
 
 // ndir directions (1 or 2) from args->dir[0 .. ndir-1]; dtype: 0 = fp32
 // streams, 1 = bf16 streams. No with_state form: gfin and dx0 must be null;

@@ -90,6 +90,36 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_all()[name]))
 
 
+SCAN_SOURCES = ("selective_scan", "selective_scan_bwd", "selective_scan_bwd_fused")
+
+
+def kernel_resources(name: str) -> list[dict]:
+    """Each kernel instantiation that library ``name`` (a scan source)
+    launches, from its C entry ``aum_kernel_info``: blocks per SM by the
+    occupancy calculator, resident warps per SM, registers, spill (local)
+    bytes and shared memory per block."""
+    lib = library(name)
+    fn = lib.aum_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_char_p)]
+    fn.restype = ctypes.c_int
+    rows = []
+    for i in range(64):
+        info = (ctypes.c_int * 6)()
+        kname = ctypes.c_char_p()
+        status = fn(i, info, ctypes.byref(kname))
+        if status == -1:
+            return rows
+        if status != 0:
+            raise RuntimeError(f"aum_kernel_info({i}) of {name} failed: CUDA error {status}")
+        blocks, threads, regs, local, static_smem, dyn_smem = info
+        rows.append({"kernel": kname.value.decode(), "blocks_per_sm": blocks,
+                     "warps_per_sm": blocks * threads // 32, "threads": threads,
+                     "registers": regs, "local_bytes": local,
+                     "shared_bytes": static_smem + dyn_smem})
+    raise RuntimeError(f"{name} lists more than 64 kernels")
+
+
 def check_status(status: int, error_string, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if status != 0:

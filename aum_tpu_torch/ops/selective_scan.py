@@ -466,7 +466,9 @@ def _load_bwd_lib(name: str, prefix: str) -> ctypes.CDLL:
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
-    return _load_bwd_lib("selective_scan_bwd", "scan_bwd")
+    lib = _load_bwd_lib("selective_scan_bwd", "scan_bwd")
+    _check_constant(lib, "aum_scan_bwd_block_channels", BWD_BLOCK_CHANNELS)
+    return lib
 
 
 @functools.cache

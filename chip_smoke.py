@@ -9,7 +9,10 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; build: nvcc compiles every kernel from ``aum_tpu_torch/csrc/``
-   (all sources at once) and the build time is printed.
+   (all sources at once) and the build time is printed, with ptxas's
+   registers and spills; occupancy: per scan kernel instantiation, the
+   blocks and warps per SM the occupancy calculator allows, its registers,
+   spill bytes and shared memory (each scan library's ``aum_kernel_info``).
 2. kernels: each kernel against its plain PyTorch version on the card, in
    fp32 and bf16. The dual scan forward, v1 (shared operands) and v2
    (separate), both directions, at the Fo-Bi eval path's shapes (B=8, L=513,
@@ -22,7 +25,11 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    from a random x0); its saving form (outputs and states) and the backward
    of its autograd op (all 8 grads, through the one-direction backward) at
    B=12. The conv forward, causal and anti-causal. All of them also at
-   ragged shapes (L=37, D=40; L=150, three state chunks, the last short).
+   ragged shapes (L=37, D=40; L=150, three state chunks, the last short),
+   the scan kernels at L=37, D=40 also with d_state 5, which leaves the
+   last of the backward's 4 lanes per chain with part of its states or
+   none. The backward (K2 and fused, one launch for both directions and one
+   per direction) also without the softplus.
    The kernels behind ``aum_tpu``'s switches, at the same shapes: the
    direct dual forward (AUM_SCAN_DIRECT=1; eval and saving) against the
    plain version and the staged kernel, the fused backward
@@ -319,17 +326,20 @@ def phase_build() -> None:
                        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": seconds, "libraries": [p.name for p in paths.values()],
           "ptxas": ptxas})
+    # What the occupancy calculator gives each scan kernel the paths launch.
+    emit({"phase": "occupancy", "kernels": {name: _build.kernel_resources(name)
+                                            for name in _build.SCAN_SOURCES}})
 
 
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
 
 
-def _scan_dirs(bsz, seqlen, d, dtype, shared):
+def _scan_dirs(bsz, seqlen, d, dtype, shared, n=16):
     """Both directions' (u, dt, A, B, C, D, z) as the mixer passes them."""
     from aum_tpu_torch.ops.selective_scan import _prep_dt
 
-    fwd = scan_inputs(bsz, seqlen, d, 16, dtype, seed=1)
-    rev = fwd if shared else scan_inputs(bsz, seqlen, d, 16, dtype, seed=2)
+    fwd = scan_inputs(bsz, seqlen, d, n, dtype, seed=1)
+    rev = fwd if shared else scan_inputs(bsz, seqlen, d, n, dtype, seed=2)
     if shared:  # bimamba v1: same operands, its own A
         rev = (fwd[0], fwd[1], fwd[2] * 0.5) + fwd[3:]
     dt_f = _prep_dt(fwd[1], fwd[7])
@@ -337,11 +347,13 @@ def _scan_dirs(bsz, seqlen, d, dtype, shared):
     return ((fwd[0], dt_f) + fwd[2:7], (rev[0], dt_r) + rev[2:7])
 
 
-def _check_scan(label, dims, dtype, shared, train: bool) -> list[dict]:
+def _check_scan(label, dims, dtype, shared, train: bool, n=16) -> list[dict]:
     """The eval forward, or (train) the saving forward and both forms of the
-    backward, against their plain versions: each through the default kernel
-    and through the one its switch chooses (the direct forward, the fused
-    backward), which is also held to the default kernel's result."""
+    backward (one launch for both directions, one per direction), with and
+    without the softplus, against their plain versions: each through the
+    default kernel and through the one its switch chooses (the direct
+    forward, the fused backward), which is also held to the default
+    kernel's result. ``n``: d_state."""
     from aum_tpu_torch.ops.selective_scan import (
         selective_scan_bwd_cuda,
         selective_scan_bwd_plain,
@@ -350,9 +362,9 @@ def _check_scan(label, dims, dtype, shared, train: bool) -> list[dict]:
     )
 
     bsz, seqlen, d = dims
-    tag = dict(shape=label, dims=[bsz, seqlen, d, 16], dtype=str(dtype),
+    tag = dict(shape=label, dims=[bsz, seqlen, d, n], dtype=str(dtype),
                bimamba="v1" if shared else "v2")
-    dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, shared)
+    dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, shared, n)
     atol, rtol = SCAN_TOL[dtype]
     results = []
     fwd_kernels = {False: "selective_scan_dual_fwd", True: "selective_scan_dual_direct_fwd"}
@@ -376,30 +388,36 @@ def _check_scan(label, dims, dtype, shared, train: bool) -> list[dict]:
     g = torch.Generator().manual_seed(5)
     gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
     dirs = [dir_f + (False,), dir_r + (True,)]
-    want = selective_scan_bwd_plain(dirs, gs)
-    k2 = {}
-    for fused, kernel in ((False, "selective_scan_bwd"), (True, "selective_scan_bwd_fused")):
-        with scan_switches(AUM_SCAN_BWD_FUSED=fused):
-            forms = {"two_directions": selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
-                     "one_direction": [selective_scan_bwd_cuda([dirs[i]], [gs[i]], [xb])[0]
-                                       for i, xb in enumerate((xb_f, xb_r))]}
-        torch.cuda.synchronize()
-        for form, grads in forms.items():
-            refs = {"plain": want, **({"k2": k2[form]} if fused else {})}
-            for against, ref in refs.items():
-                for direction, (gr, wr) in enumerate(zip(grads, ref)):
-                    results.append({**_grad_checks(GRAD_NAMES, gr, wr, GRAD_TOL[dtype]),
-                                    "kernel": kernel, "form": form, "against": against,
-                                    "direction": "reverse" if direction else "forward", **tag})
-        k2 = forms
+    for softplus in (True, False):
+        want = selective_scan_bwd_plain(dirs, gs, softplus)
+        k2 = {}
+        for fused, kernel in ((False, "selective_scan_bwd"), (True, "selective_scan_bwd_fused")):
+            with scan_switches(AUM_SCAN_BWD_FUSED=fused):
+                forms = {"two_directions": selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r],
+                                                                   softplus),
+                         "one_direction": [selective_scan_bwd_cuda([dirs[i]], [gs[i]], [xb],
+                                                                   softplus)[0]
+                                           for i, xb in enumerate((xb_f, xb_r))]}
+            torch.cuda.synchronize()
+            for form, grads in forms.items():
+                refs = {"plain": want, **({"k2": k2[form]} if fused else {})}
+                for against, ref in refs.items():
+                    for direction, (gr, wr) in enumerate(zip(grads, ref)):
+                        results.append({**_grad_checks(GRAD_NAMES, gr, wr, GRAD_TOL[dtype]),
+                                        "kernel": kernel,
+                                        "form": form + ("" if softplus else "_no_softplus"),
+                                        "against": against,
+                                        "direction": "reverse" if direction else "forward",
+                                        **tag})
+            k2 = forms
     return results
 
 
-def _check_scan_single(label, dims, dtype, reverse, train: bool) -> list[dict]:
+def _check_scan_single(label, dims, dtype, reverse, train: bool, n=16) -> list[dict]:
     """The single-direction forward and its with_state form, or (train) its
     saving form and the backward of the autograd op (``selective_scan``
     under grad: the saving forward, then the one-direction backward kernel),
-    against their plain versions."""
+    against their plain versions. ``n``: d_state."""
     from aum_tpu_torch.ops.selective_scan import (
         _prep_dt,
         selective_scan,
@@ -409,9 +427,9 @@ def _check_scan_single(label, dims, dtype, reverse, train: bool) -> list[dict]:
     )
 
     bsz, seqlen, d = dims
-    tag = dict(shape=label, dims=[bsz, seqlen, d, 16], dtype=str(dtype),
+    tag = dict(shape=label, dims=[bsz, seqlen, d, n], dtype=str(dtype),
                direction="reverse" if reverse else "forward")
-    raw = scan_inputs(bsz, seqlen, d, 16, dtype, seed=11)
+    raw = scan_inputs(bsz, seqlen, d, n, dtype, seed=11)
     args = (raw[0], _prep_dt(raw[1], raw[7])) + raw[2:7]
     atol, rtol = SCAN_TOL[dtype]
     g = torch.Generator().manual_seed(12)
@@ -424,7 +442,7 @@ def _check_scan_single(label, dims, dtype, reverse, train: bool) -> list[dict]:
         got = selective_scan_cuda(args, reverse)
         torch.cuda.synchronize()
         check(got, selective_scan_plain(args, reverse), (atol, rtol))
-        x0 = torch.randn((bsz, d, 16), generator=g).cuda()
+        x0 = torch.randn((bsz, d, n), generator=g).cuda()
         got, fin = selective_scan_cuda(args, reverse, initial_state=x0, return_final_state=True)
         torch.cuda.synchronize()
         want, want_fin = selective_scan_plain(args, reverse, initial_state=x0,
@@ -438,8 +456,8 @@ def _check_scan_single(label, dims, dtype, reverse, train: bool) -> list[dict]:
     check(got, want, (atol, rtol), save_states=True, output="out")
     check(xb, want_xb, XB_TOL, save_states=True, output="xb")
     gout = torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype)
-    x0 = torch.randn((bsz, d, 16), generator=g).cuda()
-    gfin = torch.randn((bsz, d, 16), generator=g).cuda()
+    x0 = torch.randn((bsz, d, n), generator=g).cuda()
+    gfin = torch.randn((bsz, d, n), generator=g).cuda()
     # The autograd op's backward: as the Fo-Fo train step runs it; without
     # the softplus (ddelta = ddt; delta is then the positive dt itself, with
     # no bias); and the with_state form from a random x0 with a random
@@ -569,19 +587,24 @@ def _check_conv(label, dims, dtype, train: bool) -> list[dict]:
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the largest absolute
     error of each at the paths' shapes in bf16."""
-    shapes = {"eval": (EVAL_DIMS, False), "train": (TRAIN_DIMS, True),
-              "ragged": ((2, 37, 40), None), "multi_chunk": ((2, 150, 40), None)}
+    # (dims, train: False eval / True train / None both, d_state). N=5 is
+    # not a multiple of the 4 lanes a chain's states are split over, so the
+    # last lane of each chain holds part of its states and one none.
+    shapes = {"eval": (EVAL_DIMS, False, 16), "train": (TRAIN_DIMS, True, 16),
+              "ragged": ((2, 37, 40), None, 16), "ragged_n5": ((2, 37, 40), None, 5),
+              "multi_chunk": ((2, 150, 40), None, 16)}
     results = []
-    for label, (dims, train) in shapes.items():
+    for label, (dims, train, n) in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
             modes = (False, True) if train is None else (train,)
             for mode in modes:
                 for shared in (True, False):
-                    results += _check_scan(label, dims, dtype, shared, mode)
+                    results += _check_scan(label, dims, dtype, shared, mode, n)
                 for reverse in (False, True):
-                    results += _check_scan_single(label, dims, dtype, reverse, mode)
-                results += _check_conv(label, dims, dtype, mode)
-            if train is not False:
+                    results += _check_scan_single(label, dims, dtype, reverse, mode, n)
+                if n == 16:  # the conv has no d_state
+                    results += _check_conv(label, dims, dtype, mode)
+            if train is not False and n == 16:
                 results += _check_chained(label, dims, dtype)
     worst = {}
     for r in results:
