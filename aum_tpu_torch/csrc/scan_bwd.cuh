@@ -24,7 +24,8 @@ struct ScanBwdDir {
   float* dA_part;      // (batch, N, D)
   float* dD_part;      // (batch, D)
   float* dbias_part;   // (batch, D)
-  float* dbc_part;     // (ceil(D / channels per block), batch, L, 32): [n] dB, [16 + n] dC
+  void* dbc_part;      // (ceil(D / channels per block), batch, L, 32): [n] dB, [16 + n] dC;
+                       // fp32, or bf16 with bf16_partials
   const float* gfin;   // (batch, N, D) fp32 cotangent of the final state, or null
   float* dx0;          // (batch, N, D) fp32 grad of the starting state, or null
   long long u_sb, u_sl;
@@ -35,6 +36,8 @@ struct ScanBwdDir {
   long long g_sb, g_sl;
   int reverse;
   int softplus;  // 1: ddelta = ddt (1 - exp(-dt)), through the softplus; 0: ddelta = ddt
+  int xminus;         // 1: K2's x-minus adjoint (dla_mode "xminus" / "dbu"); K2 only
+  int bf16_partials;  // 1: dbc_part rows written in bf16 (AUM_SCAN_BWD_BF16_PARTIALS=1)
 };
 
 struct ScanBwdArgs {
@@ -124,6 +127,13 @@ struct OwnSteps {
 // lane's share of the step's dB/dC row (see channel_reduce_scatter). Both
 // backward kernels run this one step, so they cannot drift apart.
 // j must be a constant after unrolling: it indexes registers.
+// kXminus (K2 under AUM_SCAN_BWD_XMINUS=1 or AUM_SCAN_BWD_DBU=1): the grad
+// of dt A as lam_t (x_t - (dt u) B_t) from the recomputed x_t, in place of
+// lam_t a_t x_{t-1}, equal up to fp32 rounding (a_t x_{t-1} = x_t - dBu_t).
+// The TPU kernel's two modes differ only in where dBu = (dt u) B is formed
+// (staged in the chunk's prologue, or again in its epilogue): the same fp32
+// products, so one form serves both.
+template <bool kXminus = false>
 __device__ __forceinline__ float adjoint_step(
     int j, const float* xprev, int xstride, const float* bt, const float* ct,
     const float (&A)[kNL], float (&lam)[kNL], float (&dA)[kNL], float& dD, OwnSteps& own,
@@ -146,7 +156,12 @@ __device__ __forceinline__ float adjoint_step(
 #pragma unroll
   for (int k = 0; k < kNL; ++k) {
     const float l = ct[k] * gy + lam[k];
-    const float dla = l * a[k] * xprev[k * xstride];  // read again: fewer live registers
+    float dla;
+    if constexpr (kXminus) {
+      dla = l * (xt[k] - dtu * bt[k]);
+    } else {
+      dla = l * a[k] * xprev[k * xstride];  // read again: fewer live registers
+    }
     dA[k] += dtv * dla;
     dla_a += dla * A[k];
     gdtu += l * bt[k];

@@ -1,7 +1,11 @@
 // Selective-scan backward, one or both directions in one launch (sm_90a).
 //
 // Replaces the TPU kernel aum_tpu/ops/selective_scan.py:_bwd_kernel in its
-// default dla_mode "xprev", with and without its with_state form; launched
+// default dla_mode "xprev" and, under AUM_SCAN_BWD_XMINUS=1 or
+// AUM_SCAN_BWD_DBU=1, its modes "xminus" and "dbu" (kXminus: one form for
+// both, see adjoint_step in scan_bwd.cuh), with and without its with_state
+// form, with fp32 dB/dC partials or, under AUM_SCAN_BWD_BF16_PARTIALS=1,
+// bf16 ones (kBf16Part; below); launched
 // with both directions it is also the counterpart of _bwd_kernel_dual, which
 // gives the same outputs as two _bwd_kernel calls. Per direction, per
 // (batch b, channel d), with dt the pre-activated, rounded softplus(delta +
@@ -59,7 +63,9 @@
 // lanes hold the 2N sums, one each), the block adds its 4 warps' rows in
 // shared memory and writes one coalesced row of 32 floats of fp32 partials
 // per step, (ceil(D / 32), batch, L, 32), which the wrapper sums over
-// blocks. dA, dD and dbias reduce over batch and length: each lane sums in
+// blocks in fp32. With bf16 partials each block's row is rounded to bf16
+// once it is summed: per block of 32 channels, where the TPU kernel rounds
+// per d-tile (its d_block channels), so the two round different sums. dA, dD and dbias reduce over batch and length: each lane sums in
 // registers over its length and writes one partial per batch row, summed by
 // the wrapper. All sums are fp32; their order differs from the TPU kernel's.
 //
@@ -77,6 +83,7 @@
 // registers and spills than it saves, at 3, 4 or 5 blocks per SM.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "scan_bwd.cuh"
 
@@ -98,10 +105,12 @@ constexpr int kStagePer = kStreams * kSub * kChanPerBlock / kThreads;
 static_assert(kStreams * kSub * kChanPerBlock % kThreads == 0, "whole staging rounds");
 
 // kState: the with_state form (gfin seeds the carry, dx0 is written);
-// kSoftplus: dt came through the softplus.
-template <typename T, bool kState, bool kSoftplus>
+// kSoftplus: dt came through the softplus; kXminus: the x-minus adjoint;
+// kBf16Part: bf16 dB/dC partials.
+template <typename T, bool kState, bool kSoftplus, bool kXminus = false, bool kBf16Part = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dstate) {
+  using Part = std::conditional_t<kBf16Part, __nv_bfloat16, float>;
   __shared__ __align__(16) float s_B[kChunk][kMaxN];
   __shared__ __align__(16) float s_C[kChunk][kMaxN];
   // Entry states of sub-chunks 1 .. kNSub-1 (sub-chunk 0 starts from xb).
@@ -133,7 +142,8 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   T* du = static_cast<T*>(p.du) + row;
   T* ddelta = static_cast<T*>(p.ddelta) + row;
   T* dz = static_cast<T*>(p.dz) + row;
-  float* dbc = p.dbc_part + (static_cast<long long>(blockIdx.x) * batch + b) * seqlen * kRow;
+  Part* dbc = static_cast<Part*>(p.dbc_part) +
+              (static_cast<long long>(blockIdx.x) * batch + b) * seqlen * kRow;
   const int n_chunks = (seqlen + kChunk - 1) / kChunk;
   const long long state_row = (static_cast<long long>(b) * dstate + n0) * dim + dc;  // [b, n0, d]
 
@@ -255,7 +265,7 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
 #pragma unroll
       for (int j = kSub - 1; j >= 0; --j) {
         if (j >= slen) continue;
-        s_dbc[j][warp][row_pos] = adjoint_step(
+        s_dbc[j][warp][row_pos] = adjoint_step<kXminus>(
             j, &s_x[j][0][tid], kThreads, &s_B[i0 + j][n0], &s_C[i0 + j][n0], A, lam, dA, dD,
             own, st(0, j), st(1, j), st(2, j), st(3, j), dskip, lane);
       }
@@ -276,7 +286,7 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
         float sum = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) sum += s_dbc[j][w][r];
-        dbc[static_cast<long long>(t) * kRow + r] = sum;
+        dbc[static_cast<long long>(t) * kRow + r] = aum::from_float<Part>(sum);
       }
       if (c0 + i0 > 0) store_stage(nxt);  // every reader of s_st passed the barrier
       __syncthreads();  // s_dbc is free, s_st holds the next sub-chunk
@@ -298,27 +308,32 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   }
 }
 
-template <typename T, bool kSoftplus>
-void launch_form(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int dim, int dstate,
-                 cudaStream_t s) {
-  const dim3 grid((dim + kChanPerBlock - 1) / kChanPerBlock, batch, ndir);
-  if (args.dir[0].gfin != nullptr) {
-    scan_bwd_kernel<T, true, kSoftplus><<<grid, kThreads, 0, s>>>(args, batch, seqlen, dim,
-                                                                   dstate);
+// f(std::true_type) or f(std::false_type): a run-time flag as a template one.
+template <typename F>
+void with_flag(bool on, F f) {
+  if (on) {
+    f(std::true_type{});
   } else {
-    scan_bwd_kernel<T, false, kSoftplus><<<grid, kThreads, 0, s>>>(args, batch, seqlen, dim,
-                                                                    dstate);
+    f(std::false_type{});
   }
 }
 
 template <typename T>
 void launch(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int dim, int dstate,
             cudaStream_t s) {
-  if (args.dir[0].softplus != 0) {
-    launch_form<T, true>(args, ndir, batch, seqlen, dim, dstate, s);
-  } else {
-    launch_form<T, false>(args, ndir, batch, seqlen, dim, dstate, s);
-  }
+  const ScanBwdDir& p = args.dir[0];
+  const dim3 grid((dim + kChanPerBlock - 1) / kChanPerBlock, batch, ndir);
+  with_flag(p.gfin != nullptr, [&](auto state) {
+    with_flag(p.softplus != 0, [&](auto softplus) {
+      with_flag(p.xminus != 0, [&](auto xminus) {
+        with_flag(p.bf16_partials != 0, [&](auto part) {
+          scan_bwd_kernel<T, decltype(state)::value, decltype(softplus)::value,
+                          decltype(xminus)::value, decltype(part)::value>
+              <<<grid, kThreads, 0, s>>>(args, batch, seqlen, dim, dstate);
+        });
+      });
+    });
+  });
 }
 
 }  // namespace
@@ -348,6 +363,16 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_KERNEL(scan_bwd_kernel<float, false, false>)
   AUM_KERNEL(scan_bwd_kernel<float, true, true>)
   AUM_KERNEL(scan_bwd_kernel<float, true, false>)
+  // The opt-in forms (the default's 8 come first): x-minus, bf16 partials,
+  // both; each with_state or not, through the softplus or not.
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, false, true, true, false>)
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, false, true, false, true>)
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, false, true, true, true>)
+  AUM_KERNEL(scan_bwd_kernel<__nv_bfloat16, true, true, true, false>)
+  AUM_KERNEL(scan_bwd_kernel<float, false, true, true, false>)
+  AUM_KERNEL(scan_bwd_kernel<float, false, true, false, true>)
+  AUM_KERNEL(scan_bwd_kernel<float, false, true, true, true>)
+  AUM_KERNEL(scan_bwd_kernel<float, true, true, true, false>)
 #undef AUM_KERNEL
   return -1;
 }
@@ -355,7 +380,7 @@ int aum_kernel_info(int i, int* info, const char** name) {
 // ndir directions (1 or 2) from args->dir[0 .. ndir-1]; dtype: 0 = fp32
 // streams, 1 = bf16 streams. gfin and dx0 are both set (the with_state
 // form, one direction) or both null in every direction; both directions
-// share softplus. Returns
+// share softplus, xminus and bf16_partials. Returns
 // cudaGetLastError() after the launch (0 on success); a refused launch
 // never runs.
 int aum_selective_scan_bwd(const ScanBwdArgs* args, int ndir, int batch, int seqlen,
@@ -368,7 +393,8 @@ int aum_selective_scan_bwd(const ScanBwdArgs* args, int ndir, int batch, int seq
   for (int i = 0; i < ndir; ++i) {
     const ScanBwdDir& p = args->dir[i];
     if ((p.gfin != nullptr) != state || (p.dx0 != nullptr) != state || (state && ndir != 1) ||
-        p.softplus != args->dir[0].softplus) {
+        p.softplus != args->dir[0].softplus || p.xminus != args->dir[0].xminus ||
+        p.bf16_partials != args->dir[0].bf16_partials) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -5,6 +5,10 @@
 // (the opt-in behind AUM_SCAN_BWD_FUSED=1): the same function and outputs as
 // selective_scan_bwd.cu (K2) without its with_state form, so its plain
 // version is K2's, selective_scan_bwd_plain; see K2's source for the math.
+// Like the TPU kernel it has no x-minus form (its dla is always lam a x_{t-1})
+// and writes bf16 dB/dC partials under AUM_SCAN_BWD_BF16_PARTIALS=1
+// (kBf16Part), rounded per block of 16 channels where the TPU kernel rounds
+// per d-tile.
 // The TPU kernel's idea carried over: each chunk of kChunk steps is
 // recomputed once from its saved entry state, the state before every step
 // of the chunk is kept in fast memory, and the adjoint walks back over those
@@ -32,6 +36,7 @@
 // K2, with fewer warps to hide each step's dependent chain.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "scan_bwd.cuh"
 
@@ -50,10 +55,11 @@ struct Smem {
   float dbc[kSub][kWarps][kRow];   // each warp's dB/dC sums per step
 };
 
-// kSoftplus: dt came through the softplus.
-template <typename T, bool kSoftplus>
+// kSoftplus: dt came through the softplus; kBf16Part: bf16 dB/dC partials.
+template <typename T, bool kSoftplus, bool kBf16Part = false>
 __global__ void __launch_bounds__(kThreads, 3)
 scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dstate) {
+  using Part = std::conditional_t<kBf16Part, __nv_bfloat16, float>;
   extern __shared__ float4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
@@ -81,7 +87,8 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
   T* du = static_cast<T*>(p.du) + row;
   T* ddelta = static_cast<T*>(p.ddelta) + row;
   T* dz = static_cast<T*>(p.dz) + row;
-  float* dbc = p.dbc_part + (static_cast<long long>(blockIdx.x) * batch + b) * seqlen * kRow;
+  Part* dbc = static_cast<Part*>(p.dbc_part) +
+              (static_cast<long long>(blockIdx.x) * batch + b) * seqlen * kRow;
   const int n_chunks = (seqlen + kChunk - 1) / kChunk;
 
   float A[kNL], lam[kNL], dA[kNL];
@@ -178,7 +185,7 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
         float sum = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) sum += sm.dbc[j][w][r];
-        dbc[static_cast<long long>(t) * kRow + r] = sum;
+        dbc[static_cast<long long>(t) * kRow + r] = aum::from_float<Part>(sum);
       }
       __syncthreads();  // sm.dbc is free for the next kSub steps
     }
@@ -195,12 +202,12 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
   }
 }
 
-template <typename T, bool kSoftplus>
+template <typename T, bool kSoftplus, bool kBf16Part>
 int launch_form(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int dim, int dstate,
                 cudaStream_t s) {
   // Above 48 KB a block's shared memory must be asked for (per device, so
   // at every launch: the call is cheap).
-  const auto kernel = scan_bwd_fused_kernel<T, kSoftplus>;
+  const auto kernel = scan_bwd_fused_kernel<T, kSoftplus, kBf16Part>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -212,9 +219,13 @@ int launch_form(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int di
 template <typename T>
 int launch(const ScanBwdArgs& args, int ndir, int batch, int seqlen, int dim, int dstate,
            cudaStream_t s) {
-  return args.dir[0].softplus != 0
-             ? launch_form<T, true>(args, ndir, batch, seqlen, dim, dstate, s)
-             : launch_form<T, false>(args, ndir, batch, seqlen, dim, dstate, s);
+  const bool part = args.dir[0].bf16_partials != 0;
+  if (args.dir[0].softplus != 0) {
+    return part ? launch_form<T, true, true>(args, ndir, batch, seqlen, dim, dstate, s)
+                : launch_form<T, true, false>(args, ndir, batch, seqlen, dim, dstate, s);
+  }
+  return part ? launch_form<T, false, true>(args, ndir, batch, seqlen, dim, dstate, s)
+              : launch_form<T, false, false>(args, ndir, batch, seqlen, dim, dstate, s);
 }
 
 }  // namespace
@@ -243,13 +254,16 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_KERNEL(scan_bwd_fused_kernel<__nv_bfloat16, false>)
   AUM_KERNEL(scan_bwd_fused_kernel<float, true>)
   AUM_KERNEL(scan_bwd_fused_kernel<float, false>)
+  AUM_KERNEL(scan_bwd_fused_kernel<__nv_bfloat16, true, true>)
+  AUM_KERNEL(scan_bwd_fused_kernel<float, true, true>)
 #undef AUM_KERNEL
   return -1;
 }
 
 // ndir directions (1 or 2) from args->dir[0 .. ndir-1]; dtype: 0 = fp32
 // streams, 1 = bf16 streams. No with_state form: gfin and dx0 must be null;
-// both directions share softplus.
+// no x-minus form: xminus must be 0; both directions share softplus and
+// bf16_partials.
 // Returns the CUDA error of the set-up or of the launch (0 on success); a
 // refused launch never runs.
 int aum_selective_scan_bwd_fused(const ScanBwdArgs* args, int ndir, int batch, int seqlen,
@@ -260,7 +274,8 @@ int aum_selective_scan_bwd_fused(const ScanBwdArgs* args, int ndir, int batch, i
   }
   for (int i = 0; i < ndir; ++i) {
     const ScanBwdDir& p = args->dir[i];
-    if (p.gfin != nullptr || p.dx0 != nullptr || p.softplus != args->dir[0].softplus) {
+    if (p.gfin != nullptr || p.dx0 != nullptr || p.softplus != args->dir[0].softplus ||
+        p.xminus != 0 || p.bf16_partials != args->dir[0].bf16_partials) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }

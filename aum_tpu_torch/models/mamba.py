@@ -24,7 +24,12 @@ configuration changes them.
 
 ``MambaMixer.pre_scan`` is the pre-scan compute (in_proj, conv, x_proj,
 dt_proj), the counterpart of the JAX mixer's ``pre_fn``: it returns the
-scan arguments of each direction (Fo-Fo: of the forward one only). With
+scan arguments of each direction (Fo-Fo: of the forward one only). Under
+AUM_SCAN_FUSE_DT=1 (read at every forward, as the JAX mixer reads it at
+every trace) the bimamba mixers leave dt_proj to the dual scan: delta's
+slots hold None and the dt-rank columns of x_proj's output go with the
+dt_proj weight as the scan's ``dt_fold`` (v1 one pair for both directions,
+v2 each branch its own); Fo-Fo never folds. With
 ``split_remat`` it runs under ``torch.utils.checkpoint`` and is recomputed in
 the backward, while the scan's saved tensors (its inputs and chunk-entry
 states) stay outside the checkpoint, as the JAX ``remat_mode="split"`` does.
@@ -40,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan, selective_scan_dual
 from aum_tpu_torch.ops.conv1d import WIDTH as D_CONV  # 4: the conv kernel is built for it
+from aum_tpu_torch.ops.selective_scan import fuse_dt_chosen
 EXPAND = 2
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
 
@@ -132,26 +138,33 @@ class MambaMixer(nn.Module):
         _uniform_fan_in_(self.out_proj.weight, d_in, generator,
                          scale=1.0 / math.sqrt(self.n_layer))
 
-    def _branch(self, xs: torch.Tensor, suffix: str, reverse_conv: bool):
-        """conv -> x_proj -> dt_proj: (u, delta, B, C) for one scan direction."""
+    def _branch(self, xs: torch.Tensor, suffix: str, reverse_conv: bool, fold: bool):
+        """conv -> x_proj -> dt_proj: (u, delta, B, C, None) for one scan
+        direction, or with ``fold`` (u, None, B, C, (dtr, W)): the dt-rank
+        columns and the (R, D) dt_proj weight in delta's place."""
         dtype = xs.dtype
         conv = getattr(self, f"conv1d{suffix}")
         xc = causal_conv1d(xs, conv.weight[:, 0].to(dtype), conv.bias.to(dtype),
                            activation="silu", reverse=reverse_conv)
         x_dbl = xc @ getattr(self, f"x_proj{suffix}").weight.to(dtype).t()
         r, n = self.dt_rank, self.d_state
-        delta = x_dbl[..., :r] @ getattr(self, f"dt_proj{suffix}").weight.to(dtype).t()
-        return xc, delta, x_dbl[..., r:r + n], x_dbl[..., r + n:]
+        w_dt = getattr(self, f"dt_proj{suffix}").weight.to(dtype).t()
+        bm, cm = x_dbl[..., r:r + n], x_dbl[..., r + n:]
+        if fold:
+            return xc, None, bm, cm, (x_dbl[..., :r], w_dt)
+        return xc, x_dbl[..., :r] @ w_dt, bm, cm, None
 
     def pre_scan(self, x: torch.Tensor):
         """In-projection, conv, x/dt projections: the scan arguments (u,
         delta, A, B, C, D, z, delta_bias) of the forward direction, and for
-        v1/v2 also of the reverse one, as a pair."""
+        v1/v2 also of the reverse one and the scan's ``dt_fold`` (None unless
+        AUM_SCAN_FUSE_DT=1), as a triple."""
         dtype = x.dtype
         d_in = self.d_inner
+        fold = self.bimamba_type != "none" and fuse_dt_chosen()
         xz = x @ self.in_proj.weight.to(dtype).t()
         xs, z = xz[..., :d_in], xz[..., d_in:]
-        u, delta, bm, cm = self._branch(xs, "", reverse_conv=False)
+        u, delta, bm, cm, pair = self._branch(xs, "", reverse_conv=False, fold=fold)
         a = -torch.exp(self.A_log.float())
         dt_bias = self.dt_proj.bias.float()
         args_f = (u, delta, a, bm, cm, self.D.float(), z, dt_bias)
@@ -160,11 +173,13 @@ class MambaMixer(nn.Module):
         if self.bimamba_type == "v1":
             args_r = (u, delta, -torch.exp(self.A_b_log.float()), bm, cm,
                       args_f[5], z, dt_bias)
+            pair_b = pair
         else:
-            u_b, delta_b, bm_b, cm_b = self._branch(xs, "_b", reverse_conv=True)
+            u_b, delta_b, bm_b, cm_b, pair_b = self._branch(xs, "_b", reverse_conv=True,
+                                                            fold=fold)
             args_r = (u_b, delta_b, -torch.exp(self.A_b_log.float()), bm_b, cm_b,
                       self.D_b.float(), z, self.dt_proj_b.bias.float())
-        return args_f, args_r
+        return args_f, args_r, (pair, pair_b) if fold else None
 
     def forward(self, x: torch.Tensor, split_remat: bool = False) -> torch.Tensor:
         """x: (B, L, d_model) in the compute dtype. ``split_remat``

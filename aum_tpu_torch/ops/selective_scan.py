@@ -5,9 +5,14 @@ Counterpart of ``aum_tpu/ops/selective_scan.py``: ``selective_scan_dual``
 with its custom VJP (``_make_dual_scan``, ``_dual_bwd_impl``), and
 ``selective_scan`` with its custom VJP (``_make_scan``). CUDA kernels:
 
-- ``csrc/selective_scan.cu`` holds three forward kernels on one per-chain
+- ``csrc/selective_scan.cu`` holds five forward kernels on one per-chain
   walk. ``scan_dual_fwd_kernel`` replaces the TPU kernel ``_fwd_kernel_dual``
-  in its default configuration (fused y-readout, per-step decay);
+  in its default configuration (fused y-readout, per-step decay), and two
+  kernels its opt-in forms: ``scan_dual_fdt_fwd_kernel`` the ``fuse_dt``
+  form (AUM_SCAN_FUSE_DT=1, eval: dt = softplus(dtr @ W + bias) formed in
+  the kernel in fp32, never rounded), ``scan_dual_stage_fwd_kernel`` the
+  ``bf16_stage`` form (AUM_SCAN_BF16_STAGE=1, bf16 streams, eval and
+  saving);
   ``scan_dual_direct_fwd_kernel`` replaces ``_fwd_kernel_dual_direct`` (the
   same function, B/C read per step with no staging; AUM_SCAN_DIRECT=1);
   ``scan_single_fwd_kernel`` replaces ``_fwd_kernel_z``: one direction with a
@@ -16,13 +21,15 @@ with its custom VJP (``_make_dual_scan``, ``_dual_bwd_impl``), and
   needed they also save the state at the entry of every chunk of
   ``STATE_CHUNK`` steps (``save_states``).
 - ``csrc/selective_scan_bwd.cu`` (K2) replaces ``_bwd_kernel`` (dla mode
-  "xprev"), with its ``with_state`` form (the final state's cotangent in,
-  the grad of the initial state out): it restarts each chunk from its saved
-  state and runs the adjoint. One launch takes one or both directions, so
-  launched with both it is also the counterpart of ``_bwd_kernel_dual``.
+  "xprev", and "xminus" / "dbu" in one x-minus form), with its
+  ``with_state`` form (the final state's cotangent in, the grad of the
+  initial state out): it restarts each chunk from its saved state and runs
+  the adjoint. One launch takes one or both directions, so launched with
+  both it is also the counterpart of ``_bwd_kernel_dual``.
 - ``csrc/selective_scan_bwd_fused.cu`` replaces ``_bwd_kernel_fused`` (the
   same function as K2 without ``with_state``, each chunk recomputed once;
-  AUM_SCAN_BWD_FUSED=1), one or both directions per launch.
+  AUM_SCAN_BWD_FUSED=1), one or both directions per launch. Both backward
+  kernels write bf16 dB/dC partials under AUM_SCAN_BWD_BF16_PARTIALS=1.
 
 The sources say what bounds each kernel on the card and what its design does
 about that.
@@ -39,23 +46,31 @@ call (JAX reads them at every trace): AUM_SCAN_DIRECT=1 the direct dual
 forward (eval and saving); AUM_SCAN_BWD_FUSED=1 the fused backward, for the
 dual scan and the single-direction one, except that AUM_SCAN_DUAL_BWD=1
 keeps the dual scan on K2 with both directions (the port's counterpart of
-``_bwd_kernel_dual``) and the ``with_state`` backward is never fused. On CPU
-tensors every wrapper runs its plain PyTorch version (the sequential oracle
-of ``ops/scan_ref.py``; the plain backward recomputes through it under
-autograd), whatever the switches: the kernels they choose among compute one
-function. On CUDA tensors the chosen kernel launches or the call raises.
-Launch counts, each raised where the kernel is launched:
-``selective_scan_dual.launches`` (every staged dual forward launch) and
-``.save_states_launches`` (those that saved states),
+``_bwd_kernel_dual``) and the ``with_state`` backward is never fused; the
+four opt-in forms as ``fuse_dt_chosen``, ``bf16_stage_chosen``,
+``bwd_bf16_partials_chosen`` and ``bwd_dla_mode`` say. On CPU tensors every
+wrapper runs its plain PyTorch version (the sequential oracle of
+``ops/scan_ref.py``; the plain backward recomputes through it under
+autograd): one per function, so the direct kernel, the fused backward and
+the x-minus form share theirs, while the fuse_dt form (fp32 dt), the stage
+form (its bf16 roundings) and the bf16 partials (rounded per block of the
+kernel's channels) have their own. On CUDA tensors the chosen kernel
+launches or the call raises. Launch counts, each raised where the kernel is
+launched: ``selective_scan_dual.launches`` (every staged dual forward launch)
+and ``.save_states_launches`` (those that saved states),
 ``.direct_launches`` and ``.direct_save_states_launches`` (the direct
-kernel's); ``selective_scan.launches`` (every single-direction forward
-launch), ``.save_states_launches`` and ``.with_state_launches``;
-``selective_scan_bwd.launches`` (K2) and ``.with_state_launches`` (those of
-its with_state form), ``.fused_launches``.
+kernel's), ``.fdt_launches`` (the fuse_dt form's), ``.stage_launches`` and
+``.stage_save_states_launches`` (the stage form's); ``selective_scan.launches``
+(every single-direction forward launch), ``.save_states_launches`` and
+``.with_state_launches``; ``selective_scan_bwd.launches`` (K2),
+``.with_state_launches`` and ``.xminus_launches`` (those of its with_state
+and x-minus forms), ``.fused_launches``, ``.bf16_partials_launches`` (K2 or
+fused launches with bf16 partials).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -94,6 +109,50 @@ def fused_backward_chosen(ndir: int) -> bool:
     return _env_int("AUM_SCAN_BWD_FUSED", 0) != 0
 
 
+def fuse_dt_chosen() -> bool:
+    """AUM_SCAN_FUSE_DT=1: the bimamba mixers pass x_proj's dt-rank columns
+    and the dt_proj weight to the dual scan (``dt_fold``), whose eval forward
+    forms dt in the kernel. A string compare, as ``aum_tpu`` reads it: "01"
+    is off."""
+    return os.environ.get("AUM_SCAN_FUSE_DT", "0") == "1"
+
+
+def bf16_stage_chosen(dtype: torch.dtype, direct: bool, fuse_dt: bool = False) -> bool:
+    """AUM_SCAN_BF16_STAGE=1: the staged dual forward (eval and saving)
+    rounds dt log2 e and dt u to bf16 as the TPU kernel stages them; bf16
+    streams only, never the direct kernel nor the fuse_dt eval form."""
+    return (_env_int("AUM_SCAN_BF16_STAGE", 0) != 0 and dtype == torch.bfloat16
+            and not direct and not fuse_dt)
+
+
+def _dual_bwd_kernel_chosen(ndir: int) -> bool:
+    """AUM_SCAN_DUAL_BWD=1 with both directions: K2's launch stands for
+    ``_bwd_kernel_dual``, which has neither opt-in form below."""
+    return ndir == 2 and _env_int("AUM_SCAN_DUAL_BWD", 0) != 0
+
+
+def bwd_bf16_partials_chosen(ndir: int) -> bool:
+    """AUM_SCAN_BWD_BF16_PARTIALS=1: the backward kernels (K2 and the fused
+    one) write their dB/dC partials in bf16, summed in fp32 by the wrapper;
+    not the launch that stands for ``_bwd_kernel_dual``, whose partials JAX
+    keeps fp32."""
+    return (_env_int("AUM_SCAN_BWD_BF16_PARTIALS", 0) != 0
+            and not _dual_bwd_kernel_chosen(ndir))
+
+
+def bwd_dla_mode() -> str:
+    """The adjoint's dla form of ``_bwd_kernel``, as ``_bwd_dla_mode`` reads
+    it: AUM_SCAN_BWD_XMINUS=1 "xminus" (before DBU), AUM_SCAN_BWD_DBU=1
+    "dbu", else "xprev". Both opt-ins run K2's x-minus form (one function in
+    fp32); it applies to K2 launches that stand for ``_bwd_kernel``, never to
+    the fused kernel nor to the launch that stands for ``_bwd_kernel_dual``."""
+    if _env_int("AUM_SCAN_BWD_XMINUS", 0):
+        return "xminus"
+    if _env_int("AUM_SCAN_BWD_DBU", 0):
+        return "dbu"
+    return "xprev"
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     # The JAX op's primitives-only form, so dt rounds identically to bf16.
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
@@ -109,9 +168,33 @@ def _prep_dt(delta: torch.Tensor, delta_bias: torch.Tensor | None,
 
 # --- plain versions ----------------------------------------------------------
 
-def selective_scan_dual_plain(fwd: tuple, rev: tuple, save_states: bool = False):
+LOG2E_BF16 = 1.4453125  # log2 e rounded to bf16, as the stage form multiplies by it
+
+
+def _scan_bf16_stage_plain(u, dt, A, B, C, D, z, reverse: bool, save_every: int = 0):
+    """The oracle's recurrence with the stage form's two bf16 roundings:
+    x_t = exp2(bf16(dt log2 e) A) x_{t-1} + bf16(dt u) B_t (bf16 streams)."""
+    scale = (dt.float() * LOG2E_BF16).to(torch.bfloat16).float()
+    dtu = (dt.float() * u.float()).to(torch.bfloat16).float()
+    A, Bv, Cv = A.float(), B.float(), C.float()
+    bsz, seqlen, d = u.shape
+    x = torch.zeros((bsz, d, A.shape[1]), dtype=torch.float32, device=u.device)
+    ys, states = [None] * seqlen, []
+    steps = range(seqlen - 1, -1, -1) if reverse else range(seqlen)
+    for i, t in enumerate(steps):
+        if save_every and i % save_every == 0:
+            states.append(x.transpose(1, 2))
+        x = torch.exp2(scale[:, t, :, None] * A[None]) * x + dtu[:, t, :, None] * Bv[:, t, None, :]
+        ys[t] = torch.einsum("bdn,bn->bd", x, Cv[:, t])
+    y = (torch.stack(ys, dim=1) + u.float() * D.float()) * torch.nn.functional.silu(z.float())
+    return (y.to(u.dtype), torch.stack(states, dim=1)) if save_every else y.to(u.dtype)
+
+
+def selective_scan_dual_plain(fwd: tuple, rev: tuple, save_states: bool = False,
+                              bf16_stage: bool = False):
     """The dual forward kernels' function in plain PyTorch (the staged and the
-    direct kernel compute the same): the oracle per direction.
+    direct kernel compute the same): the oracle per direction, or with
+    ``bf16_stage`` the stage form's roundings (bf16 streams).
 
     fwd / rev: (u, dt, A, B, C, D, z) with dt already activated, as
     ``selective_scan_dual_cuda`` takes them. Returns (y_fwd, y_rev), and with
@@ -120,11 +203,30 @@ def selective_scan_dual_plain(fwd: tuple, rev: tuple, save_states: bool = False)
     folded in: the two differ by fp32 rounding.
     """
     every = STATE_CHUNK if save_states else 0
-    out_f = selective_scan_ref(*fwd[:6], z=fwd[6], reverse=False, save_every=every)
-    out_r = selective_scan_ref(*rev[:6], z=rev[6], reverse=True, save_every=every)
+    if bf16_stage:
+        out_f = _scan_bf16_stage_plain(*fwd, reverse=False, save_every=every)
+        out_r = _scan_bf16_stage_plain(*rev, reverse=True, save_every=every)
+    else:
+        out_f = selective_scan_ref(*fwd[:6], z=fwd[6], reverse=False, save_every=every)
+        out_r = selective_scan_ref(*rev[:6], z=rev[6], reverse=True, save_every=every)
     if save_states:
         return out_f[0], out_r[0], out_f[1], out_r[1]
     return out_f, out_r
+
+
+def fold_dt(dtr: torch.Tensor, W: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """The fuse_dt form's dt in plain PyTorch: softplus(dtr @ W + bias), the
+    product, the bias and the softplus in fp32, never rounded."""
+    dt = dtr.float() @ W.float()
+    return _softplus(dt if bias is None else dt + bias.float())
+
+
+def selective_scan_dual_fdt_plain(fwd: tuple, rev: tuple):
+    """The fuse_dt dual forward's function in plain PyTorch: fwd / rev are
+    (u, dtr, W, A, B, C, D, z, bias) per direction, dtr (B, L, R), W (R, D);
+    the oracle on the fp32 dt of ``fold_dt``. Returns (y_fwd, y_rev)."""
+    return tuple(selective_scan_ref(u, fold_dt(dtr, W, bias), A, B, C, D, z=z, reverse=reverse)
+                 for (u, dtr, W, A, B, C, D, z, bias), reverse in ((fwd, False), (rev, True)))
 
 
 def selective_scan_plain(args: tuple, reverse: bool, save_states: bool = False,
@@ -143,8 +245,24 @@ def selective_scan_plain(args: tuple, reverse: bool, save_states: bool = False,
                               return_last_state=return_final_state)
 
 
+def _oracle_grads(u, dt, A, B, C, D, z, reverse, g, state=None):
+    """The fp32 grads of the oracle's (u, dt, A, B, C, D, z), then of x0
+    where ``state`` = (x0, gfin) is given (the with_state form)."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in (u, dt, A, B, C, D, z)]
+        if state is None:
+            outs = (selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse),)
+            cots = (g.float(),)
+        else:
+            leaves.append(state[0].detach().float().requires_grad_())
+            outs = selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse,
+                                      initial_state=leaves[7], return_last_state=True)
+            cots = (g.float(), state[1].float())
+        return torch.autograd.grad(outs, leaves, cots)
+
+
 def selective_scan_bwd_plain(dirs: list, gs: list, softplus: bool = True,
-                             states: list | None = None) -> list:
+                             states: list | None = None, bf16_partials: int = 0) -> list:
     """The backward kernels' function in plain PyTorch (K2 and the fused
     kernel compute the same).
 
@@ -156,21 +274,28 @@ def selective_scan_bwd_plain(dirs: list, gs: list, softplus: bool = True,
     fp32 in the with_state form: ddelta = ddt * (1 - exp(-dt)) through the
     softplus (ddt without it) in dt's dtype, dbias its fp32 sum taken before
     that cast, dA, dD fp32, the rest in their input's dtype.
+
+    ``bf16_partials`` = P > 0: dB and dC as the kernels form them under
+    AUM_SCAN_BWD_BF16_PARTIALS=1, the sum over each block of P channels
+    rounded to bf16, the blocks summed in fp32 (P: the kernel's channels
+    per block).
     """
     grads = []
     for i, ((u, dt, A, B, C, D, z, reverse), g) in enumerate(zip(dirs, gs)):
-        with torch.enable_grad():
-            leaves = [t.detach().float().requires_grad_() for t in (u, dt, A, B, C, D, z)]
-            if states is None:
-                outs = (selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse),)
-                cots = (g.float(),)
-            else:
-                x0, gfin = states[i]
-                leaves.append(x0.detach().float().requires_grad_())
-                outs = selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse,
-                                          initial_state=leaves[7], return_last_state=True)
-                cots = (g.float(), gfin.float())
-            du, ddt, dA, dB, dC, dD, dz, *dx0 = torch.autograd.grad(outs, leaves, cots)
+        state = None if states is None else states[i]
+        du, ddt, dA, dB, dC, dD, dz, *dx0 = _oracle_grads(u, dt, A, B, C, D, z, reverse, g,
+                                                           state)
+        if bf16_partials:
+            # The channels' chains are independent: each block's share of
+            # dB, dC is the oracle's on that block's channels.
+            dB, dC = torch.zeros_like(dB), torch.zeros_like(dC)
+            for d0 in range(0, u.shape[-1], bf16_partials):
+                ch = slice(d0, d0 + bf16_partials)
+                blk = _oracle_grads(u[..., ch], dt[..., ch], A[ch], B, C, D[ch], z[..., ch],
+                                    reverse, g[..., ch],
+                                    None if state is None else (state[0][:, ch], state[1][:, ch]))
+                dB += blk[3].to(torch.bfloat16).float()
+                dC += blk[4].to(torch.bfloat16).float()
         # sigmoid(delta + bias), from dt alone
         ddelta = ddt * (1.0 - torch.exp(-dt.float())) if softplus else ddt
         grads.append((du.to(u.dtype), ddelta.to(dt.dtype), dA, dB.to(B.dtype),
@@ -190,7 +315,10 @@ class _ScanDir(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in
                 ("u", "dt", "z", "B", "C", "A", "Dskip", "out", "xb", "x0", "xfin")] + [
-        (name, ctypes.c_longlong) for name in _STREAM_STRIDES]
+        (name, ctypes.c_longlong) for name in _STREAM_STRIDES] + [
+        (name, ctypes.c_void_p) for name in ("dtr", "Wt", "bias")] + [
+        (name, ctypes.c_longlong) for name in ("dtr_sb", "dtr_sl", "Wt_sd")] + [
+        ("rank", ctypes.c_int)]
 
 
 class _ScanBwdDir(ctypes.Structure):
@@ -200,7 +328,7 @@ class _ScanBwdDir(ctypes.Structure):
                 ("u", "dt", "z", "B", "C", "A", "Dskip", "g", "xb", "du", "ddelta",
                  "dz", "dA_part", "dD_part", "dbias_part", "dbc_part", "gfin", "dx0")] + [
         (name, ctypes.c_longlong) for name in _STREAM_STRIDES + ("g_sb", "g_sl")] + [
-        ("reverse", ctypes.c_int), ("softplus", ctypes.c_int)]
+        (name, ctypes.c_int) for name in ("reverse", "softplus", "xminus", "bf16_partials")]
 
 
 class _ScanBwdArgs(ctypes.Structure):
@@ -214,14 +342,16 @@ def _channel_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_dir(u, dt, A, B, C, D, z):
-    """Validate one direction's operands for a kernel; returns them with
-    channel stride 1 and A, D as contiguous fp32 on u's device."""
+    """Validate one direction's operands for a kernel (dt None in the
+    fuse_dt form); returns them with channel stride 1 and A, D as contiguous
+    fp32 on u's device."""
     bsz, seqlen, d = u.shape
     n = A.shape[1]
     if u.dtype not in _DTYPE_CODES:
         raise TypeError(f"the scan kernels take float32 or bfloat16, not {u.dtype}")
-    for name, t, shape in (("dt", dt, (bsz, seqlen, d)), ("z", z, (bsz, seqlen, d)),
-                           ("B", B, (bsz, seqlen, n)), ("C", C, (bsz, seqlen, n))):
+    streams = (("dt", dt, (bsz, seqlen, d)), ("z", z, (bsz, seqlen, d)),
+               ("B", B, (bsz, seqlen, n)), ("C", C, (bsz, seqlen, n)))
+    for name, t, shape in streams[dt is None:]:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.dtype != u.dtype:
@@ -234,26 +364,53 @@ def _check_dir(u, dt, A, B, C, D, z):
                          f"D={d}, N={n}")
     if n > MAX_D_STATE:
         raise ValueError(f"d_state {n} > {MAX_D_STATE} is not supported by the kernels")
-    u, dt, z, B, C = (_channel_contiguous(t) for t in (u, dt, z, B, C))
+    u, dt, z, B, C = (None if t is None else _channel_contiguous(t) for t in (u, dt, z, B, C))
     A = A.to(device=u.device, dtype=torch.float32).contiguous()
     D = D.to(device=u.device, dtype=torch.float32).contiguous()
     return u, dt, A, B, C, D, z
 
 
 def _stream_strides(u, dt, z, B, C) -> list[int]:
-    return [u.stride(0), u.stride(1), dt.stride(0), dt.stride(1), z.stride(0),
+    dt_strides = (0, 0) if dt is None else (dt.stride(0), dt.stride(1))
+    return [u.stride(0), u.stride(1), *dt_strides, z.stride(0),
             z.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
+
+
+MAX_DT_RANK = 64  # kMaxRank of the fuse_dt kernel
+
+
+def _check_fold(u, dtr, W, bias):
+    """The fuse_dt form's (dtr, W, bias) for a kernel: dtr (B, L, R) and W
+    (R, D) in u's dtype, R <= MAX_DT_RANK; returns dtr with rank stride 1, W
+    as Wt (D, R) with rank stride 1 (dt_proj's own layout: no copy for
+    ``weight.t()``), bias as contiguous fp32 (zeros where None)."""
+    bsz, seqlen, d = u.shape
+    rank = dtr.shape[-1]
+    if tuple(dtr.shape) != (bsz, seqlen, rank) or tuple(W.shape) != (rank, d):
+        raise ValueError(f"dtr {tuple(dtr.shape)} / W {tuple(W.shape)} do not match "
+                         f"u {tuple(u.shape)}")
+    if not 1 <= rank <= MAX_DT_RANK:
+        raise ValueError(f"dt rank {rank} is outside 1..{MAX_DT_RANK}, what the fuse_dt "
+                         "kernel supports")
+    for name, t in (("dtr", dtr), ("W", W)):
+        if t.dtype != u.dtype or t.device != u.device:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}; u is {u.dtype} on {u.device}")
+    bias = (torch.zeros(d, device=u.device) if bias is None
+            else bias.to(device=u.device, dtype=torch.float32).contiguous())
+    return _channel_contiguous(dtr), _channel_contiguous(W.t()), bias
 
 
 def _n_chunks(seqlen: int) -> int:
     return math.ceil(seqlen / STATE_CHUNK)
 
 
-def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None):
+def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None, fold=None):
     """The kernel's arguments for one direction; ``x0`` (B, N, D) fp32
     contiguous selects the with_state form, whose final state is returned
-    beside the outputs (xfin, else None)."""
+    beside the outputs (xfin, else None); ``fold`` = (dtr, W, bias), with dt
+    None, the fuse_dt form's operands."""
     u, dt, A, B, C, D, z = _check_dir(u, dt, A, B, C, D, z)
+    dtr, Wt, bias = (None, None, None) if fold is None else _check_fold(u, *fold)
     bsz, seqlen, d = u.shape
 
     def empty(*shape, dtype=torch.float32):
@@ -263,43 +420,78 @@ def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None):
     xb = empty(bsz, _n_chunks(seqlen), A.shape[1], d) if save_states else None
     xfin = None if x0 is None else empty(*x0.shape)
     args = _ScanDir(
-        u.data_ptr(), dt.data_ptr(), z.data_ptr(), B.data_ptr(), C.data_ptr(),
-        A.data_ptr(), D.data_ptr(), out.data_ptr(),
+        u.data_ptr(), None if dt is None else dt.data_ptr(), z.data_ptr(), B.data_ptr(),
+        C.data_ptr(), A.data_ptr(), D.data_ptr(), out.data_ptr(),
         *(None if t is None else t.data_ptr() for t in (xb, x0, xfin)),
-        *_stream_strides(u, dt, z, B, C))
+        *_stream_strides(u, dt, z, B, C),
+        *(None if t is None else t.data_ptr() for t in (dtr, Wt, bias)),
+        *((0, 0, 0, 0) if fold is None else (dtr.stride(0), dtr.stride(1), Wt.stride(0),
+                                             dtr.shape[-1])))
     # Keep every buffer alive until the launch is enqueued.
-    return args, out, xb, xfin, (u, dt, z, B, C, A, D, x0)
+    return args, out, xb, xfin, (u, dt, z, B, C, A, D, x0, dtr, Wt, bias)
 
 
-def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False):
+def _launch_dual(entry: str, args_f, args_r, u, dstate: int) -> None:
+    lib = _lib()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        status = getattr(lib, entry)(ctypes.byref(args_f), ctypes.byref(args_r), *u.shape,
+                                     dstate, _DTYPE_CODES[u.dtype], stream)
+    _build.check_status(status, lib.aum_scan_error_string, f"{entry} kernel launch")
+
+
+def _check_pair(u, u_rev):
+    if u_rev.shape != u.shape or u_rev.dtype != u.dtype or u_rev.device != u.device:
+        raise ValueError("both directions must share shape, dtype and device")
+
+
+def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False,
+                             direct: bool | None = None):
     """Launch a dual forward kernel on (u, dt, A, B, C, D, z) per direction:
-    the staged one, or the direct one under AUM_SCAN_DIRECT=1.
+    the staged one, or the direct one under AUM_SCAN_DIRECT=1 (``direct``
+    None: the switch decides; False: the staged one whatever it says), the
+    staged one in its stage form under AUM_SCAN_BF16_STAGE=1 (bf16).
 
     Returns (y_fwd, y_rev), and with ``save_states`` also (xb_fwd, xb_rev).
     """
     u = fwd[0]
-    if rev[0].shape != u.shape or rev[0].dtype != u.dtype or rev[0].device != u.device:
-        raise ValueError("both directions must share shape, dtype and device")
+    _check_pair(u, rev[0])
     args_f, out_f, xb_f, _, keep_f = _scan_dir_args(*fwd, save_states)
     args_r, out_r, xb_r, _, keep_r = _scan_dir_args(*rev, save_states)
-    lib = _lib()
-    direct = direct_forward_chosen()
-    launch = lib.aum_selective_scan_dual_direct_fwd if direct else lib.aum_selective_scan_dual_fwd
-    bsz, seqlen, d = u.shape
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        status = launch(ctypes.byref(args_f), ctypes.byref(args_r), bsz, seqlen, d,
-                        fwd[2].shape[1], _DTYPE_CODES[u.dtype], stream)
+    direct = direct_forward_chosen() if direct is None else direct
+    stage = bf16_stage_chosen(u.dtype, direct)
+    entry = ("aum_selective_scan_dual_direct_fwd" if direct else
+             "aum_selective_scan_dual_stage_fwd" if stage else "aum_selective_scan_dual_fwd")
+    _launch_dual(entry, args_f, args_r, u, fwd[2].shape[1])
     del keep_f, keep_r
-    _build.check_status(status, lib.aum_scan_error_string,
-                        "selective_scan_dual kernel launch")
     if direct:
         selective_scan_dual.direct_launches += 1
         selective_scan_dual.direct_save_states_launches += save_states
+    elif stage:
+        selective_scan_dual.stage_launches += 1
+        selective_scan_dual.stage_save_states_launches += save_states
     else:
         selective_scan_dual.launches += 1
         selective_scan_dual.save_states_launches += save_states
     return (out_f, out_r, xb_f, xb_r) if save_states else (out_f, out_r)
+
+
+def selective_scan_dual_fdt_cuda(fwd: tuple, rev: tuple):
+    """Launch the fuse_dt dual forward (eval) on (u, dtr, W, A, B, C, D, z,
+    bias) per direction (see ``selective_scan_dual_fdt_plain``).
+
+    Returns (y_fwd, y_rev).
+    """
+    u = fwd[0]
+    _check_pair(u, rev[0])
+    args_f, out_f, _, _, keep_f = _scan_dir_args(
+        u, None, *fwd[3:8], False, fold=(fwd[1], fwd[2], fwd[8]))
+    args_r, out_r, _, _, keep_r = _scan_dir_args(
+        rev[0], None, *rev[3:8], False, fold=(rev[1], rev[2], rev[8]))
+    _launch_dual("aum_selective_scan_dual_fdt_fwd", args_f, args_r, u, fwd[3].shape[1])
+    del keep_f, keep_r
+    selective_scan_dual.fdt_launches += 1
+    return out_f, out_r
 
 
 def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
@@ -348,7 +540,10 @@ def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
 def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = True,
                             gfins: list | None = None) -> list:
     """Launch a backward kernel once for one or two directions: K2, or the
-    fused kernel under AUM_SCAN_BWD_FUSED=1 (see ``fused_backward_chosen``).
+    fused kernel under AUM_SCAN_BWD_FUSED=1 (see ``fused_backward_chosen``);
+    K2 in its x-minus form under AUM_SCAN_BWD_XMINUS=1 or AUM_SCAN_BWD_DBU=1
+    (``bwd_dla_mode``), either kernel with bf16 dB/dC partials under
+    AUM_SCAN_BWD_BF16_PARTIALS=1 (``bwd_bf16_partials_chosen``).
 
     dirs: per direction (u, dt, A, B, C, D, z, reverse); gs: the output
     cotangents; xbs: the forward's saved states; ``gfins``: per direction the
@@ -362,6 +557,9 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
     if with_state and (len(dirs) != 1 or len(gfins) != 1):
         raise ValueError("the with_state backward takes one direction")
     fused = not with_state and fused_backward_chosen(len(dirs))
+    xminus = (not fused and not _dual_bwd_kernel_chosen(len(dirs))
+              and bwd_dla_mode() != "xprev")
+    bf16_partials = bwd_bf16_partials_chosen(len(dirs))
     u0 = dirs[0][0]
     bsz, seqlen, d = u0.shape
     n = dirs[0][2].shape[1]
@@ -394,7 +592,8 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
             dx0 = empty(bsz, n, d)
         du, ddelta, dz = (empty(bsz, seqlen, d, dtype=u.dtype) for _ in range(3))
         dA_p, dD_p, dbias_p = empty(bsz, n, d), empty(bsz, d), empty(bsz, d)
-        dbc_p = empty(n_parts, bsz, seqlen, 2 * MAX_D_STATE)
+        dbc_p = empty(n_parts, bsz, seqlen, 2 * MAX_D_STATE,
+                      dtype=torch.bfloat16 if bf16_partials else torch.float32)
         args.dir[i] = _ScanBwdDir(
             u.data_ptr(), dt.data_ptr(), z.data_ptr(), B.data_ptr(), C.data_ptr(),
             A.data_ptr(), D.data_ptr(), g.data_ptr(), xb.data_ptr(), du.data_ptr(),
@@ -402,7 +601,7 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
             dbias_p.data_ptr(), dbc_p.data_ptr(),
             *(None if t is None else t.data_ptr() for t in (gfin, dx0)),
             *_stream_strides(u, dt, z, B, C), g.stride(0), g.stride(1), int(bool(reverse)),
-            int(bool(softplus)))
+            int(bool(softplus)), int(xminus), int(bf16_partials))
         outs.append((du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, B.dtype, C.dtype, dx0))
         keep.append((u, dt, z, B, C, A, D, g, xb, gfin))
     lib, prefix = (_bwd_fused_lib(), "scan_bwd_fused") if fused else (_bwd_lib(), "scan_bwd")
@@ -418,9 +617,11 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
     else:
         selective_scan_bwd.launches += 1
         selective_scan_bwd.with_state_launches += with_state
+        selective_scan_bwd.xminus_launches += xminus
+    selective_scan_bwd.bf16_partials_launches += bf16_partials
     grads = []
     for du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, b_dtype, c_dtype, dx0 in outs:
-        dbc = dbc_p.sum(dim=0)  # (B, L, 32): [:N] dB, [16:16+N] dC
+        dbc = dbc_p.sum(dim=0, dtype=torch.float32)  # (B, L, 32): [:N] dB, [16:16+N] dC
         grads.append((du, ddelta, dA_p.sum(dim=0).t(), dbc[..., :n].to(b_dtype),
                       dbc[..., MAX_D_STATE:MAX_D_STATE + n].to(c_dtype),
                       dD_p.sum(dim=0), dz, dbias_p.sum(dim=0))
@@ -438,7 +639,8 @@ def _check_constant(lib: ctypes.CDLL, fn_name: str, value: int) -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("selective_scan")
-    for fn in (lib.aum_selective_scan_dual_fwd, lib.aum_selective_scan_dual_direct_fwd):
+    for fn in (lib.aum_selective_scan_dual_fwd, lib.aum_selective_scan_dual_direct_fwd,
+               lib.aum_selective_scan_dual_fdt_fwd, lib.aum_selective_scan_dual_stage_fwd):
         fn.argtypes = [ctypes.POINTER(_ScanDir), ctypes.POINTER(_ScanDir),
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
@@ -489,11 +691,17 @@ def _on_cpu(t: torch.Tensor, what: str) -> bool:
 def selective_scan_bwd(dirs: list, gs: list, xbs: list, softplus: bool = True,
                        states: list | None = None) -> list:
     """The scan backward of one or two directions: a kernel on CUDA tensors
-    (one launch), the plain version on CPU tensors (``xbs`` unused there).
-    ``states``: per direction (x0, gfin), the with_state form (see
-    ``selective_scan_bwd_plain``; the kernel restarts from xb, which holds x0)."""
+    (one launch), the plain version on CPU tensors (``xbs`` unused there), in
+    the bf16-partials form where the switches choose it (at the channels per
+    block of the kernel they choose). ``states``: per direction (x0, gfin),
+    the with_state form (see ``selective_scan_bwd_plain``; the kernel
+    restarts from xb, which holds x0)."""
     if _on_cpu(dirs[0][0], "selective_scan_bwd"):
-        return selective_scan_bwd_plain(dirs, gs, softplus, states)
+        partials = 0
+        if bwd_bf16_partials_chosen(len(dirs)):
+            fused = states is None and fused_backward_chosen(len(dirs))
+            partials = BWD_FUSED_BLOCK_CHANNELS if fused else BWD_BLOCK_CHANNELS
+        return selective_scan_bwd_plain(dirs, gs, softplus, states, partials)
     return selective_scan_bwd_cuda(dirs, gs, xbs, softplus,
                                    None if states is None else [s[1] for s in states])
 
@@ -501,6 +709,8 @@ def selective_scan_bwd(dirs: list, gs: list, xbs: list, softplus: bool = True,
 selective_scan_bwd.launches = 0
 selective_scan_bwd.with_state_launches = 0
 selective_scan_bwd.fused_launches = 0
+selective_scan_bwd.xminus_launches = 0
+selective_scan_bwd.bf16_partials_launches = 0
 
 
 # --- the op ----------------------------------------------------------------------
@@ -515,11 +725,49 @@ def _prep_both(args_fwd: tuple, args_rev: tuple):
     return (uf, dt_f, af, bf, cf, dskf, zf), (ur, dt_r, ar, br, cr, dskr, zr)
 
 
-def _forward(fwd: tuple, rev: tuple, save_states: bool):
+def _forward(fwd: tuple, rev: tuple, save_states: bool, direct: bool | None = None):
+    """The dual forward, kernel or plain by device; ``direct`` as
+    ``selective_scan_dual_cuda`` takes it."""
     if _on_cpu(fwd[0], "selective_scan_dual"):
+        direct = direct_forward_chosen() if direct is None else direct
         # The plain backward recomputes from the inputs: no states to keep.
-        return selective_scan_dual_plain(fwd, rev) + ((None, None) if save_states else ())
-    return selective_scan_dual_cuda(fwd, rev, save_states)
+        return (selective_scan_dual_plain(fwd, rev, bf16_stage=bf16_stage_chosen(fwd[0].dtype,
+                                                                                  direct))
+                + ((None, None) if save_states else ()))
+    return selective_scan_dual_cuda(fwd, rev, save_states, direct)
+
+
+def _dual_forward_saving(ctx, args_fwd: tuple, args_rev: tuple, direct: bool | None = None,
+                         extra: tuple = ()):
+    """The saving dual forward of an autograd op: runs it and saves what the
+    backward needs on ``ctx``, then ``extra`` tensors (``_dual_backward``
+    hands them back). Returns (y_fwd, y_rev)."""
+    fwd, rev = _prep_both(args_fwd, args_rev)
+    y_f, y_r, xb_f, xb_r = _forward(fwd, rev, save_states=True, direct=direct)
+    # Bimamba v1 passes the same u/dt/B/C/D/z in both directions (only A
+    # differs): those are saved once.
+    ctx.shared = all(a is b for a, b in zip(fwd[:2] + fwd[3:], rev[:2] + rev[3:]))
+    saved = fwd + (rev[2], xb_f, xb_r) if ctx.shared else fwd + rev + (xb_f, xb_r)
+    ctx.save_for_backward(*saved, *extra)
+    ctx.n_extra = len(extra)
+    ctx.has_bias = (args_fwd[7] is not None, args_rev[7] is not None)
+    return y_f, y_r
+
+
+def _dual_backward(ctx, g_f, g_r):
+    """The backward of ``_dual_forward_saving``: per direction (du, ddelta,
+    dA, dB, dC, dD, dz, dbias), and the ``extra`` tensors."""
+    saved = ctx.saved_tensors
+    saved, extra = saved[:len(saved) - ctx.n_extra], saved[len(saved) - ctx.n_extra:]
+    if ctx.shared:
+        fwd = saved[:7]
+        rev = fwd[:2] + (saved[7],) + fwd[3:]
+    else:
+        fwd, rev = saved[:7], saved[7:14]
+    xb_f, xb_r = saved[-2:]
+    gs = [torch.zeros_like(y[0]) if g is None else g
+          for g, y in ((g_f, fwd), (g_r, rev))]
+    return selective_scan_bwd([fwd + (False,), rev + (True,)], gs, [xb_f, xb_r]), extra
 
 
 class _DualScan(torch.autograd.Function):
@@ -528,36 +776,67 @@ class _DualScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *args16):
-        args_fwd, args_rev = args16[:8], args16[8:]
-        fwd, rev = _prep_both(args_fwd, args_rev)
-        y_f, y_r, xb_f, xb_r = _forward(fwd, rev, save_states=True)
-        # Bimamba v1 passes the same u/dt/B/C/D/z in both directions (only A
-        # differs): those are saved once.
-        ctx.shared = all(a is b for a, b in zip(fwd[:2] + fwd[3:], rev[:2] + rev[3:]))
-        saved = fwd + (rev[2], xb_f, xb_r) if ctx.shared else fwd + rev + (xb_f, xb_r)
-        ctx.save_for_backward(*saved)
-        ctx.has_bias = (args_fwd[7] is not None, args_rev[7] is not None)
-        return y_f, y_r
+        return _dual_forward_saving(ctx, args16[:8], args16[8:])
 
     @staticmethod
     def backward(ctx, g_f, g_r):
-        saved = ctx.saved_tensors
-        if ctx.shared:
-            fwd = saved[:7]
-            rev = fwd[:2] + (saved[7],) + fwd[3:]
-        else:
-            fwd, rev = saved[:7], saved[7:14]
-        xb_f, xb_r = saved[-2:]
-        gs = [torch.zeros_like(y[0]) if g is None else g
-              for g, y in ((g_f, fwd), (g_r, rev))]
-        grads = selective_scan_bwd([fwd + (False,), rev + (True,)], gs, [xb_f, xb_r])
+        grads, _ = _dual_backward(ctx, g_f, g_r)
         out = []
         for (du, ddelta, dA, dB, dC, dD, dz, dbias), has_bias in zip(grads, ctx.has_bias):
             out += [du, ddelta, dA, dB, dC, dD, dz, dbias if has_bias else None]
         return tuple(out)
 
 
-def selective_scan_dual(args_fwd: tuple, args_rev: tuple
+@contextlib.contextmanager
+def _fp32_products():
+    """fp32 matrix products without TF32 on the card for the block, as JAX's
+    precision=HIGHEST; the setting is restored after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class _DualScanFold(torch.autograd.Function):
+    """The dual scan with the dt_proj product folded in, under autograd: per
+    direction (u, dtr, W, A, B, C, D, z, delta_bias) -> (y_fwd, y_rev).
+    ``_make_dual_scan_fdt``'s rules: the forward forms delta = dtr @ W in the
+    compute dtype (torch.matmul, outside any kernel, as XLA forms it in JAX)
+    and runs the staged saving dual forward (never the direct one); the
+    backward is the dual scan's, then d(dtr) = ddelta W^T and dW = dtr^T
+    ddelta in fp32, each cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, *args18):
+        fold_f, fold_r = args18[:9], args18[9:]
+        # Bimamba v1 passes one (dtr, W) to both directions: one product,
+        # saved once.
+        ctx.fold_shared = fold_r[1] is fold_f[1] and fold_r[2] is fold_f[2]
+        delta_f = torch.matmul(fold_f[1], fold_f[2])
+        delta_r = delta_f if ctx.fold_shared else torch.matmul(fold_r[1], fold_r[2])
+        extra = fold_f[1:3] + (() if ctx.fold_shared else fold_r[1:3])
+        return _dual_forward_saving(ctx, (fold_f[0], delta_f) + fold_f[3:],
+                                    (fold_r[0], delta_r) + fold_r[3:], direct=False,
+                                    extra=extra)
+
+    @staticmethod
+    def backward(ctx, g_f, g_r):
+        grads, extra = _dual_backward(ctx, g_f, g_r)
+        folds = (extra[:2], extra[:2] if ctx.fold_shared else extra[2:])
+        out = []
+        for (du, ddelta, dA, dB, dC, dD, dz, dbias), (dtr, W), has_bias in zip(
+                grads, folds, ctx.has_bias):
+            with _fp32_products():
+                dd = ddelta.float()
+                d_dtr = (dd @ W.float().t()).to(dtr.dtype)
+                dW = (dtr.float().flatten(0, 1).t() @ dd.flatten(0, 1)).to(W.dtype)
+            out += [du, d_dtr, dW, dA, dB, dC, dD, dz, dbias if has_bias else None]
+        return tuple(out)
+
+
+def selective_scan_dual(args_fwd: tuple, args_rev: tuple, dt_fold: tuple | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused bidirectional selective scan.
 
@@ -569,9 +848,26 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple
     grad is needed the forward kernel saves its chunk-entry states and the
     backward kernel runs in the backward pass; otherwise the eval forward
     runs alone.
+
+    ``dt_fold`` = ((dtr_f, W_f), (dtr_r, W_r)), with None in the delta slots
+    (AUM_SCAN_FUSE_DT=1; bimamba v1 passes one pair to both): the (B, L, R)
+    dt-rank columns of x_proj's output and the (R, D) dt_proj weight per
+    direction, delta = dtr @ W; delta_bias keeps its role. Without a grad
+    the fuse_dt kernel forms dt itself, in fp32; under autograd
+    ``_DualScanFold`` runs.
     """
     _on_cpu(args_fwd[0], "selective_scan_dual")
     tensors = [t for t in args_fwd + args_rev if t is not None]
+    if dt_fold is not None:
+        (dtr_f, w_f), (dtr_r, w_r) = dt_fold
+        fold_f = (args_fwd[0], dtr_f, w_f) + tuple(args_fwd[2:])
+        fold_r = (args_rev[0], dtr_r, w_r) + tuple(args_rev[2:])
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors + [dtr_f, w_f,
+                                                                                 dtr_r, w_r]):
+            return _DualScanFold.apply(*fold_f, *fold_r)
+        if _on_cpu(args_fwd[0], "selective_scan_dual"):
+            return selective_scan_dual_fdt_plain(fold_f, fold_r)
+        return selective_scan_dual_fdt_cuda(fold_f, fold_r)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _DualScan.apply(*args_fwd, *args_rev)
     fwd, rev = _prep_both(args_fwd, args_rev)
@@ -582,6 +878,9 @@ selective_scan_dual.launches = 0
 selective_scan_dual.save_states_launches = 0
 selective_scan_dual.direct_launches = 0
 selective_scan_dual.direct_save_states_launches = 0
+selective_scan_dual.fdt_launches = 0
+selective_scan_dual.stage_launches = 0
+selective_scan_dual.stage_save_states_launches = 0
 
 
 class _Scan(torch.autograd.Function):

@@ -39,6 +39,20 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    through the autograd op; and a scan split at an uneven point into two
    segments chained by their states against the unsplit scan, outputs and
    grads, forward and reverse (train and ragged shapes).
+   The four opt-in forms: the fuse_dt dual forward (AUM_SCAN_FUSE_DT=1;
+   dtr read in place from an x_proj-shaped output, dt rank 48, and 12 at
+   the ragged shapes) against its plain version and against the staged
+   kernel fed the materialised dt, v1 and v2, fp32 and bf16; the stage form
+   (AUM_SCAN_BF16_STAGE=1), eval and saving, against its plain version, and
+   bit-equal to the default kernel in fp32; K2 and the fused kernel with
+   bf16 partials against their fp32-partials launches (dB, dC at the bf16
+   grad tolerance, the rest bit-equal), one and both directions; K2's
+   x-minus form against the plain backward, one and both directions and
+   with_state; each also shows its form's launch count rose. Then the
+   small-dt probe: ddelta at dt in [1e-6, 1e-4] from K2 and the fused
+   kernel in fp32, and from the plain version, each against fp64; a kernel
+   fails it if its relative error exceeds the plain version's by more than
+   SMALL_DT_RATIO.
 3. model: AuM-Base Fo-Bi at full width and depth 24. fp32, B=2: the card
    (with kernels) against the same weights on the CPU (plain path). Then the
    eval path itself, ``aum_tpu_torch.entry.entry()`` (bf16, B=8), with every
@@ -46,7 +60,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    dual-scan and 24 conv launches and no other, and (8, 527) finite logits;
    then its latency (CUDA events, 10 forwards after warm-up). Then the fp32
    check and ``entry()`` again under AUM_SCAN_DIRECT=1: 24 direct launches
-   and no staged one.
+   and no staged one; under AUM_SCAN_FUSE_DT=1 (fp32 check too), alone and
+   with AUM_SCAN_DIRECT=1: 24 fuse_dt launches and no other scan launch;
+   under AUM_SCAN_BF16_STAGE=1: 24 stage launches (``EVAL_SWITCHES``).
 4. wav: AuM-Base Fo-Fo at full width and depth 24 from 10 s waveforms
    (160,000 samples: the Kaldi fbank, pad to 1024 frames, AudioSet's
    normalization, the model). fp32, B=2: the card (kernels and frontend)
@@ -56,8 +72,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    and no other, no graph, (8, 527) finite logits; then its latency and the
    frontend's share of it, timed alone.
 5. train: at full width, depth 2, fp32, B=2, for Fo-Bi and for Fo-Fo: the
-   loss and the grads of in_proj, A_log (and Fo-Bi's A_b_log), dt_proj.bias
-   and conv1d.weight, and those params after one full train step (Adam, no
+   loss and the grads of in_proj, A_log (and Fo-Bi's A_b_log), dt_proj.bias,
+   conv1d.weight, x_proj.weight and dt_proj.weight, and those params after
+   one full train step (Adam, no
    warmup), on the card against the same weights on the CPU (plain path);
    the launches of the card's forward and backward are read (Fo-Fo: 2 saving
    single-direction forwards and 2 one-direction backwards).
@@ -71,6 +88,12 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    and the train path under both switches launches 24 direct saving
    forwards, 24 fused backwards and no K2; its ms per step are timed in
    turns with the default path's (default, switched, switched, default).
+   The Fo-Bi fp32 check also runs under AUM_SCAN_FUSE_DT=1, and the train
+   path's launches are checked under the sets of ``TRAIN_CHECK_SWITCHES``:
+   the fuse_dt rule (24 staged saving forwards and 24 K2, with
+   AUM_SCAN_DIRECT=1 too), and every opt-in form at once (the stage form's
+   saving forward, K2 in its x-minus form or the fused kernel, bf16
+   partials).
 6. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
    clips/s with CUDA events after warm-up; then ``wav_entry``'s model at
    B=64 from waveforms: clips/s, and the frontend's ms alone. Then per kernel
@@ -84,15 +107,21 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    saving dual forward, the backward (both directions in one launch, and one
    direction), and the saving single-direction forward, each beside its plain
    version and its bound; the direct and fused kernels beside them, and
-   K2's with_state form. B=64 Fo-Bi clips/s are timed in turns with and
-   without AUM_SCAN_DIRECT=1.
-7. profile: one Fo-Bi bench forward, one Fo-Fo forward from waveforms
-   (B=64), then one train step, under ``torch.profiler``: device time by
+   K2's with_state form, the stage form's saving forward, K2 with bf16
+   partials and in its x-minus form (in turns with the default) and the
+   fused kernel with bf16 partials. At the bench shapes also the fuse_dt
+   form (its bound adds the dt_proj product on the tensor cores) and the
+   stage form. B=64 Fo-Bi clips/s are timed in turns: default,
+   AUM_SCAN_DIRECT=1, AUM_SCAN_FUSE_DT=1, AUM_SCAN_FUSE_DT=1,
+   AUM_SCAN_DIRECT=1, default.
+7. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
+   one Fo-Fo forward from waveforms (B=64), then one train step, under
+   ``torch.profiler``: device time by
    kernel category (dual and single scan forward, scan backward, conv,
    frontend FFTs, matrix products, other), the top kernels, and the device's
    idle share of the wall time.
 
-Every phase runs with the three switches (``SWITCHES``) off and sets them
+Every phase runs with the switches (``SWITCHES``) off and sets them
 itself, restoring the environment after; each prints its seconds. The line
 before the last is nvidia-smi's name and power limit; the one before it the
 kernels summary; the last line is exactly
@@ -115,6 +144,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 FP32_PIPE_OPS_PER_S = FP32_FLOPS_PER_S / 2  # an FMA is two flops, one instruction
+BF16_TENSOR_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
 # Special-function-unit exponentials: 16 per SM per clock (Hopper SM).
 SFU_PER_SM_PER_CLOCK = 16
 # The scan's FP32-pipe instructions per (b, l, d, n) element and direction:
@@ -188,7 +218,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-SWITCHES = ("AUM_SCAN_DIRECT", "AUM_SCAN_BWD_FUSED", "AUM_SCAN_DUAL_BWD")
+SWITCHES = ("AUM_SCAN_DIRECT", "AUM_SCAN_BWD_FUSED", "AUM_SCAN_DUAL_BWD", "AUM_SCAN_FUSE_DT",
+            "AUM_SCAN_BF16_STAGE", "AUM_SCAN_BWD_BF16_PARTIALS", "AUM_SCAN_BWD_XMINUS",
+            "AUM_SCAN_BWD_DBU")
 
 
 @contextlib.contextmanager
@@ -286,6 +318,19 @@ def scan_inputs(bsz, seqlen, d, n, dtype, seed, device="cuda"):
     D = randn(d)
     return (u, delta, A, x_dbl[..., rank:rank + n], x_dbl[..., rank + n:], D,
             xz[..., d:], bias)
+
+
+def fold_inputs(bsz, seqlen, d, n, dtype, seed, rank=48, device="cuda"):
+    """One direction's (u, dtr, W, A, B, C, D, z, bias) as the mixer passes
+    them under AUM_SCAN_FUSE_DT=1: dtr, B and C columns of one x_proj output,
+    W (rank, D) the transposed view of a (D, rank) dt_proj weight (the
+    mixer's init), z a column view of the in_proj output."""
+    g = torch.Generator().manual_seed(seed)
+    u, _, A, _, _, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed, device)
+    x_dbl = torch.randn((bsz, seqlen, rank + 2 * n), generator=g).to(device, dtype)
+    w = ((torch.rand((d, rank), generator=g) * 2 - 1) / math.sqrt(rank)).to(device, dtype)
+    return (u, x_dbl[..., :rank], w.t(), A, x_dbl[..., rank:rank + n], x_dbl[..., rank + n:],
+            D, z, bias)
 
 
 def conv_inputs(bsz, seqlen, d, k, dtype, seed, device="cuda"):
@@ -411,6 +456,218 @@ def _check_scan(label, dims, dtype, shared, train: bool, n=16) -> list[dict]:
                                         **tag})
             k2 = forms
     return results
+
+
+def _check_fdt(label, dims, dtype, shared, n=16, rank=48) -> list[dict]:
+    """The fuse_dt dual forward (eval) against its plain version, and against
+    the staged kernel fed the materialised dt: in fp32 elementwise at the
+    fp32 tolerance; in bf16 the staged kernel streams dt rounded to bf16,
+    which the fuse_dt form does not, so the two compute different functions
+    and differ where y + D u cancels: there as max |err| over max |ref|,
+    at the bf16 tolerance (GRAD_TOL)."""
+    from aum_tpu_torch.ops.selective_scan import (
+        fold_dt,
+        selective_scan_dual_cuda,
+        selective_scan_dual_fdt_cuda,
+        selective_scan_dual_fdt_plain,
+    )
+
+    bsz, seqlen, d = dims
+    tag = dict(shape=label, dims=[bsz, seqlen, d, n], rank=rank, dtype=str(dtype),
+               bimamba="v1" if shared else "v2")
+    fwd = fold_inputs(bsz, seqlen, d, n, dtype, seed=21, rank=rank)
+    rev = (fwd[:3] + (fwd[3] * 0.5,) + fwd[4:] if shared
+           else fold_inputs(bsz, seqlen, d, n, dtype, seed=22, rank=rank))
+    got = selective_scan_dual_fdt_cuda(fwd, rev)
+    torch.cuda.synchronize()
+
+    def materialised(f):
+        return (f[0], fold_dt(f[1], f[2], f[8]).to(dtype)) + f[3:8]
+
+    refs = {"plain": selective_scan_dual_fdt_plain(fwd, rev),
+            "staged_kernel_materialised_dt": selective_scan_dual_cuda(
+                materialised(fwd), materialised(rev), direct=False)}
+    results = []
+    for against, ref in refs.items():
+        for i, (y, w) in enumerate(zip(got, ref)):
+            scaled = against != "plain" and dtype == torch.bfloat16
+            r = compare_scaled(y, w, GRAD_TOL[dtype]) if scaled else compare(y, w, *SCAN_TOL[dtype])
+            results.append({**r, "kernel": "selective_scan_dual_fdt_fwd", "against": against,
+                            "direction": "reverse" if i else "forward", **tag})
+    return results
+
+
+def _check_stage(label, dims, shared, n=16) -> list[dict]:
+    """The stage form (AUM_SCAN_BF16_STAGE=1) of the staged dual forward, eval
+    and saving, bf16, against its plain version; in fp32 the switch changes
+    nothing: bit-equal to the default kernel."""
+    from aum_tpu_torch.ops.selective_scan import (
+        selective_scan_dual,
+        selective_scan_dual_cuda,
+        selective_scan_dual_plain,
+    )
+
+    bsz, seqlen, d = dims
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = dict(shape=label, dims=[bsz, seqlen, d, n], dtype=str(dtype),
+                   bimamba="v1" if shared else "v2")
+        dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, shared, n)
+        for save in (False, True):
+            before = selective_scan_dual.stage_launches
+            with scan_switches(AUM_SCAN_BF16_STAGE=True):
+                got = selective_scan_dual_cuda(dir_f, dir_r, save_states=save)
+            torch.cuda.synchronize()
+            extra = {"save_states": True} if save else {}
+            if dtype == torch.float32:
+                base = selective_scan_dual_cuda(dir_f, dir_r, save_states=save)
+                same = all(torch.equal(a, b) for a, b in zip(got, base))
+                results.append({"kernel": "selective_scan_dual_fwd", "check": "bf16_stage_fp32_noop",
+                                "against": "default_kernel", "bit_equal": same,
+                                "max_abs_err": 0.0 if same else float("nan"), "ok": same,
+                                **extra, **tag})
+                continue
+            ran = selective_scan_dual.stage_launches == before + 1
+            want = selective_scan_dual_plain(dir_f, dir_r, save_states=save, bf16_stage=True)
+            for i, (y, w) in enumerate(zip(got, want)):
+                tol = SCAN_TOL[dtype] if i < 2 else XB_TOL
+                r = compare(y, w, *tol)
+                results.append({**r, "ok": r["ok"] and ran, "kernel": "selective_scan_dual_stage_fwd",
+                                "against": "plain", "output": "out" if i < 2 else "xb",
+                                "direction": "reverse" if i % 2 else "forward", **extra, **tag})
+    return results
+
+
+def _check_bwd_forms(label, dims, dtype, n=16) -> list[dict]:
+    """The backward's opt-in forms, v1 operands: K2 and the fused kernel with
+    bf16 dB/dC partials against the same kernel's fp32-partials launch (dB
+    and dC at the bf16 grad tolerance, every other output bit-equal), both
+    directions in one launch and one direction; K2's x-minus form
+    (AUM_SCAN_BWD_XMINUS=1) against the plain backward, both directions, one
+    direction and the with_state form (9 grads)."""
+    from aum_tpu_torch.ops import selective_scan_bwd
+    from aum_tpu_torch.ops.selective_scan import (
+        selective_scan_bwd_cuda,
+        selective_scan_bwd_plain,
+        selective_scan_cuda,
+        selective_scan_dual_cuda,
+    )
+
+    bsz, seqlen, d = dims
+    tag = dict(shape=label, dims=[bsz, seqlen, d, n], dtype=str(dtype), bimamba="v1")
+    dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, True, n)
+    _, _, xb_f, xb_r = selective_scan_dual_cuda(dir_f, dir_r, save_states=True)
+    g = torch.Generator().manual_seed(25)
+    gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
+    dirs = [dir_f + (False,), dir_r + (True,)]
+
+    def launches(**switches):
+        with scan_switches(**switches):
+            out = {"two_directions": selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
+                   "one_direction": [selective_scan_bwd_cuda([dirs[i]], [gs[i]], [xb])[0]
+                                     for i, xb in enumerate((xb_f, xb_r))]}
+        torch.cuda.synchronize()
+        return out
+
+    results = []
+    for fused, kernel in ((False, "selective_scan_bwd"), (True, "selective_scan_bwd_fused")):
+        base = launches(AUM_SCAN_BWD_FUSED=fused)
+        before = selective_scan_bwd.bf16_partials_launches
+        part = launches(AUM_SCAN_BWD_FUSED=fused, AUM_SCAN_BWD_BF16_PARTIALS=True)
+        ran = selective_scan_bwd.bf16_partials_launches == before + 3
+        for form, grads in part.items():
+            for direction, (gr, br) in enumerate(zip(grads, base[form])):
+                checks = {name: compare_scaled(a, b, GRAD_TOL[torch.bfloat16])
+                          for name, a, b in zip(GRAD_NAMES, gr, br) if name in ("dB", "dC")}
+                same = all(torch.equal(a, b) for name, a, b in zip(GRAD_NAMES, gr, br)
+                           if name not in ("dB", "dC"))
+                results.append({"max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+                                "tol": GRAD_TOL[torch.bfloat16],
+                                "grads": {k: [c["max_abs_err"], c["scaled_err"]]
+                                          for k, c in checks.items()},
+                                "others_bit_equal": same,
+                                "ok": ran and same and all(c["ok"] for c in checks.values()),
+                                "kernel": kernel, "variant": "bf16_partials", "form": form,
+                                "against": "fp32_partials_launch",
+                                "direction": "reverse" if direction else "forward", **tag})
+    want = selective_scan_bwd_plain(dirs, gs)
+    before = selective_scan_bwd.xminus_launches
+    got = launches(AUM_SCAN_BWD_XMINUS=True)
+    ran = selective_scan_bwd.xminus_launches == before + 3
+    for form, grads in got.items():
+        for direction, (gr, wr) in enumerate(zip(grads, want)):
+            r = _grad_checks(GRAD_NAMES, gr, wr, GRAD_TOL[dtype])
+            results.append({**r, "ok": r["ok"] and ran, "kernel": "selective_scan_bwd",
+                            "variant": "xminus", "form": form, "against": "plain",
+                            "direction": "reverse" if direction else "forward", **tag})
+    # The with_state form: a random starting state and final-state cotangent.
+    x0, gfin = (torch.randn((bsz, d, n), generator=g).cuda() for _ in range(2))
+    _, xb_s, _ = selective_scan_cuda(dir_f, False, save_states=True, initial_state=x0,
+                                     return_final_state=True)
+    before = selective_scan_bwd.xminus_launches
+    with scan_switches(AUM_SCAN_BWD_XMINUS=True):
+        got = selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_s], gfins=[gfin])[0]
+    torch.cuda.synchronize()
+    ran = selective_scan_bwd.xminus_launches == before + 1
+    want = selective_scan_bwd_plain(dirs[:1], gs[:1], states=[(x0, gfin)])[0]
+    r = _grad_checks(GRAD_NAMES + ("dx0",), got, want, GRAD_TOL[dtype])
+    results.append({**r, "ok": r["ok"] and ran, "kernel": "selective_scan_bwd",
+                    "variant": "xminus", "form": "with_state", "with_state": True,
+                    "against": "plain", "direction": "forward", **tag})
+    return results
+
+
+# The small-dt probe: K2 and the fused kernel form the softplus chain rule
+# as ddt (1 - 2^(-dt log2 e)) with the SFU's exp2; the difference of two
+# numbers near 1 may lose relative precision at small dt. A kernel fails the
+# probe where its relative error exceeds the plain version's by more than
+# this factor.
+SMALL_DT_RATIO = 4.0
+
+
+def probe_small_dt() -> list[dict]:
+    """ddelta at dt in [1e-6, 1e-4] (log-uniform), fp32, one direction: K2,
+    the fused kernel and the plain version each against an fp64 evaluation
+    of its own ddt times (1 - e^(-dt)) (ddt from the same kernel launched
+    without the softplus, whose adjoint is the same computation), as the
+    relative error over elements whose reference exceeds 1e-3 of the
+    largest; max and median."""
+    from aum_tpu_torch.ops.selective_scan import (
+        selective_scan_bwd_cuda,
+        selective_scan_bwd_plain,
+        selective_scan_cuda,
+    )
+
+    bsz, seqlen, d, n = 2, 150, 64, 16
+    raw = scan_inputs(bsz, seqlen, d, n, torch.float32, seed=27)
+    g = torch.Generator().manual_seed(28)
+    dt = torch.exp(torch.rand((bsz, seqlen, d), generator=g) * math.log(100.0)
+                   + math.log(1e-6)).cuda()
+    args = (raw[0], dt) + raw[2:7]
+    gout = torch.randn((bsz, seqlen, d), generator=g).cuda()
+    _, xb = selective_scan_cuda(args, False, save_states=True)
+    factor = -torch.expm1(-dt.double())
+
+    def rel_err(ddelta, ddt):
+        ref = ddt.double() * factor
+        keep = ref.abs() > 1e-3 * ref.abs().max()
+        err = ((ddelta.double() - ref).abs() / ref.abs())[keep]
+        return {"max_rel_err": err.max().item(), "median_rel_err": err.median().item(),
+                "elements": int(keep.sum())}
+
+    dirs = [args + (False,)]
+    errs = {"plain": rel_err(selective_scan_bwd_plain(dirs, [gout], True)[0][1],
+                             selective_scan_bwd_plain(dirs, [gout], False)[0][1])}
+    for fused, kernel in ((False, "selective_scan_bwd"), (True, "selective_scan_bwd_fused")):
+        with scan_switches(AUM_SCAN_BWD_FUSED=fused):
+            errs[kernel] = rel_err(selective_scan_bwd_cuda(dirs, [gout], [xb], True)[0][1],
+                                   selective_scan_bwd_cuda(dirs, [gout], [xb], False)[0][1])
+    limit = SMALL_DT_RATIO * errs["plain"]["max_rel_err"]
+    return [{"kernel": k, "check": "small_dt_ddelta", "dims": [bsz, seqlen, d, n],
+             "dt_range": [1e-6, 1e-4], "dtype": str(torch.float32), "shape": "small_dt",
+             **errs[k], "plain": errs["plain"], "ratio_limit": SMALL_DT_RATIO,
+             "max_abs_err": errs[k]["max_rel_err"], "ok": errs[k]["max_rel_err"] <= limit}
+            for k in ("selective_scan_bwd", "selective_scan_bwd_fused")]
 
 
 def _check_scan_single(label, dims, dtype, reverse, train: bool, n=16) -> list[dict]:
@@ -606,14 +863,28 @@ def phase_kernels() -> dict:
                     results += _check_conv(label, dims, dtype, mode)
             if train is not False and n == 16:
                 results += _check_chained(label, dims, dtype)
+            # The opt-in forms: fuse_dt (eval shapes) at AuM-Base's dt rank
+            # and, at the ragged shape, AuM-tiny's (12: one partial k-step);
+            # the backward's forms at the train shapes.
+            if train is not True:
+                for rank in (48,) if label == "eval" else (48, 12):
+                    for shared in (True, False):
+                        results += _check_fdt(label, dims, dtype, shared, n, rank)
+            if train is not False:
+                results += _check_bwd_forms(label, dims, dtype, n)
+        for shared in (True, False):
+            results += _check_stage(label, dims, shared, n)
+    results += probe_small_dt()
     worst = {}
     for r in results:
         emit({"phase": "kernels", **r})
         if (r["shape"] in ("eval", "train") and r["dtype"] == str(torch.bfloat16)
-                and r.get("against", "plain") == "plain" and "check" not in r):
+                and r.get("against", "plain") in ("plain", "fp32_partials_launch")
+                and "check" not in r):
             key = r["kernel"] + ("_save_states" if r.get("save_states") else "") + (
                 "_with_state" if r.get("with_state") else "") + (
-                "_no_softplus" if r.get("form", "").endswith("no_softplus") else "")
+                "_no_softplus" if r.get("form", "").endswith("no_softplus") else "") + (
+                f"_{r['variant']}" if "variant" in r else "")
             worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
     failed = [r for r in results if not r["ok"]]
     emit({"phase": "kernels_summary", "checks": len(results), "failed": len(failed),
@@ -656,12 +927,24 @@ def phase_model() -> dict:
           "depth": cfg32.depth, "width": cfg32.embed_dim, **r})
     if not r["ok"]:
         raise RuntimeError("fp32 model through the direct dual forward disagrees with the CPU")
+    # The same weights and input through the fuse_dt form (dt formed in the
+    # kernel). In fp32 it computes the default path's function (dt is never
+    # rounded in either), so the CPU's default logits stay the reference.
+    with scan_switches(AUM_SCAN_FUSE_DT=True), torch.inference_mode():
+        gpu = AudioMamba(cfg32, device="cuda", seed=0)
+        got = gpu(x.cuda()).cpu()
+        del gpu
+    r = compare(got, want, atol, rtol)
+    emit({"phase": "model_fp32_vs_cpu", "switches": {"AUM_SCAN_FUSE_DT": 1}, "batch": 2,
+          "depth": cfg32.depth, "width": cfg32.embed_dim, **r})
+    if not r["ok"]:
+        raise RuntimeError("fp32 model through the fuse_dt dual forward disagrees with the CPU")
 
     depth = flagship_config().depth
     fn, args = entry()
     out = {}
-    for direct in (False, True):
-        with scan_switches(AUM_SCAN_DIRECT=direct):
+    for name, (switches, scan) in EVAL_SWITCHES.items():
+        with scan_switches(**switches):
             torch.cuda.synchronize()
             _reset_counters()
             logits = fn(*args)
@@ -670,18 +953,31 @@ def phase_model() -> dict:
             finite = bool(torch.isfinite(logits.float()).all())
             latency_ms = cuda_ms(lambda: fn(*args), iters=10)
         emit({"phase": "main_path", "entry": "aum_tpu_torch.entry.entry", "batch": 8,
-              "switches": {"AUM_SCAN_DIRECT": int(direct)},
+              "switches": {k: int(bool(v)) for k, v in switches.items()},
               "logits_shape": list(logits.shape), "dtype": str(logits.dtype),
               "finite": finite, "launches": launches, "graph_built": logits.requires_grad,
               "ms_per_forward": latency_ms})
         if tuple(logits.shape) != (8, 527) or not finite:
             raise RuntimeError("main path logits are not (8, 527) finite values")
-        scan = "selective_scan_dual_direct_fwd" if direct else "selective_scan_dual_fwd"
         expected = _launches(**{scan: depth}, causal_conv1d_fwd=depth)
         if launches != expected or logits.requires_grad:
-            raise RuntimeError(f"expected {expected} launches and no graph, got {launches}")
-        out["direct" if direct else "default"] = launches
+            raise RuntimeError(f"expected {expected} launches and no graph ({name}), "
+                               f"got {launches}")
+        out[name] = launches
     return out
+
+
+# entry() under each switch set: the switches, and the one dual forward
+# kernel the eval path must launch (the fuse_dt form ignores AUM_SCAN_DIRECT,
+# as JAX's fuse_dt op never takes the direct kernel).
+EVAL_SWITCHES = {
+    "default": ({}, "selective_scan_dual_fwd"),
+    "direct": ({"AUM_SCAN_DIRECT": True}, "selective_scan_dual_direct_fwd"),
+    "fuse_dt": ({"AUM_SCAN_FUSE_DT": True}, "selective_scan_dual_fdt_fwd"),
+    "fuse_dt_direct": ({"AUM_SCAN_FUSE_DT": True, "AUM_SCAN_DIRECT": True},
+                       "selective_scan_dual_fdt_fwd"),
+    "bf16_stage": ({"AUM_SCAN_BF16_STAGE": True}, "selective_scan_dual_stage_fwd"),
+}
 
 
 def phase_wav() -> dict:
@@ -755,12 +1051,18 @@ def _counters() -> dict:
             "selective_scan_dual_direct_fwd": (selective_scan_dual, "direct_launches"),
             "selective_scan_dual_direct_fwd_save_states": (selective_scan_dual,
                                                            "direct_save_states_launches"),
+            "selective_scan_dual_fdt_fwd": (selective_scan_dual, "fdt_launches"),
+            "selective_scan_dual_stage_fwd": (selective_scan_dual, "stage_launches"),
+            "selective_scan_dual_stage_fwd_save_states": (selective_scan_dual,
+                                                          "stage_save_states_launches"),
             "selective_scan_fwd": (selective_scan, "launches"),
             "selective_scan_fwd_save_states": (selective_scan, "save_states_launches"),
             "selective_scan_fwd_with_state": (selective_scan, "with_state_launches"),
             "selective_scan_bwd": (selective_scan_bwd, "launches"),
             "selective_scan_bwd_with_state": (selective_scan_bwd, "with_state_launches"),
             "selective_scan_bwd_fused": (selective_scan_bwd, "fused_launches"),
+            "selective_scan_bwd_xminus": (selective_scan_bwd, "xminus_launches"),
+            "selective_scan_bwd_bf16_partials": (selective_scan_bwd, "bf16_partials_launches"),
             "causal_conv1d_fwd": (causal_conv1d, "launches")}
 
 
@@ -778,20 +1080,31 @@ def _launches(**counts) -> dict:
     return {**dict.fromkeys(_counters(), 0), **counts}
 
 
-def _expected_train_launches(aum_type: str, depth: int, switches: dict) -> dict:
+def _expected_train_launches(aum_type: str, depth: int, switches: dict, bf16: bool) -> dict:
     """What one forward and backward launches per layer: the scan's saving
-    forward and its backward (the kernels the switches choose) and the conv
-    four times (split remat: forward, recompute, the backward's
-    pre-activation and dx)."""
+    forward and its backward (the kernels the switches choose: the fuse_dt
+    rule's saving forward is the staged kernel whatever AUM_SCAN_DIRECT says;
+    the stage form takes bf16 streams only) and the conv four times (split
+    remat: forward, recompute, the backward's pre-activation and dx)."""
+    on = {k for k, v in switches.items() if v}
+    direct = "AUM_SCAN_DIRECT" in on and "AUM_SCAN_FUSE_DT" not in on
     if aum_type == "Fo-Fo":
         scans = {"selective_scan_fwd": depth, "selective_scan_fwd_save_states": depth}
-    elif switches.get("AUM_SCAN_DIRECT"):
+    elif direct:
         scans = {"selective_scan_dual_direct_fwd": depth,
                  "selective_scan_dual_direct_fwd_save_states": depth}
+    elif "AUM_SCAN_BF16_STAGE" in on and bf16:
+        scans = {"selective_scan_dual_stage_fwd": depth,
+                 "selective_scan_dual_stage_fwd_save_states": depth}
     else:
         scans = {"selective_scan_dual_fwd": depth, "selective_scan_dual_fwd_save_states": depth}
-    bwd = "selective_scan_bwd_fused" if switches.get("AUM_SCAN_BWD_FUSED") else "selective_scan_bwd"
-    return _launches(**scans, **{bwd: depth}, causal_conv1d_fwd=4 * depth)
+    fused = "AUM_SCAN_BWD_FUSED" in on
+    bwd = {"selective_scan_bwd_fused" if fused else "selective_scan_bwd": depth}
+    if not fused and on & {"AUM_SCAN_BWD_XMINUS", "AUM_SCAN_BWD_DBU"}:
+        bwd["selective_scan_bwd_xminus"] = depth
+    if "AUM_SCAN_BWD_BF16_PARTIALS" in on:
+        bwd["selective_scan_bwd_bf16_partials"] = depth
+    return _launches(**scans, **bwd, causal_conv1d_fwd=4 * depth)
 
 
 def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
@@ -811,7 +1124,8 @@ def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
     g = torch.Generator().manual_seed(8)
     x = torch.randn((2, 1024, 128), generator=g)
     y = torch.nn.functional.one_hot(torch.arange(2) % 527, 527).float()
-    keys = ("in_proj.weight", "A_log", "A_b_log", "dt_proj.bias", "conv1d.weight")
+    keys = ("in_proj.weight", "A_log", "A_b_log", "dt_proj.bias", "conv1d.weight",
+            "x_proj.weight", "dt_proj.weight")
     if cfg.bimamba_type == "none":  # Fo-Fo has no A_b_log
         keys = tuple(k for k in keys if k != "A_b_log")
     names = [f"layers.{i}.mixer.{k}" for i in range(cfg.depth) for k in keys]
@@ -850,7 +1164,7 @@ def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
             moved = (after_c[k] - before_c[k]).norm().item()
             updates[k] = {"err_norm": err, "update_norm": moved,
                           "ok": moved > 0 and err <= TRAIN_FP32_TOL["update"] * moved}
-        expected = _expected_train_launches(aum_type, cfg.depth, switches)
+        expected = _expected_train_launches(aum_type, cfg.depth, switches, bf16=False)
         loss_ok = abs(loss_g - loss_c) <= TRAIN_FP32_TOL["loss_rtol"] * abs(loss_c)
         ok = (loss_ok and all(c["ok"] for c in checks.values())
               and all(u["ok"] for u in updates.values()) and launches == expected)
@@ -869,9 +1183,22 @@ def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
 
 
 # The train path's switch sets: the default kernels, and the direct forward
-# with the fused backward (Fo-Fo has no dual forward: the fused backward alone).
+# with the fused backward (Fo-Fo has no dual forward: the fused backward
+# alone), timed in turns; then sets whose launches alone are checked: the
+# fuse_dt rule (with AUM_SCAN_DIRECT=1 also, which it ignores), and every
+# opt-in form of the forward and the backward at once (K2 in its x-minus
+# form, or the fused kernel, with bf16 partials).
 TRAIN_SWITCHES = {"default": {}, "direct_fused": {"AUM_SCAN_DIRECT": True,
                                                   "AUM_SCAN_BWD_FUSED": True}}
+FUSE_DT = {"AUM_SCAN_FUSE_DT": True}
+TRAIN_CHECK_SWITCHES = {
+    "fuse_dt": FUSE_DT,
+    "fuse_dt_direct": {**FUSE_DT, "AUM_SCAN_DIRECT": True},
+    "opt_in_k2": {**FUSE_DT, "AUM_SCAN_BF16_STAGE": True, "AUM_SCAN_BWD_BF16_PARTIALS": True,
+                  "AUM_SCAN_BWD_XMINUS": True},
+    "opt_in_fused": {**FUSE_DT, "AUM_SCAN_BF16_STAGE": True, "AUM_SCAN_BWD_BF16_PARTIALS": True,
+                     "AUM_SCAN_BWD_FUSED": True},
+}
 
 
 def phase_train() -> dict:
@@ -884,14 +1211,14 @@ def phase_train() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     fofo_launches = _train_fp32_check("Fo-Fo", {"default": {},
                                                 "fused": {"AUM_SCAN_BWD_FUSED": True}})
-    _train_fp32_check("Fo-Bi", TRAIN_SWITCHES)
+    _train_fp32_check("Fo-Bi", {**TRAIN_SWITCHES, "fuse_dt": FUSE_DT})
 
     step, state, batch = train_entry()
     depth = state.model.config.depth
     out = {"phase": "train_path", "entry": "aum_tpu_torch.entry.train_entry",
            "batch": TRAIN_BATCH, "depth": depth, "dtype": "bfloat16", "remat_mode": "split",
            "fofo_check_launches": fofo_launches}
-    for set_name, switches in TRAIN_SWITCHES.items():
+    for set_name, switches in {**TRAIN_SWITCHES, **TRAIN_CHECK_SWITCHES}.items():
         losses = []
         with scan_switches(**switches):
             for i in range(3):
@@ -907,7 +1234,7 @@ def phase_train() -> dict:
             step(state, batch)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
-        expected = _expected_train_launches("Fo-Bi", depth, switches)
+        expected = _expected_train_launches("Fo-Bi", depth, switches, bf16=True)
         finite = all(math.isfinite(v) for v in losses)
         out[set_name] = {"switches": {k: int(bool(v)) for k, v in switches.items()},
                          "losses": losses, "finite": finite, "launches_per_step": launches,
@@ -937,6 +1264,8 @@ def phase_bench(device_info: dict) -> dict:
     from aum_tpu_torch.ops.selective_scan import (
         _prep_dt,
         selective_scan_dual_cuda,
+        selective_scan_dual_fdt_cuda,
+        selective_scan_dual_fdt_plain,
         selective_scan_dual_plain,
     )
 
@@ -951,12 +1280,12 @@ def phase_bench(device_info: dict) -> dict:
         with torch.inference_mode():
             return model(x)
 
-    # The default path, then the direct dual forward (AUM_SCAN_DIRECT=1), in
-    # turns: default, direct, direct, default.
-    runs = {"default": {"ms_per_forward": [], "card": []},
-            "direct": {"ms_per_forward": [], "card": []}}
-    for name in ("default", "direct", "direct", "default"):
-        with scan_switches(AUM_SCAN_DIRECT=name == "direct"):
+    # The default path, the direct dual forward (AUM_SCAN_DIRECT=1) and the
+    # fuse_dt form (AUM_SCAN_FUSE_DT=1), in turns: default, direct, fuse_dt,
+    # fuse_dt, direct, default.
+    runs = {name: {"ms_per_forward": [], "card": []} for name in ("default", "direct", "fuse_dt")}
+    for name in ("default", "direct", "fuse_dt", "fuse_dt", "direct", "default"):
+        with scan_switches(AUM_SCAN_DIRECT=name == "direct", AUM_SCAN_FUSE_DT=name == "fuse_dt"):
             torch.cuda.reset_peak_memory_stats()
             with sample_clocks({}) as card:
                 runs[name]["ms_per_forward"].append(cuda_ms(forward, iters=10, warmup=2))
@@ -981,8 +1310,12 @@ def phase_bench(device_info: dict) -> dict:
         scan_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=400)
     with scan_switches(AUM_SCAN_DIRECT=True), sample_clocks({}) as card_direct:
         direct_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=400)
+    with scan_switches(AUM_SCAN_BF16_STAGE=True), sample_clocks({}) as card_stage:
+        stage_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=400)
     scan_again_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=400)
     scan_plain_ms = cuda_ms(lambda: selective_scan_dual_plain(fwd, rev), iters=2, warmup=1)
+    stage_plain_ms = cuda_ms(lambda: selective_scan_dual_plain(fwd, rev, bf16_stage=True),
+                             iters=2, warmup=1)
     elems = 2 * bsz * seqlen * d * n  # (b, l, d, n) per direction
     scan_bytes = (3 * bsz * seqlen * d + 2 * bsz * seqlen * n) * es \
         + 2 * bsz * seqlen * d * es + 2 * d * n * 4 + d * 4
@@ -995,6 +1328,25 @@ def phase_bench(device_info: dict) -> dict:
     scan_other = {"sfu_only": elems / sfu_rate * 1e3,
                   "fp32_pipe_only": scan_fp32_ops / FP32_PIPE_OPS_PER_S * 1e3}
     del u, delta, dt, z, B, C, fwd, rev
+
+    # The fuse_dt form at the same shapes (v1: one dtr and W for both
+    # directions), the product formed in the kernel.
+    fold = fold_inputs(bsz, seqlen, d, n, dtype, seed=4)
+    fold_r = fold[:3] + (fold[3] * 0.5,) + fold[4:]
+    with sample_clocks({}) as card_fdt:
+        fdt_ms = cuda_ms(lambda: selective_scan_dual_fdt_cuda(fold, fold_r), iters=400)
+    fdt_plain_ms = cuda_ms(lambda: selective_scan_dual_fdt_plain(fold, fold_r), iters=2,
+                           warmup=1)
+    rank = fold[1].shape[-1]
+    # Its bound: the dual forward's exponentials and FP32 work, plus the
+    # (B*L, R) @ (R, D) product (once: v1 shares it) on the tensor cores,
+    # against bytes with dtr (B, L, R), W and the bias in dt's place.
+    fdt_bytes = scan_bytes - bsz * seqlen * d * es + bsz * seqlen * rank * es \
+        + rank * d * es + d * 4
+    product_s = 2 * bsz * seqlen * rank * d / BF16_TENSOR_FLOPS_PER_S
+    fdt_bounds = {"bytes": fdt_bytes / HBM_BYTES_PER_S * 1e3,
+                  "operations": (exp_floor_s(elems, scan_fp32_ops, sfu_rate) + product_s) * 1e3}
+    del fold, fold_r
 
     xc, w, b = conv_inputs(bsz, seqlen, d, k, dtype, seed=5)
     with sample_clocks({}) as card_conv:
@@ -1011,10 +1363,14 @@ def phase_bench(device_info: dict) -> dict:
     out = {"scan": {"ms": scan_ms, "plain_ms": scan_plain_ms, "bounds_ms": scan_bounds,
                     "other_floors_ms": scan_other, "ms_after_direct": scan_again_ms},
            "scan_direct": {"ms": direct_ms, "plain_ms": scan_plain_ms, "bounds_ms": scan_bounds},
+           "scan_stage": {"ms": stage_ms, "plain_ms": stage_plain_ms, "bounds_ms": scan_bounds},
+           "scan_fdt": {"ms": fdt_ms, "plain_ms": fdt_plain_ms, "bounds_ms": fdt_bounds,
+                        "rank": rank},
            "conv": {"ms": conv_ms, "plain_ms": conv_plain_ms, "library_ms": conv_lib_ms,
                     "bounds_ms": conv_bounds}}
     emit({"phase": "bench_kernels", "dims": [bsz, seqlen, d, n], "dtype": "bfloat16", **out,
-          "card": {"scan": card, "scan_direct": card_direct, "conv": card_conv}})
+          "card": {"scan": card, "scan_direct": card_direct, "scan_stage": card_stage,
+                   "scan_fdt": card_fdt, "conv": card_conv}})
     del xc, w, b
     single = bench_single_kernels(sfu_rate)
     train = bench_train_kernels(sfu_rate)
@@ -1131,8 +1487,13 @@ def bench_train_kernels(sfu_rate: float) -> dict:
     with scan_switches(AUM_SCAN_DIRECT=True), sample_clocks({}) as card_save_direct:
         save_direct_ms = cuda_ms(
             lambda: selective_scan_dual_cuda(dir_f, dir_r, save_states=True), iters=400)
+    with scan_switches(AUM_SCAN_BF16_STAGE=True), sample_clocks({}) as card_save_stage:
+        save_stage_ms = cuda_ms(
+            lambda: selective_scan_dual_cuda(dir_f, dir_r, save_states=True), iters=400)
     save_plain_ms = cuda_ms(lambda: selective_scan_dual_plain(dir_f, dir_r, save_states=True),
                             iters=1, warmup=1)
+    save_stage_plain_ms = cuda_ms(lambda: selective_scan_dual_plain(
+        dir_f, dir_r, save_states=True, bf16_stage=True), iters=1, warmup=1)
     _, _, xb_f, xb_r = selective_scan_dual_cuda(dir_f, dir_r, save_states=True)
     g = torch.Generator().manual_seed(9)
     gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
@@ -1149,7 +1510,20 @@ def bench_train_kernels(sfu_rate: float) -> dict:
                                iters=100)
         fused1_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_f]),
                             iters=100)
-    bwd_again_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]), iters=100)
+        with scan_switches(AUM_SCAN_BWD_BF16_PARTIALS=True):
+            fused_part_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
+                                    iters=100)
+    # K2's opt-in forms in turns with the default: default, bf16 partials,
+    # x-minus, x-minus, bf16 partials, default (the default's first turn is
+    # bwd_ms above).
+    forms = {"bf16_partials": {"AUM_SCAN_BWD_BF16_PARTIALS": True},
+             "xminus": {"AUM_SCAN_BWD_XMINUS": True}, "default": {}}
+    form_ms = {name: [] for name in forms}
+    for name in ("bf16_partials", "xminus", "xminus", "bf16_partials", "default"):
+        with scan_switches(**forms[name]):
+            form_ms[name].append(cuda_ms(
+                lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]), iters=100))
+    bwd_again_ms = form_ms["default"][0]
     # K2's with_state form: the saving forward from a random x0, then the
     # backward with a random cotangent of the final state.
     x0, gfin = (torch.randn((bsz, d, n), generator=g).cuda() for _ in range(2))
@@ -1191,6 +1565,8 @@ def bench_train_kernels(sfu_rate: float) -> dict:
     out = {"scan_save": {"ms": save_ms, "plain_ms": save_plain_ms, "bounds_ms": save_bounds},
            "scan_save_direct": {"ms": save_direct_ms, "plain_ms": save_plain_ms,
                                 "bounds_ms": save_bounds},
+           "scan_save_stage": {"ms": save_stage_ms, "plain_ms": save_stage_plain_ms,
+                               "bounds_ms": save_bounds},
            "scan_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2),
                         "other_floors_ms": {"sfu_only": 2 * elems / sfu_rate * 1e3,
                                             "fp32_pipe_only": SCAN_BWD_FP32_OPS_PER_ELEMENT
@@ -1200,6 +1576,13 @@ def bench_train_kernels(sfu_rate: float) -> dict:
                                       "bounds_ms": bwd_bounds(1)},
            "scan_bwd_fused": {"ms": fused_ms, "plain_ms": bwd_plain_ms,
                               "bounds_ms": bwd_bounds(2)},
+           "scan_bwd_fused_bf16_partials": {"ms": fused_part_ms, "plain_ms": bwd_plain_ms,
+                                            "bounds_ms": bwd_bounds(2)},
+           "scan_bwd_bf16_partials": {"ms": form_ms["bf16_partials"][0],
+                                      "ms_turns": form_ms["bf16_partials"],
+                                      "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2)},
+           "scan_bwd_xminus": {"ms": form_ms["xminus"][0], "ms_turns": form_ms["xminus"],
+                               "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2)},
            "scan_bwd_fused_one_direction": {"ms": fused1_ms, "plain_ms": bwd1_plain_ms,
                                             "bounds_ms": bwd_bounds(1)},
            "scan_bwd_with_state": {"ms": state_ms, "plain_ms": state_plain_ms,
@@ -1207,6 +1590,7 @@ def bench_train_kernels(sfu_rate: float) -> dict:
     emit({"phase": "bench_train_kernels", "dims": [bsz, seqlen, d, n], "dtype": "bfloat16",
           "bimamba": "v1", **out, "card": {"scan_save": card_save,
                                            "scan_save_direct": card_save_direct,
+                                           "scan_save_stage": card_save_stage,
                                            "scan_bwd": card_bwd, "scan_bwd_fused": card_fused,
                                            "scan_bwd_with_state": card_state}})
     return out
@@ -1222,6 +1606,10 @@ def _kernel_category(name: str) -> str:
         return "scan_fwd_kernel"
     if "scan_dual_direct_fwd_kernel" in low:
         return "scan_direct_fwd_kernel"
+    if "scan_dual_fdt_fwd_kernel" in low:
+        return "scan_fdt_fwd_kernel"
+    if "scan_dual_stage_fwd_kernel" in low:
+        return "scan_stage_fwd_kernel"
     if "scan_single_fwd_kernel" in low:
         return "scan_single_fwd_kernel"
     if "conv1d_fwd_kernel" in low:
@@ -1294,6 +1682,10 @@ def phase_profile() -> dict:
 
     forward()
     out = {"eval": _profile("profile", forward, batch=BENCH_BATCH, dtype="bfloat16")}
+    with scan_switches(AUM_SCAN_FUSE_DT=True):
+        forward()
+        out["eval_fuse_dt"] = _profile("profile_fuse_dt", forward, batch=BENCH_BATCH,
+                                       dtype="bfloat16", switches={"AUM_SCAN_FUSE_DT": 1})
     del model, x
     fn = wav_forward_fn(AudioMamba(flagship_config("Fo-Fo"), device="cuda", seed=0))
     wav = (0.1 * torch.randn((BENCH_BATCH, CLIP_SAMPLES),
@@ -1358,6 +1750,9 @@ def main() -> int:
     eval_launches, eval_direct = eval_runs["default"], eval_runs["direct"]
     train_launches = train["default"]["launches_per_step"]
     train_switched = train["direct_fused"]["launches_per_step"]
+    train_fdt = train["fuse_dt"]["launches_per_step"]
+    train_opt_k2 = train["opt_in_k2"]["launches_per_step"]
+    train_opt_fused = train["opt_in_fused"]["launches_per_step"]
     fofo_launches = train["fofo_check_launches"]["default"]
     fofo_fused = train["fofo_check_launches"]["fused"]
     scan = _kernel_entry(
@@ -1371,7 +1766,36 @@ def main() -> int:
         worst["selective_scan_dual_fwd_save_states"], bench["scan_save"])
     scan["launches_by_path"] = {"eval": eval_launches["selective_scan_dual_fwd"],
                                 "wav": wav_launches["selective_scan_dual_fwd"],
-                                "train": train_launches["selective_scan_dual_fwd"]}
+                                "train": train_launches["selective_scan_dual_fwd"],
+                                "eval_fuse_dt": eval_runs["fuse_dt"]["selective_scan_dual_fwd"],
+                                "train_fuse_dt": train_fdt["selective_scan_dual_fwd"]}
+    # AUM_SCAN_FUSE_DT=1: entry() runs the fuse_dt form (train_entry() the
+    # staged saving forward above, with delta formed outside the kernel).
+    fdt = _kernel_entry(
+        "selective_scan_dual_fdt_fwd", scan["source"],
+        "aum_tpu/ops/selective_scan.py:1648 (fuse_dt, :1705-1731)",
+        eval_runs["fuse_dt"]["selective_scan_dual_fdt_fwd"], worst["selective_scan_dual_fdt_fwd"],
+        bench["scan_fdt"])
+    fdt["launches_by_path"] = {
+        "eval_fuse_dt": eval_runs["fuse_dt"]["selective_scan_dual_fdt_fwd"],
+        "eval_fuse_dt_direct": eval_runs["fuse_dt_direct"]["selective_scan_dual_fdt_fwd"],
+        "eval": eval_launches["selective_scan_dual_fdt_fwd"],
+        "train_fuse_dt": train_fdt["selective_scan_dual_fdt_fwd"]}
+    # AUM_SCAN_BF16_STAGE=1: entry() and the train path's saving forward.
+    stage = _kernel_entry(
+        "selective_scan_dual_stage_fwd", scan["source"],
+        "aum_tpu/ops/selective_scan.py:1648 (bf16_stage, :1689-1702, :1751-1752, :1767-1770)",
+        eval_runs["bf16_stage"]["selective_scan_dual_stage_fwd"],
+        worst["selective_scan_dual_stage_fwd"], bench["scan_stage"])
+    stage["save_states"] = _kernel_entry(
+        "selective_scan_dual_stage_fwd", scan["source"], stage["replaces"],
+        train_opt_k2["selective_scan_dual_stage_fwd_save_states"],
+        worst["selective_scan_dual_stage_fwd_save_states"], bench["scan_save_stage"])
+    stage["launches_by_path"] = {
+        "eval_bf16_stage": eval_runs["bf16_stage"]["selective_scan_dual_stage_fwd"],
+        "train_opt_in": train_opt_k2["selective_scan_dual_stage_fwd"],
+        "eval": eval_launches["selective_scan_dual_stage_fwd"],
+        "train": train_launches["selective_scan_dual_stage_fwd"]}
     # AUM_SCAN_DIRECT=1: entry() and train_entry() run the direct kernel.
     direct = _kernel_entry(
         "selective_scan_dual_direct_fwd", scan["source"], "aum_tpu/ops/selective_scan.py:1856",
@@ -1393,7 +1817,20 @@ def main() -> int:
     bwd["also_replaces"] = "aum_tpu/ops/selective_scan.py:822 (both directions in one launch)"
     bwd["launches_by_path"] = {"eval": 0, "wav": 0, "train": train_launches["selective_scan_bwd"],
                                "fofo_train_check": fofo_launches["selective_scan_bwd"],
-                               "train_direct_fused": train_switched["selective_scan_bwd"]}
+                               "train_direct_fused": train_switched["selective_scan_bwd"],
+                               "train_fuse_dt": train_fdt["selective_scan_bwd"]}
+    # Its opt-in forms on the train path with every opt-in switch on
+    # (AUM_SCAN_BWD_XMINUS=1, AUM_SCAN_BWD_BF16_PARTIALS=1).
+    bwd["xminus"] = _kernel_entry(
+        "selective_scan_bwd", bwd["source"],
+        "aum_tpu/ops/selective_scan.py:392 (dla_mode xminus/dbu, :497-537)",
+        train_opt_k2["selective_scan_bwd_xminus"], worst["selective_scan_bwd_xminus"],
+        bench["scan_bwd_xminus"])
+    bwd["bf16_partials"] = _kernel_entry(
+        "selective_scan_bwd", bwd["source"],
+        "aum_tpu/ops/selective_scan.py:392 (bf16 dB/dC partials, :741-757)",
+        train_opt_k2["selective_scan_bwd_bf16_partials"],
+        worst["selective_scan_bwd_bf16_partials"], bench["scan_bwd_bf16_partials"])
     # The same kernel on one direction, the form of _bwd_kernel: the Fo-Fo
     # train check launches it (the train path takes both directions at once).
     bwd["one_direction"] = _kernel_entry(
@@ -1420,6 +1857,11 @@ def main() -> int:
     fused["launches_by_path"] = {"train_direct_fused": train_switched["selective_scan_bwd_fused"],
                                  "fofo_train_check_fused": fofo_fused["selective_scan_bwd_fused"],
                                  "train": train_launches["selective_scan_bwd_fused"]}
+    fused["bf16_partials"] = _kernel_entry(
+        "selective_scan_bwd_fused", fused["source"],
+        "aum_tpu/ops/selective_scan.py:553 (bf16 dB/dC partials, :741-757)",
+        train_opt_fused["selective_scan_bwd_bf16_partials"],
+        worst["selective_scan_bwd_fused_bf16_partials"], bench["scan_bwd_fused_bf16_partials"])
     single = _kernel_entry(
         "selective_scan_fwd", "aum_tpu_torch/csrc/selective_scan.cu",
         "aum_tpu/ops/selective_scan.py:111", wav_launches["selective_scan_fwd"],
@@ -1445,7 +1887,7 @@ def main() -> int:
     conv["launches_by_path"] = {"eval": eval_launches["causal_conv1d_fwd"],
                                 "wav": wav_launches["causal_conv1d_fwd"],
                                 "train": train_launches["causal_conv1d_fwd"]}
-    emit({"kernels": [scan, direct, single, bwd, fused, conv]})
+    emit({"kernels": [scan, direct, fdt, stage, single, bwd, fused, conv]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
