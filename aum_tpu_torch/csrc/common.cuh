@@ -28,8 +28,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as a bf16 cast does
 }
 
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
 // 2^v on the special-function unit alone. exp2f without fast-math wraps the
 // same instruction in a range fix-up for results below 2^-126 (three more
 // instructions); the scans' decays flush those to zero instead, which
@@ -84,7 +82,7 @@ __device__ __forceinline__ void load_row16(const __nv_bfloat16* p, float (&out)[
   }
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
 }
 

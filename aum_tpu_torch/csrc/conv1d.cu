@@ -2,103 +2,267 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel aum_tpu/ops/conv1d.py:_conv_kernel. Weights are
-// (D, K), K = 4 (the mixer's width, the only one built), with tap k multiplying x[t - (K-1) + k] (causal); reverse = 1 is the
-// anti-causal form out[t] = sum_i x[t + i] * w[K-1-i], i.e. flip -> causal
-// conv -> flip. Out-of-range inputs are zeros (the halo). The taps are summed
-// in fp32 in the kernel's order (tap 0 first), then the bias is added and the
-// SiLU applied in fp32, and the result is cast once: the TPU kernel's
-// compute_f32 form.
-//
-// Design: a thread owns one channel over a tile of kTileL steps and slides a
-// K-value window of that channel through registers, so each input is read
-// from memory once per tile (plus the K-1 halo) with neighbouring threads on
-// neighbouring channels. Grid = (ceil(D / kThreads), ceil(L / kTileL), batch).
+// (D, K), K = 4 (the mixer's width, the only one built), with tap k
+// multiplying x[t - (K-1) + k] (causal); reverse = 1 is the anti-causal form
+// out[t] = sum_i x[t + i] * w[K-1-i], i.e. flip -> causal conv -> flip.
+// Out-of-range inputs are zeros (the halo). The taps and the bias are read
+// in their own dtype (fp32 or bf16, converted exactly), the taps summed in
+// fp32 in the plain version's order (causal: tap 0 first; anti-causal: tap
+// K-1 first), then the bias is added and the SiLU applied in fp32, and the
+// result is cast once: the TPU kernel's compute_f32 form. The SiLU is the
+// scan kernels' gate, v times the SFU's reciprocal of 1 + its exp2 (a few
+// ulp in fp32).
 //
 // What bounds it: bytes. Per element it does 2K + 4 fp32 operations and one
 // exponential against one read and one write, far below the card's ratio of
 // operations to bytes, so the floor is one read of x plus one write of out.
+// The instructions still count: an accurate SiLU (expf, and a division
+// whose rare-case branch the compiler cannot interleave) took about as long
+// as the rest of the kernel on an H100, which the SFU's two instructions
+// do not.
+//
+// Design: a thread owns kVec = 8 neighbouring channels over a tile of kTileL
+// steps (grid = (ceil(D / (8 kThreads)), ceil(L / kTileL), batch)). It
+// slides a K-row window of its 8 channels through registers (fp32), with the
+// 8 channels' taps and biases in registers too, so each input is read from
+// memory once per tile (plus the K-1 halo rows). A row of 8 channels is one
+// 16-byte access in bf16 (two in fp32), neighbouring threads on neighbouring
+// addresses, and the tile's rows are loaded in groups of kGroup<T> (128
+// bytes a thread) issued together before any of them is used, so each
+// thread keeps several loads in flight; 16 warps per SM (a 128-register
+// cap) cover the memory's latency without staging through shared memory.
+// Where x's base, its row or batch stride, or D (not a multiple of 8) breaks
+// 16-byte alignment, the same kernel, in its scalar form, reads and writes
+// the 8 channels value by value.
 
 #include <cstdint>
 
 #include "common.cuh"
 
 struct ConvArgs {
-  const void* x;        // (batch, L, D), channel stride 1
-  const float* weight;  // (D, K) fp32, contiguous
-  const float* bias;    // (D,) fp32 or null
-  void* out;            // (batch, L, D), contiguous, x's dtype
+  const void* x;       // (batch, L, D), channel stride 1
+  const void* weight;  // (D, K), contiguous, fp32 or bf16 (w_dtype)
+  const void* bias;    // (D,) fp32 or bf16 (b_dtype), or null
+  void* out;           // (batch, L, D), contiguous, x's dtype
   long long x_sb, x_sl;
+  int w_dtype, b_dtype;  // 0 = fp32, 1 = bf16
 };
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileL = 64;
-constexpr int K = 4;  // the model's conv width; the only one built
+constexpr int kThreads = 64;
+constexpr int kMinBlocks = 8;  // 16 warps per SM: at most 128 registers a thread
+constexpr int kVec = 8;        // channels per thread
+constexpr int kTileL = 32;     // steps per tile
+constexpr int K = 4;           // the model's conv width; the only one built
 
+// Rows loaded together: 128 bytes a thread.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv1d_fwd_kernel(const ConvArgs a, int seqlen, int dim, int reverse, int silu) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= dim) return;
+constexpr int kGroup = 128 / (kVec * static_cast<int>(sizeof(T)));
+
+// One row of a thread's 8 channels as loaded (raw bits; zeros past D).
+template <typename T>
+struct Row;
+template <>
+struct Row<__nv_bfloat16> {
+  uint4 v;
+};
+template <>
+struct Row<float> {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ Row<__nv_bfloat16> load_row(const __nv_bfloat16* p, int nc,
+                                                       bool vector) {
+  Row<__nv_bfloat16> r;
+  if (vector) {
+    r.v = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+    unsigned w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned lo = 2 * k < nc ? __ldg(s + 2 * k) : 0u;
+      const unsigned hi = 2 * k + 1 < nc ? __ldg(s + 2 * k + 1) : 0u;
+      w[k] = lo | (hi << 16);
+    }
+    r.v = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  return r;
+}
+
+__device__ __forceinline__ Row<float> load_row(const float* p, int nc, bool vector) {
+  Row<float> r;
+  if (vector) {
+    r.lo = __ldg(reinterpret_cast<const float4*>(p));
+    r.hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  } else {
+    float v[kVec];
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) v[c] = c < nc ? __ldg(p + c) : 0.0f;
+    r.lo = make_float4(v[0], v[1], v[2], v[3]);
+    r.hi = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void unpack(const Row<__nv_bfloat16>& r, float (&v)[kVec]) {
+  const unsigned w[4] = {r.v.x, r.v.y, r.v.z, r.v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // element 2k in the low half, as bf16 pairs lie
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack(const Row<float>& r, float (&v)[kVec]) {
+  v[0] = r.lo.x, v[1] = r.lo.y, v[2] = r.lo.z, v[3] = r.lo.w;
+  v[4] = r.hi.x, v[5] = r.hi.y, v[6] = r.hi.z, v[7] = r.hi.w;
+}
+
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, const float (&v)[kVec], int nc,
+                                          bool vector) {
+  if (vector) {
+    unsigned w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(v[2 * k]));
+      const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(v[2 * k + 1]));
+      w[k] = lo | (hi << 16);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      if (c < nc) p[c] = __float2bfloat16(v[c]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_row(float* p, const float (&v)[kVec], int nc,
+                                          bool vector) {
+  if (vector) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      if (c < nc) p[c] = v[c];
+    }
+  }
+}
+
+// Element i of a parameter in its own dtype, as fp32 (exact).
+__device__ __forceinline__ float param(const void* p, int dtype, long long i) {
+  return dtype == 1 ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(p) + i))
+                    : __ldg(static_cast<const float*>(p) + i);
+}
+
+// kVector: every row of x and out is read and written as 16-byte vectors
+// (the host checked the alignment); else value by value.
+template <typename T, bool kReverse, bool kVector>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+conv1d_fwd_kernel(const ConvArgs a, int seqlen, int dim, int silu) {
+  const int c0 = (blockIdx.x * kThreads + threadIdx.x) * kVec;
+  if (c0 >= dim) return;
+  const int nc = min(kVec, dim - c0);
   const int b = blockIdx.z;
   const int t0 = blockIdx.y * kTileL;
-  const int t1 = min(t0 + kTileL, seqlen);
+  const int n = min(kTileL, seqlen - t0);  // steps of this tile
 
-  const T* x = static_cast<const T*>(a.x) + b * a.x_sb + d;
-  T* out = static_cast<T*>(a.out) + static_cast<long long>(b) * seqlen * dim + d;
+  const T* x = static_cast<const T*>(a.x) + b * a.x_sb + c0;
+  T* out = static_cast<T*>(a.out) + static_cast<long long>(b) * seqlen * dim + c0;
 
-  float w[K];
+  float w[K][kVec], bias[kVec];
 #pragma unroll
-  for (int k = 0; k < K; ++k) w[k] = a.weight[static_cast<long long>(d) * K + k];
-  const float bias = a.bias != nullptr ? a.bias[d] : 0.0f;
-
-  float win[K];
-  if (!reverse) {
-    // Before step t: win[i] = x[t - K + i]; the step shifts left and appends x[t].
+  for (int c = 0; c < kVec; ++c) {
+    const bool in = c < nc;
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const int t = t0 - K + i;
-      win[i] = t >= 0 ? aum::to_float(x[t * a.x_sl]) : 0.0f;
+    for (int k = 0; k < K; ++k) {
+      w[k][c] = in ? param(a.weight, a.w_dtype, static_cast<long long>(c0 + c) * K + k) : 0.0f;
     }
-    for (int t = t0; t < t1; ++t) {
+    bias[c] = in && a.bias != nullptr ? param(a.bias, a.b_dtype, c0 + c) : 0.0f;
+  }
+
+  // Processed step p of the tile is step t0 + p (causal) or t0 + n - 1 - p
+  // (anti-causal: the tile walked backwards); win[i] holds processed step
+  // p - (K-1) + i before step p, zeros outside the sequence.
+  auto step_of = [&](int p) { return kReverse ? t0 + n - 1 - p : t0 + p; };
+  float win[K - 1][kVec];
 #pragma unroll
-      for (int i = 0; i + 1 < K; ++i) win[i] = win[i + 1];
-      win[K - 1] = aum::to_float(x[t * a.x_sl]);
-      float acc = win[0] * w[0];
+  for (int i = 0; i < K - 1; ++i) {
+    const int t = step_of(i - (K - 1));
+    Row<T> r = {};
+    if (t >= 0 && t < seqlen) r = load_row(x + t * a.x_sl, nc, kVector);
+    unpack(r, win[i]);
+  }
+
+  constexpr int G = kGroup<T>;
+  for (int g0 = 0; g0 < n; g0 += G) {
+    Row<T> rows[G];
 #pragma unroll
-      for (int i = 1; i < K; ++i) acc += win[i] * w[i];
-      acc += bias;
-      if (silu) acc = aum::silu(acc);
-      out[static_cast<long long>(t) * dim] = aum::from_float<T>(acc);
+    for (int j = 0; j < G; ++j) {  // every load of the group first
+      rows[j] = {};
+      if (g0 + j < n) rows[j] = load_row(x + step_of(g0 + j) * a.x_sl, nc, kVector);
     }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (g0 + j < n) {
+        float cur[kVec], y[kVec];
+        unpack(rows[j], cur);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+          // Tap k multiplies the window's row k (cur is row K-1).
+          float acc;
+          if (kReverse) {
+            acc = cur[c] * w[K - 1][c];
+#pragma unroll
+            for (int k = K - 2; k >= 0; --k) acc += win[k][c] * w[k][c];
+          } else {
+            acc = win[0][c] * w[0][c];
+#pragma unroll
+            for (int k = 1; k < K - 1; ++k) acc += win[k][c] * w[k][c];
+            acc += cur[c] * w[K - 1][c];
+          }
+          acc += bias[c];
+          y[c] = silu ? aum::silu_fast(acc) : acc;
+        }
+        store_row(out + static_cast<long long>(step_of(g0 + j)) * dim, y, nc, kVector);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+#pragma unroll
+          for (int i = 0; i + 1 < K - 1; ++i) win[i][c] = win[i + 1][c];
+          win[K - 2][c] = cur[c];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, bool kReverse>
+void launch_dir(const ConvArgs& a, bool vector, dim3 grid, int seqlen, int dim, int silu,
+                cudaStream_t s) {
+  if (vector) {
+    conv1d_fwd_kernel<T, kReverse, true><<<grid, kThreads, 0, s>>>(a, seqlen, dim, silu);
   } else {
-    // Walk the tile backwards. Before step t: win[i] = x[t + 1 + i]; the step
-    // shifts right and puts x[t] in front.
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const int t = t1 + i;
-      win[i] = t < seqlen ? aum::to_float(x[t * a.x_sl]) : 0.0f;
-    }
-    for (int t = t1 - 1; t >= t0; --t) {
-#pragma unroll
-      for (int i = K - 1; i > 0; --i) win[i] = win[i - 1];
-      win[0] = aum::to_float(x[t * a.x_sl]);
-      float acc = win[0] * w[K - 1];
-#pragma unroll
-      for (int i = 1; i < K; ++i) acc += win[i] * w[K - 1 - i];
-      acc += bias;
-      if (silu) acc = aum::silu(acc);
-      out[static_cast<long long>(t) * dim] = aum::from_float<T>(acc);
-    }
+    conv1d_fwd_kernel<T, kReverse, false><<<grid, kThreads, 0, s>>>(a, seqlen, dim, silu);
   }
 }
 
 template <typename T>
 int launch(const ConvArgs& a, int batch, int seqlen, int dim, int reverse, int silu,
            cudaStream_t s) {
-  const dim3 grid((dim + kThreads - 1) / kThreads, (seqlen + kTileL - 1) / kTileL, batch);
-  conv1d_fwd_kernel<T><<<grid, kThreads, 0, s>>>(a, seqlen, dim, reverse, silu);
+  const long long per16 = 16 / sizeof(T);  // elements per 16 bytes
+  const bool vector = dim % kVec == 0 && aum::aligned16(a.x) && aum::aligned16(a.out) &&
+                      a.x_sl % per16 == 0 && a.x_sb % per16 == 0;
+  const int threads_per_row = (dim + kVec - 1) / kVec;
+  const dim3 grid((threads_per_row + kThreads - 1) / kThreads, (seqlen + kTileL - 1) / kTileL,
+                  batch);
+  if (reverse) {
+    launch_dir<T, true>(a, vector, grid, seqlen, dim, silu, s);
+  } else {
+    launch_dir<T, false>(a, vector, grid, seqlen, dim, silu, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -106,12 +270,41 @@ int launch(const ConvArgs& a, int batch, int seqlen, int dim, int reverse, int s
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16 (x and out); width must be 4. Returns
-// cudaGetLastError() after the launch (0 on success).
+// The wrapper's constants, read back at load: channels per thread and steps
+// per tile (the edges the card checks are sized from).
+int aum_conv_channels_per_thread() { return kVec; }
+int aum_conv_tile_steps() { return kTileL; }
+
+// The resources of the i-th kernel instantiation (aum_kernel_resources in
+// common.cuh: info[0..5]) and its name; 0 on success, a CUDA error, or -1
+// past the last one.
+int aum_kernel_info(int i, int* info, const char** name) {
+  int n = 0;
+#define AUM_KERNEL(...)                                             \
+  if (i == n++) {                                                   \
+    *name = #__VA_ARGS__;                                           \
+    return aum_kernel_resources(__VA_ARGS__, kThreads, 0, info);    \
+  }
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, true>)
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, true, true>)
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, false>)
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, true, false>)
+  AUM_KERNEL(conv1d_fwd_kernel<float, false, true>)
+  AUM_KERNEL(conv1d_fwd_kernel<float, true, true>)
+  AUM_KERNEL(conv1d_fwd_kernel<float, false, false>)
+  AUM_KERNEL(conv1d_fwd_kernel<float, true, false>)
+#undef AUM_KERNEL
+  return -1;
+}
+
+// dtype: 0 = fp32, 1 = bf16 (x and out); width must be 4; the args' w_dtype
+// and b_dtype 0 or 1. Returns cudaGetLastError() after the launch (0 on
+// success); a refused launch never runs.
 int aum_causal_conv1d_fwd(const ConvArgs* args, int batch, int seqlen, int dim,
                           int width, int reverse, int silu, int dtype,
                           void* stream) {
-  if (batch < 1 || seqlen < 1 || dim < 1 || width != K) {
+  if (batch < 1 || seqlen < 1 || dim < 1 || width != K || args->w_dtype < 0 ||
+      args->w_dtype > 1 || args->b_dtype < 0 || args->b_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -23,15 +23,20 @@
 //   takes dtr, the (batch, L, R) dt-rank columns of x_proj's output, the
 //   dt_proj weight W (R, D) and the fp32 bias in dt's place, and forms
 //   dt = softplus(sum_r dtr[t, r] W[r, d] + bias[d]) itself, in fp32 (the
-//   products of the stream dtype's values, fp32 sums, max(v, 0) +
-//   log1p(exp(-|v|)) with the accurate expf/log1pf: once per element, not
-//   per state). dt is never rounded to the stream dtype, as in the TPU
-//   kernel: the one place where this form's outputs differ from the
-//   default's. Each warp forms the dt of its 32 channels for 16 steps at a
-//   time into a shared tile the walk reads: in bf16 with tensor-core
-//   products (mma.sync m16n8k16, fp32 sums; a product of two bf16 values is
-//   exact in fp32, as in the TPU kernel's fp32 dot), in fp32 with FMAs
-//   (no TF32). No (batch, L, D) dt tensor is read or exists.
+//   products of the stream dtype's values, fp32 sums, then max(v, 0) +
+//   log1p(exp(-|v|)) to a few ulp, once per element, not per state). dt is
+//   never rounded to the stream dtype, as in the TPU kernel: the one place
+//   where this form's outputs differ from the default's. Each warp forms the
+//   dt of its 32 channels for 16 steps at a time into a shared tile the walk
+//   reads, a sub-chunk before the walk first reads it: in bf16 with
+//   tensor-core products (mma.sync m16n8k16 on ldmatrix fragments, fp32
+//   sums; a product of two bf16 values is exact in fp32, as in the TPU
+//   kernel's fp32 dot), in fp32 with FMAs (no TF32). Its operands sit in
+//   shared memory, so forming a tile reads no global memory: the block's W
+//   slice (its channels x R) is copied once at the start, the dtr rows a
+//   window of 64 steps at a time, with cp.async one chunk ahead into a ring
+//   of two windows (scalar copies where the rows are not 16-byte aligned),
+//   and the bias once. No (batch, L, D) dt tensor is read or exists.
 // - scan_dual_stage_fwd_kernel (AUM_SCAN_BF16_STAGE=1, bf16 streams, eval
 //   and saving) rounds to bf16 where the TPU kernel stages in bf16: the
 //   decay is exp2(bf16(dt * bf16(log2 e)) * A) (a bf16 array times a Python
@@ -86,13 +91,14 @@
 // thread, 3 or 4 blocks of 4 warps per SM) trade warps in flight for loads
 // in flight. The fuse_dt form adds per element one product of rank terms
 // (on the tensor cores in bf16: negligible against the scan) and one
-// accurate softplus (tens of FP32-pipe instructions, once per element and
-// direction, not per state), and reads a (B, L, R) dtr in place of the
-// (B, L, D) dt; on an H100 it took 1.75x the default kernel's time at the
-// Fo-Bi bench shapes: the walk itself runs as fast as the default's, and
-// each tile's loads, products and softplus, formed by the warp between two
-// sub-chunks, come on top; the whole forward lost the (B, L, D) softplus
-// passes of the dt it no longer reads.
+// softplus (about fifteen FP32-pipe instructions and two SFU ones, once per
+// element and direction, not per state), and reads a (B, L, R) dtr in place
+// of the (B, L, D) dt. Its first design (mma fragments loaded from global
+// memory by each warp at every tile, an expf/log1pf softplus) took 1.73x
+// the default kernel's time on an H100 at the Fo-Bi bench shapes, the walk
+// itself as fast as the default's: each tile's loads, products and softplus
+// came on top. Hence the operands in shared memory, read as ldmatrix
+// fragments, and the SFU softplus.
 
 #include <cstdint>
 #include <type_traits>
@@ -149,91 +155,186 @@ constexpr int kWarpSize = 32;
 constexpr int kWarps = kThreads / kWarpSize;
 constexpr int kDtRows = 16;    // steps per dt tile of the fuse_dt form: one mma's rows
 constexpr int kMaxRank = 64;   // the fuse_dt form's largest dt rank
+// The fuse_dt form's ring of staged dtr rows: two windows of kChunk steps;
+// processed step i sits in slot (i - kDtrLead) mod kDtrSlots, so that the
+// window staged at the start of chunk c (steps c + kChunk + kDtrLead on)
+// holds every row the tiles formed during chunk c + kChunk read.
+constexpr int kDtrSlots = 2 * kChunk;
+constexpr int kDtrLead = kDtRows;
 static_assert(kChunk % kSub == 0, "chunks start on a sub-chunk");
 static_assert(kDtRows % kSub == 0, "dt tiles start on a sub-chunk");
+static_assert(kChunk % kDtRows == 0, "a tile's rows are consecutive slots of the ring");
 static_assert(kMaxN * kChunk % kThreads == 0, "the staging loop has no remainder");
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// The reference's softplus, accurate: the fuse_dt form runs it once per
-// (step, channel).
+// The reference's softplus, max(v, 0) + log1p(e) with e = exp(-|v|) in
+// (0, 1], to a few ulp: e from the SFU's exp2 with the rounding error of
+// |v| log2 e put back (a first-order term), and log1p(e) = 2 atanh(s), s =
+// e / (2 + e) in (0, 1/3], as s times a series in s^2 up to s^12 / 13 (the
+// first term left out is below 2^-26 of the sum). The fuse_dt form runs it
+// once per (step, channel).
 __device__ __forceinline__ float softplus(float v) {
-  return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
+  constexpr float kLog2eLo = 1.925963033500011e-08f;  // log2 e - kLog2e
+  constexpr float kLn2 = 0.6931471805599453f;
+  const float a = -fabsf(v);
+  const float hi = a * kLog2e;
+  const float lo = fmaf(a, kLog2e, -hi) + a * kLog2eLo;
+  float e = aum::exp2_sfu(hi);
+  e = fmaf(e, lo * kLn2, e);
+  const float s = e * aum::rcp_sfu(2.0f + e);
+  const float s2 = s * s;
+  float q = 1.0f / 13.0f;
+  q = fmaf(q, s2, 1.0f / 11.0f);
+  q = fmaf(q, s2, 1.0f / 9.0f);
+  q = fmaf(q, s2, 1.0f / 7.0f);
+  q = fmaf(q, s2, 1.0f / 5.0f);
+  q = fmaf(q, s2, 1.0f / 3.0f);
+  q = fmaf(q, s2, 1.0f);
+  return fmaf(2.0f * s, q, fmaxf(v, 0.0f));
 }
 
-// One dt tile of the fuse_dt form: dt of the warp's kWarpSize channels
-// (from channel dw0) at processed steps i0 .. i0 + kDtRows - 1 of chain row
-// b, into tile[row][channel]. Rows past the end and channels past the last
-// one read zeros (their dt is never used). Every lane of the warp calls it.
+// Row strides (elements) of the fuse_dt form's staged W and dtr rows. bf16:
+// the rank padded with zeros to whole mma k-steps of 16, plus 8 (16 bytes),
+// so rows are 16-byte aligned for ldmatrix and 8 consecutive rows fall on 8
+// distinct 16-byte bank groups. fp32: W rows an odd number of words apart
+// (a warp reads 32 channels' rows at one rank: 32 banks); dtr rows 16-byte
+// aligned (their reads are broadcasts).
 template <typename T>
-__device__ __forceinline__ void dt_tile(const ScanDir& p, bool reverse, int seqlen, int dim,
-                                        int b, int i0, int dw0,
+__host__ __device__ constexpr int fold_w_stride(int rank) {
+  return sizeof(T) == 2 ? (rank + 15) / 16 * 16 + 8 : rank | 1;
+}
+template <typename T>
+__host__ __device__ constexpr int fold_dtr_stride(int rank) {
+  return sizeof(T) == 2 ? (rank + 15) / 16 * 16 + 8 : (rank + 3) / 4 * 4;
+}
+// The fuse_dt kernel's dynamic shared memory (W slice and dtr ring) and its
+// static shared memory (s_B, s_C, the dt tiles, the biases), in bytes.
+template <typename T>
+constexpr int fold_dyn_smem(int rank) {
+  return (kThreads * fold_w_stride<T>(rank) + kDtrSlots * fold_dtr_stride<T>(rank)) *
+         static_cast<int>(sizeof(T));
+}
+constexpr int kFdtStaticSmem =
+    (2 * kChunk * kMaxN + kWarps * kDtRows * (kWarpSize + 1) + kThreads) * sizeof(float);
+// The most shared memory (static and dynamic) a block takes without opting in.
+constexpr int kDefaultSmem = 48 * 1024;
+
+// The fuse_dt form's shared operands: the block's W slice (kThreads channel
+// rows of rank values), the dtr ring, the block's biases and each warp's dt
+// tile (+1: fewer bank conflicts).
+template <typename T>
+struct Fold {
+  T* W;
+  T* dtr;
+  float* bias;
+  float (*dt)[kDtRows][kWarpSize + 1];
+  int w_stride, dtr_stride;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy `count` rows of `rank` elements, row r from src_row(r) to
+// dst_row(r), with every thread of the block: as 16-byte cp.async where
+// `vector` (every row's bytes and addresses 16-byte aligned; complete after
+// cp_async_wait_all), else value by value.
+template <typename T, typename Src, typename Dst>
+__device__ __forceinline__ void stage_rows(Src src_row, Dst dst_row, int count, int rank,
+                                           bool vector) {
+  if (vector) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int per_row = rank / kPer;
+    for (int idx = threadIdx.x; idx < count * per_row; idx += kThreads) {
+      const int r = idx / per_row, v = idx % per_row;
+      cp_async16(dst_row(r) + v * kPer, src_row(r) + v * kPer);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < count * rank; idx += kThreads) {
+      const int r = idx / rank, k = idx % rank;
+      dst_row(r)[k] = src_row(r)[k];
+    }
+  }
+}
+
+// Whether rows of `rank` elements at `base` with strides `s1`, `s2` (in
+// elements) are all whole 16-byte vectors.
+template <typename T>
+__device__ __forceinline__ bool whole_rows16(const void* base, int rank, long long s1,
+                                             long long s2) {
+  constexpr int kPer = 16 / sizeof(T);
+  return rank % kPer == 0 && aum::aligned16(base) && s1 % kPer == 0 && s2 % kPer == 0;
+}
+
+// One dt tile of the fuse_dt form: dt of the calling warp's kWarpSize
+// channels at processed steps i0 .. i0 + kDtRows - 1 (i0 a multiple of
+// kDtRows), from the staged W and dtr rows, into tile[row][channel]. Rows
+// past the end were staged from the last step and channels past the last
+// one from the last channel: their dt is never used. Every lane of the warp
+// calls it.
+template <typename T>
+__device__ __forceinline__ void dt_tile(const Fold<T>& f, int rank, int i0,
                                         float (*tile)[kWarpSize + 1]);
 
 // fp32: each lane forms its own channel's column with FMAs.
 template <>
-__device__ __forceinline__ void dt_tile<float>(const ScanDir& p, bool reverse, int seqlen,
-                                               int dim, int b, int i0, int dw0,
+__device__ __forceinline__ void dt_tile<float>(const Fold<float>& f, int rank, int i0,
                                                float (*tile)[kWarpSize + 1]) {
   const int lane = threadIdx.x % kWarpSize;
-  const int d = dw0 + lane;
-  const bool active = d < dim;
-  const float* dtr = static_cast<const float*>(p.dtr) + b * p.dtr_sb;
-  const float* w = static_cast<const float*>(p.Wt) + static_cast<long long>(active ? d : 0) * p.Wt_sd;
-  long long rows[kDtRows];
-#pragma unroll
-  for (int j = 0; j < kDtRows; ++j) {
-    const int i = min(i0 + j, seqlen - 1);  // past the end: a row in range, unused
-    rows[j] = static_cast<long long>(reverse ? seqlen - 1 - i : i) * p.dtr_sl;
-  }
+  const float* w = f.W + threadIdx.x * f.w_stride;
+  const float* rows = f.dtr + ((i0 - kDtrLead) & (kDtrSlots - 1)) * f.dtr_stride;
   float acc[kDtRows];
 #pragma unroll
   for (int j = 0; j < kDtRows; ++j) acc[j] = 0.0f;
-  for (int r = 0; r < p.rank; ++r) {
-    const float wr = active ? w[r] : 0.0f;
+  for (int r = 0; r < rank; ++r) {
+    const float wr = w[r];
 #pragma unroll
-    for (int j = 0; j < kDtRows; ++j) acc[j] = fmaf(__ldg(dtr + rows[j] + r), wr, acc[j]);
+    for (int j = 0; j < kDtRows; ++j) acc[j] = fmaf(rows[j * f.dtr_stride + r], wr, acc[j]);
   }
-  const float bias = active ? p.bias[d] : 0.0f;
+  const float bias = f.bias[threadIdx.x];
 #pragma unroll
   for (int j = 0; j < kDtRows; ++j) tile[j][lane] = softplus(acc[j] + bias);
 }
 
-// Two bf16 values as one 32-bit mma operand, the lower index in the low half.
-__device__ __forceinline__ unsigned pack_bf16(unsigned short lo, unsigned short hi) {
-  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+// Four 8x8 matrices of 16-bit values from shared memory: lanes 8m .. 8m+7
+// give the row addresses of matrix m; register m of lane l holds row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 of matrix m.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem)))
+               : "memory");
 }
 
 // bf16: the (16 steps x rank) @ (rank x 32 channels) product on the tensor
-// cores, mma.sync m16n8k16 (row-major A = dtr rows, column-major B = Wt
-// rows) over ceil(rank / 16) steps of 16 with zeros past the rank, four
-// 8-channel tiles; fp32 sums. Lane (g = lane / 4, q = lane % 4) holds A at
-// rows g, g + 8 and columns 2q, 2q + 1, 2q + 8, 2q + 9, B at columns 2q,
-// 2q + 1, 2q + 8, 2q + 9 of channel g, and the sums at rows g, g + 8 and
-// channels 2q, 2q + 1 of each tile.
+// cores, mma.sync m16n8k16 (row-major A = dtr rows, column-major B = W's
+// channel rows) over ceil(rank / 16) steps of 16 (the staged rows hold
+// zeros past the rank), four 8-channel tiles; fp32 sums. Per k-step one
+// ldmatrix.x4 gives A (rows 0-7 and 8-15, columns 0-7 and 8-15) and two
+// give B (two 8-channel tiles, columns 0-7 and 8-15 each). Lane (g = lane
+// / 4, q = lane % 4) holds the sums at rows g, g + 8 and channels 2q, 2q + 1
+// of each tile.
 template <>
-__device__ __forceinline__ void dt_tile<__nv_bfloat16>(const ScanDir& p, bool reverse,
-                                                       int seqlen, int dim, int b, int i0,
-                                                       int dw0,
-                                                       float (*tile)[kWarpSize + 1]) {
+__device__ __forceinline__ void dt_tile<__nv_bfloat16>(const Fold<__nv_bfloat16>& f, int rank,
+                                                       int i0, float (*tile)[kWarpSize + 1]) {
   const int lane = threadIdx.x % kWarpSize;
+  const int warp = threadIdx.x / kWarpSize;
   const int g = lane / 4, q = lane % 4;
-  const unsigned short* dtr =
-      reinterpret_cast<const unsigned short*>(p.dtr) + b * p.dtr_sb;
-  const unsigned short* wt = reinterpret_cast<const unsigned short*>(p.Wt);
-  const int rank = p.rank;
-  // The two A rows of this lane (zeros past the end) and the four B
-  // channels (zeros past the last one).
-  const bool in_lo = i0 + g < seqlen, in_hi = i0 + g + 8 < seqlen;
-  const unsigned short* row_lo =
-      dtr + static_cast<long long>(in_lo ? (reverse ? seqlen - 1 - (i0 + g) : i0 + g) : 0) * p.dtr_sl;
-  const unsigned short* row_hi =
-      dtr + static_cast<long long>(in_hi ? (reverse ? seqlen - 1 - (i0 + g + 8) : i0 + g + 8) : 0) * p.dtr_sl;
-  auto a_at = [&](const unsigned short* row, bool in, int k) -> unsigned short {
-    return in && k < rank ? __ldg(row + k) : static_cast<unsigned short>(0);
-  };
+  const int m = lane / 8, r8 = lane % 8;  // the matrix this lane addresses, and its row
+  const __nv_bfloat16* a_ptr = f.dtr +
+      (((i0 - kDtrLead) & (kDtrSlots - 1)) + r8 + (m & 1) * 8) * f.dtr_stride + (m >> 1) * 8;
+  const __nv_bfloat16* b_ptr =
+      f.W + (warp * kWarpSize + (m >> 1) * 8 + r8) * f.w_stride + (m & 1) * 8;
   float acc[4][4];
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
@@ -241,23 +342,21 @@ __device__ __forceinline__ void dt_tile<__nv_bfloat16>(const ScanDir& p, bool re
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
   }
   for (int k0 = 0; k0 < rank; k0 += 16) {
-    const int ka = k0 + 2 * q, kb = ka + 8;
-    const unsigned a0 = pack_bf16(a_at(row_lo, in_lo, ka), a_at(row_lo, in_lo, ka + 1));
-    const unsigned a1 = pack_bf16(a_at(row_hi, in_hi, ka), a_at(row_hi, in_hi, ka + 1));
-    const unsigned a2 = pack_bf16(a_at(row_lo, in_lo, kb), a_at(row_lo, in_lo, kb + 1));
-    const unsigned a3 = pack_bf16(a_at(row_hi, in_hi, kb), a_at(row_hi, in_hi, kb + 1));
+    unsigned a[4];
+    ldmatrix_x4(a, a_ptr + k0);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int d = dw0 + nt * 8 + g;
-      const bool dn = d < dim;
-      const unsigned short* wrow = wt + static_cast<long long>(dn ? d : 0) * p.Wt_sd;
-      const unsigned b0 = pack_bf16(a_at(wrow, dn, ka), a_at(wrow, dn, ka + 1));
-      const unsigned b1 = pack_bf16(a_at(wrow, dn, kb), a_at(wrow, dn, kb + 1));
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+f"(acc[nt][0]), "+f"(acc[nt][1]), "+f"(acc[nt][2]), "+f"(acc[nt][3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    for (int pair = 0; pair < 2; ++pair) {
+      unsigned bb[4];
+      ldmatrix_x4(bb, b_ptr + pair * 16 * f.w_stride + k0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* c = acc[2 * pair + h];
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(bb[2 * h]), "r"(bb[2 * h + 1]));
+      }
     }
   }
 #pragma unroll
@@ -265,7 +364,7 @@ __device__ __forceinline__ void dt_tile<__nv_bfloat16>(const ScanDir& p, bool re
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = nt * 8 + 2 * q + e;
-      const float bias = dw0 + c < dim ? p.bias[dw0 + c] : 0.0f;
+      const float bias = f.bias[warp * kWarpSize + c];
       tile[g][c] = softplus(acc[nt][e] + bias);
       tile[g + 8][c] = softplus(acc[nt][2 + e] + bias);
     }
@@ -284,14 +383,14 @@ struct SubStreams {
 // last channel stage and compute on channel 0 but write nothing. kDirect
 // reads B/C from global memory at every step instead (s_B and s_C unused,
 // no barriers). kFdt (the fuse_dt form) reads dt from the warp's tile
-// s_dt[warp], formed every kDtRows steps; kStage rounds to bf16 where the
-// stage form does.
+// fold->dt[warp], formed every kDtRows steps from fold's staged operands;
+// kStage rounds to bf16 where the stage form does.
 template <typename T, bool kSave, bool kState, bool kDirect, bool kFdt = false,
           bool kStage = false>
 __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int seqlen,
                                           int dim, int dstate, float (*s_B)[kMaxN],
                                           float (*s_C)[kMaxN],
-                                          float (*s_dt)[kDtRows][kWarpSize + 1] = nullptr) {
+                                          const Fold<T>* fold = nullptr) {
   static_assert(!kStage || !kFdt, "the stage form is off in the fuse_dt form");
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -331,11 +430,9 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
     if constexpr (kFdt) {
       // A new tile every kDtRows steps; the rows it replaces are in
       // registers already (this sub-chunk's cur was loaded from them).
-      const int warp = tid / kWarpSize;
       if (i0 % kDtRows == 0) {
         __syncwarp();
-        dt_tile<T>(p, reverse, seqlen, dim, b, i0, blockIdx.x * kThreads + warp * kWarpSize,
-                   s_dt[warp]);
+        dt_tile<T>(*fold, p.rank, i0, fold->dt[tid / kWarpSize]);
         __syncwarp();
       }
     }
@@ -343,7 +440,7 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
     for (int j = 0; j < kSub; ++j) {
       const bool in = i0 + j < seqlen;  // past the end: zeros, unused
       if constexpr (kFdt) {
-        s.dt[j] = in ? s_dt[tid / kWarpSize][i0 % kDtRows + j][tid % kWarpSize] : 0.0f;
+        s.dt[j] = in ? fold->dt[tid / kWarpSize][i0 % kDtRows + j][tid % kWarpSize] : 0.0f;
       } else {
         s.dt[j] = in ? aum::to_float(pd[j * dt_step]) : 0.0f;
       }
@@ -356,6 +453,43 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
   const bool rows16 = kDirect && dstate == kMaxN && aum::aligned16(Bm) &&
                       aum::aligned16(Cm) && p.B_sl * sizeof(T) % 16 == 0 &&
                       p.C_sl * sizeof(T) % 16 == 0;
+
+  // The fuse_dt form's dtr rows of processed steps [i_first, i_first +
+  // count) (past the end: the last step's) into their slots of the ring.
+  auto stage_dtr = [&](int i_first, int count) {
+    const T* dtr = static_cast<const T*>(p.dtr) + b * p.dtr_sb;
+    stage_rows<T>(
+        [&](int r) { return dtr + static_cast<long long>(step_of(min(i_first + r, seqlen - 1))) *
+                                      p.dtr_sl; },
+        [&](int r) { return fold->dtr + ((i_first + r - kDtrLead) & (kDtrSlots - 1)) *
+                                            fold->dtr_stride; },
+        count, p.rank, whole_rows16<T>(p.dtr, p.rank, p.dtr_sb, p.dtr_sl));
+  };
+  if constexpr (kFdt) {
+    // Once per block: W's rows of the block's channels (past the last
+    // channel: the last one's), the zeros past the rank (bf16), the biases,
+    // and the dtr rows of the first tile and of the first window.
+    const int rank = p.rank;
+    const T* wt = static_cast<const T*>(p.Wt);
+    const int d0 = blockIdx.x * kThreads;
+    stage_rows<T>(
+        [&](int r) { return wt + static_cast<long long>(min(d0 + r, dim - 1)) * p.Wt_sd; },
+        [&](int r) { return fold->W + r * fold->w_stride; }, kThreads, rank,
+        sizeof(T) == 2 && whole_rows16<T>(p.Wt, rank, p.Wt_sd, 0));
+    if constexpr (sizeof(T) == 2) {
+      const int pad = (rank + 15) / 16 * 16 - rank;
+      for (int idx = tid; idx < (kThreads + kDtrSlots) * pad; idx += kThreads) {
+        const int r = idx / pad, k = rank + idx % pad;
+        T* row = r < kThreads ? fold->W + r * fold->w_stride
+                              : fold->dtr + (r - kThreads) * fold->dtr_stride;
+        row[k] = aum::from_float<T>(0.0f);
+      }
+    }
+    fold->bias[tid] = p.bias[dc];
+    stage_dtr(0, kDtrLead + kChunk);
+    cp_async_wait_all();
+    __syncthreads();
+  }
 
   SubStreams cur, nxt;
   load_sub(cur, 0);
@@ -375,7 +509,13 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
           vb[r] = in ? aum::to_float(Bm[t * p.B_sl + n]) : 0.0f;
           vc[r] = in ? aum::to_float(Cm[t * p.C_sl + n]) : 0.0f;
         }
+        if constexpr (kFdt) cp_async_wait_all();  // this chunk's window, staged a chunk ago
         __syncthreads();  // the previous chunk's readers are done with s_B/s_C
+        if constexpr (kFdt) {
+          // The next window, into the half of the ring the previous one held.
+          const int first = i0 + kChunk + kDtrLead;
+          if (first < seqlen) stage_dtr(first, kChunk);
+        }
 #pragma unroll
         for (int r = 0; r < kPer; ++r) {
           const int idx = tid + r * kThreads;
@@ -456,17 +596,36 @@ scan_dual_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim, 
                                     s_C);
 }
 
-// The fuse_dt form (eval): dt formed from dtr, Wt and bias in the kernel.
+// The fuse_dt form (eval): dt formed from dtr, Wt and bias in the kernel;
+// fold_dyn_smem<T>(rank) bytes of dynamic shared memory (the larger of the
+// two directions' ranks).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocksWide)
 scan_dual_fdt_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim,
                          int dstate) {
   __shared__ __align__(16) float s_B[kChunk][kMaxN];
   __shared__ __align__(16) float s_C[kChunk][kMaxN];
-  __shared__ float s_dt[kWarps][kDtRows][kWarpSize + 1];  // +1: fewer bank conflicts
+  __shared__ float s_dt[kWarps][kDtRows][kWarpSize + 1];
+  __shared__ float s_bias[kThreads];
+  extern __shared__ __align__(16) unsigned char s_fold[];
   const bool reverse = blockIdx.z == 1;
-  scan_walk<T, false, false, false, true>(reverse ? rev : fwd, reverse, seqlen, dim, dstate,
-                                          s_B, s_C, s_dt);
+  const ScanDir& p = reverse ? rev : fwd;
+  T* w = reinterpret_cast<T*>(s_fold);
+  const Fold<T> fold = {w, w + kThreads * fold_w_stride<T>(p.rank), s_bias, s_dt,
+                        fold_w_stride<T>(p.rank), fold_dtr_stride<T>(p.rank)};
+  scan_walk<T, false, false, false, true>(p, reverse, seqlen, dim, dstate, s_B, s_C, &fold);
+}
+
+// The fuse_dt kernel's dynamic shared memory at `rank`, with the kernel
+// allowed to take it (above 48 KB in all it has to opt in).
+template <typename T>
+int fdt_smem(int rank) {
+  const int bytes = fold_dyn_smem<T>(rank);
+  if (kFdtStaticSmem + bytes > kDefaultSmem) {
+    cudaFuncSetAttribute(scan_dual_fdt_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+  }
+  return bytes;
 }
 
 // The stage form (bf16 streams only), eval and saving.
@@ -515,7 +674,8 @@ void launch_dual(const ScanDir& fwd, const ScanDir& rev, DualKind kind, int batc
   const bool save = fwd.xb != nullptr;
   const bool direct = kind == DualKind::kDirect;
   if (kind == DualKind::kFdt) {
-    scan_dual_fdt_fwd_kernel<T><<<grid, kThreads, 0, s>>>(fwd, rev, seqlen, dim, dstate);
+    const int smem = fdt_smem<T>(fwd.rank > rev.rank ? fwd.rank : rev.rank);
+    scan_dual_fdt_fwd_kernel<T><<<grid, kThreads, smem, s>>>(fwd, rev, seqlen, dim, dstate);
   } else if (kind == DualKind::kStage) {
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
       if (save) {
@@ -622,12 +782,31 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_KERNEL(scan_single_fwd_kernel<float, true, false>)
   AUM_KERNEL(scan_single_fwd_kernel<float, false, true>)
   AUM_KERNEL(scan_single_fwd_kernel<float, true, true>)
-  AUM_KERNEL(scan_dual_fdt_fwd_kernel<__nv_bfloat16>)
-  AUM_KERNEL(scan_dual_fdt_fwd_kernel<float>)
   AUM_KERNEL(scan_dual_stage_fwd_kernel<false>)
   AUM_KERNEL(scan_dual_stage_fwd_kernel<true>)
 #undef AUM_KERNEL
+  // The fuse_dt form at AuM-Base's dt rank and at the largest.
+#define AUM_FDT_KERNEL(T, rank)                                                      \
+  if (i == n++) {                                                                    \
+    *name = "scan_dual_fdt_fwd_kernel<" #T "> rank " #rank;                          \
+    return aum_kernel_resources(scan_dual_fdt_fwd_kernel<T>, kThreads, fdt_smem<T>(rank), \
+                                info);                                               \
+  }
+  AUM_FDT_KERNEL(__nv_bfloat16, 48)
+  AUM_FDT_KERNEL(__nv_bfloat16, 64)
+  AUM_FDT_KERNEL(float, 48)
+  AUM_FDT_KERNEL(float, 64)
+#undef AUM_FDT_KERNEL
   return -1;
+}
+
+// The fuse_dt form's largest dt rank, and its shared memory per block
+// (static and dynamic, bytes) at `rank` for dtype 0 (fp32) or 1 (bf16):
+// the wrapper checks both at load.
+int aum_scan_fdt_max_rank() { return kMaxRank; }
+int aum_scan_fdt_smem_bytes(int rank, int dtype) {
+  return kFdtStaticSmem +
+         (dtype == 1 ? fold_dyn_smem<__nv_bfloat16>(rank) : fold_dyn_smem<float>(rank));
 }
 
 // dtype: 0 = fp32 streams, 1 = bf16 streams. Both directions save states

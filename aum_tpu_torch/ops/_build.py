@@ -90,12 +90,9 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_all()[name]))
 
 
-SCAN_SOURCES = ("selective_scan", "selective_scan_bwd", "selective_scan_bwd_fused")
-
-
 def kernel_resources(name: str) -> list[dict]:
-    """Each kernel instantiation that library ``name`` (a scan source)
-    launches, from its C entry ``aum_kernel_info``: blocks per SM by the
+    """Each kernel instantiation that library ``name`` launches, from its C
+    entry ``aum_kernel_info``: blocks per SM by the
     occupancy calculator, resident warps per SM, registers, spill (local)
     bytes and shared memory per block."""
     lib = library(name)
@@ -126,3 +123,12 @@ def check_status(status: int, error_string, what: str) -> None:
         raise RuntimeError(
             f"{what} failed: CUDA error {status} "
             f"({error_string(status).decode()})")
+
+
+def check_constant(lib: ctypes.CDLL, fn_name: str, value: int) -> None:
+    """Raise unless the library's C entry ``fn_name()`` returns ``value``: a
+    constant of the kernel that its wrapper assumes."""
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    if fn() != value:
+        raise RuntimeError(f"{fn_name}() = {fn()} but the wrapper assumes {value}")

@@ -10,8 +10,10 @@ Semantics: weight (D, K), tap k multiplies ``x[t - (K-1) + k]``; zero halo;
 ``reverse=True`` is the anti-causal form with mirrored taps (flip -> causal
 conv -> flip); then bias and an optional SiLU. Both the kernel and the plain
 version sum the taps in fp32 and cast once, as ``_conv_kernel`` does with
-``compute_f32``. (The JAX package's default XLA form, ``causal_conv1d_xla``,
-sums in the input dtype, so in bf16 the two differ by bf16 rounding.)
+``compute_f32``; the kernel's SiLU comes from the card's special-function
+unit, a few ulp from the plain version's in fp32. (The JAX package's default
+XLA form, ``causal_conv1d_xla``, sums in the input dtype, so in bf16 the two
+differ by bf16 rounding.)
 
 The backward mirrors the JAX op's custom VJP (``aum_tpu/ops/conv1d.py``,
 ``_get_conv_op.bwd``), which is plain ops there too: the cotangent is
@@ -67,10 +69,16 @@ class _ConvArgs(ctypes.Structure):
 
     _fields_ = [("x", ctypes.c_void_p), ("weight", ctypes.c_void_p),
                 ("bias", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("x_sb", ctypes.c_longlong), ("x_sl", ctypes.c_longlong)]
+                ("x_sb", ctypes.c_longlong), ("x_sl", ctypes.c_longlong),
+                ("w_dtype", ctypes.c_int), ("b_dtype", ctypes.c_int)]
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's channels per thread and steps per tile (kVec, kTileL in
+# csrc/conv1d.cu), checked against the library at load: the card's edge
+# checks in chip_smoke.py are sized from them.
+CHANNELS_PER_THREAD = 8
+TILE_STEPS = 32
 
 
 @functools.cache
@@ -81,6 +89,9 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.aum_conv_error_string.argtypes = [ctypes.c_int]
     lib.aum_conv_error_string.restype = ctypes.c_char_p
+    for fn_name, value in (("aum_conv_channels_per_thread", CHANNELS_PER_THREAD),
+                           ("aum_conv_tile_steps", TILE_STEPS)):
+        _build.check_constant(lib, fn_name, value)
     return lib
 
 
@@ -99,12 +110,15 @@ def causal_conv1d_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"bias {tuple(bias.shape)} must be ({d},)")
     if x.stride(-1) != 1:
         x = x.contiguous()
-    # Taps and bias go in as fp32 (the values given, unrounded).
-    w = weight.to(device=x.device, dtype=torch.float32).contiguous()
-    b = None if bias is None else bias.to(device=x.device, dtype=torch.float32).contiguous()
+    # Taps and bias go in as given, fp32 or bf16 (the kernel converts them
+    # exactly); any other dtype as fp32. No launch for the model's own.
+    w, b = (None if t is None else
+            (t if t.dtype in _DTYPE_CODES else t.float()).to(x.device).contiguous()
+            for t in (weight, bias))
     out = torch.empty((bsz, seqlen, d), dtype=x.dtype, device=x.device)
     args = _ConvArgs(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-                     out.data_ptr(), x.stride(0), x.stride(1))
+                     out.data_ptr(), x.stride(0), x.stride(1), _DTYPE_CODES[w.dtype],
+                     _DTYPE_CODES[torch.float32 if b is None else b.dtype])
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

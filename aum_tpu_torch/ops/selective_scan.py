@@ -377,6 +377,10 @@ def _stream_strides(u, dt, z, B, C) -> list[int]:
 
 
 MAX_DT_RANK = 64  # kMaxRank of the fuse_dt kernel
+# The fuse_dt kernel's shared memory per block in bf16 at MAX_DT_RANK must
+# stay within this: 4 blocks per SM (the register cap of the eval forms is
+# set for 4) of the H100's 228 KB, each with its 1 KB reserved.
+FDT_SMEM_PER_BLOCK = 56 * 1024
 
 
 def _check_fold(u, dtr, W, bias):
@@ -629,13 +633,6 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
     return grads
 
 
-def _check_constant(lib: ctypes.CDLL, fn_name: str, value: int) -> None:
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    if fn() != value:
-        raise RuntimeError(f"{fn_name}() = {fn()} but the wrapper assumes {value}")
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("selective_scan")
@@ -650,7 +647,16 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.aum_scan_error_string.argtypes = [ctypes.c_int]
     lib.aum_scan_error_string.restype = ctypes.c_char_p
-    _check_constant(lib, "aum_scan_state_chunk", STATE_CHUNK)
+    _build.check_constant(lib, "aum_scan_state_chunk", STATE_CHUNK)
+    _build.check_constant(lib, "aum_scan_fdt_max_rank", MAX_DT_RANK)
+    fn = lib.aum_scan_fdt_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    smem = fn(MAX_DT_RANK, _DTYPE_CODES[torch.bfloat16])
+    if smem > FDT_SMEM_PER_BLOCK:
+        raise RuntimeError(f"the fuse_dt kernel takes {smem} bytes of shared memory per block "
+                           f"at rank {MAX_DT_RANK}, more than the {FDT_SMEM_PER_BLOCK} that "
+                           "keep 4 blocks per SM")
     return lib
 
 
@@ -662,21 +668,21 @@ def _load_bwd_lib(name: str, prefix: str) -> ctypes.CDLL:
     errors = getattr(lib, f"aum_{prefix}_error_string")
     errors.argtypes = [ctypes.c_int]
     errors.restype = ctypes.c_char_p
-    _check_constant(lib, f"aum_{prefix}_state_chunk", STATE_CHUNK)
+    _build.check_constant(lib, f"aum_{prefix}_state_chunk", STATE_CHUNK)
     return lib
 
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _load_bwd_lib("selective_scan_bwd", "scan_bwd")
-    _check_constant(lib, "aum_scan_bwd_block_channels", BWD_BLOCK_CHANNELS)
+    _build.check_constant(lib, "aum_scan_bwd_block_channels", BWD_BLOCK_CHANNELS)
     return lib
 
 
 @functools.cache
 def _bwd_fused_lib() -> ctypes.CDLL:
     lib = _load_bwd_lib("selective_scan_bwd_fused", "scan_bwd_fused")
-    _check_constant(lib, "aum_scan_bwd_fused_block_channels", BWD_FUSED_BLOCK_CHANNELS)
+    _build.check_constant(lib, "aum_scan_bwd_fused_block_channels", BWD_FUSED_BLOCK_CHANNELS)
     return lib
 
 

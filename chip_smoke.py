@@ -48,8 +48,12 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    bf16 partials against their fp32-partials launches (dB, dC at the bf16
    grad tolerance, the rest bit-equal), one and both directions; K2's
    x-minus form against the plain backward, one and both directions and
-   with_state; each also shows its form's launch count rose. Then the
-   small-dt probe: ddelta at dt in [1e-6, 1e-4] from K2 and the fused
+   with_state; each also shows its form's launch count rose. The
+   redesigned kernels at the edges of their designs (``_check_edges``): the
+   fuse_dt forward at dt ranks 1, 16, 17, 47 (unaligned dtr rows) and 64 and
+   at L = 1, 15, 16, 17, 65, 81 with D=136; the conv forward and backward at
+   D=36, on a slice at an odd channel offset, at L=1 and one past its tile.
+   Then the small-dt probe: ddelta at dt in [1e-6, 1e-4] from K2 and the fused
    kernel in fp32, and from the plain version, each against fp64; a kernel
    fails it if its relative error exceeds the plain version's by more than
    SMALL_DT_RATIO.
@@ -333,12 +337,14 @@ def fold_inputs(bsz, seqlen, d, n, dtype, seed, rank=48, device="cuda"):
             D, z, bias)
 
 
-def conv_inputs(bsz, seqlen, d, k, dtype, seed, device="cuda"):
+def conv_inputs(bsz, seqlen, d, k, dtype, seed, device="cuda", offset=0):
+    """x a column slice, from channel ``offset``, of an in_proj-shaped
+    output, as the mixer passes it (an odd offset breaks its alignment)."""
     g = torch.Generator().manual_seed(seed)
     xz = torch.randn((bsz, seqlen, 2 * d), generator=g).to(device=device, dtype=dtype)
     w = (torch.rand((d, k), generator=g) * 2 - 1).mul(0.5).to(device=device, dtype=dtype)
     b = (torch.rand((d,), generator=g) * 2 - 1).mul(0.5).to(device=device, dtype=dtype)
-    return xz[..., :d], w, b
+    return xz[..., offset:offset + d], w, b
 
 
 # --- phases ------------------------------------------------------------------
@@ -371,9 +377,9 @@ def phase_build() -> None:
                        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": seconds, "libraries": [p.name for p in paths.values()],
           "ptxas": ptxas})
-    # What the occupancy calculator gives each scan kernel the paths launch.
+    # What the occupancy calculator gives each kernel the paths launch.
     emit({"phase": "occupancy", "kernels": {name: _build.kernel_resources(name)
-                                            for name in _build.SCAN_SOURCES}})
+                                            for name in _build.SOURCES}})
 
 
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
@@ -807,7 +813,10 @@ def _grad_checks(names, got, want, tol) -> dict:
             "ok": all(c["ok"] for c in checks.values())}
 
 
-def _check_conv(label, dims, dtype, train: bool) -> list[dict]:
+def _check_conv(label, dims, dtype, train: bool, offset=0) -> list[dict]:
+    """The conv forward (or, train, its backward) against the plain version,
+    causal and anti-causal, with bias and SiLU and without; x a column slice
+    from channel ``offset``."""
     from aum_tpu_torch.ops.conv1d import (
         causal_conv1d_bwd_cuda,
         causal_conv1d_bwd_plain,
@@ -819,10 +828,11 @@ def _check_conv(label, dims, dtype, train: bool) -> list[dict]:
     results = []
     for reverse in (False, True):
         for with_bias, act in ((True, "silu"), (False, None)):
-            x, w, b = conv_inputs(bsz, seqlen, d, 4, dtype, seed=3)
+            x, w, b = conv_inputs(bsz, seqlen, d, 4, dtype, seed=3, offset=offset)
             b = b if with_bias else None
             tag = dict(shape=label, dims=[bsz, seqlen, d, 4], dtype=str(dtype),
-                       reverse=reverse, bias=with_bias, activation=act)
+                       reverse=reverse, bias=with_bias, activation=act,
+                       **({"offset": offset} if offset else {}))
             if not train:
                 got = causal_conv1d_cuda(x, w, b, act, reverse)
                 torch.cuda.synchronize()
@@ -838,6 +848,34 @@ def _check_conv(label, dims, dtype, train: bool) -> list[dict]:
             results.append({**_grad_checks(("dx", "dweight", "dbias"), got, want,
                                            GRAD_TOL[dtype]),
                             "kernel": "causal_conv1d_bwd", **tag})
+    return results
+
+
+def _check_edges() -> list[dict]:
+    """The redesigned kernels at the edges of their designs, fp32 and bf16.
+    The fuse_dt dual forward, v1 and v2 (``_check_fdt``): dt ranks 1 (one
+    partial k-step), 16 (one whole one), 17, 47 (dtr rows 79 elements apart:
+    not 16-byte aligned, so staged value by value, as at ranks 1 and 17) and
+    64 (the largest) at L=37, D=40; lengths 1, 15, 16, 17 (around a dt
+    tile), 65 (one step into the second chunk) and 81 (one into the dtr
+    ring's second window) at D=136 (a block with 8 channels) and rank 48. The conv, forward and backward: D=36 (not
+    whole 8-channel vectors), x a slice at an odd channel offset (unaligned
+    base), L=1 and L one past a tile (the kernel's own tile length)."""
+    from aum_tpu_torch.ops.conv1d import TILE_STEPS
+
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shared in (True, False):
+            for rank in (1, 16, 17, 47, 64):
+                results += _check_fdt("fdt_rank", (2, 37, 40), dtype, shared, rank=rank)
+            for seqlen in (1, 15, 16, 17, 65, 81):
+                results += _check_fdt("fdt_length", (2, seqlen, 136), dtype, shared)
+        for train in (False, True):
+            for label, dims, offset in (("conv_d36", (2, 37, 36), 0),
+                                        ("conv_odd_offset", (2, 37, 40), 1),
+                                        ("conv_l1", (2, 1, 40), 0),
+                                        ("conv_tile_plus_1", (2, TILE_STEPS + 1, 40), 0)):
+                results += _check_conv(label, dims, dtype, train, offset)
     return results
 
 
@@ -874,6 +912,7 @@ def phase_kernels() -> dict:
                 results += _check_bwd_forms(label, dims, dtype, n)
         for shared in (True, False):
             results += _check_stage(label, dims, shared, n)
+    results += _check_edges()
     results += probe_small_dt()
     worst = {}
     for r in results:

@@ -79,3 +79,53 @@ def test_kernel_resources_raises_on_a_cuda_error(monkeypatch):
                         lambda name: _Lib(aum_kernel_info=lambda i, out, name: 98))
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         _build.kernel_resources("selective_scan_bwd")
+
+
+conv = importlib.import_module("aum_tpu_torch.ops.conv1d")
+
+
+@pytest.mark.parametrize("channels,tile,error", [
+    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, None),
+    (4, conv.TILE_STEPS, "aum_conv_channels_per_thread"),
+    (conv.CHANNELS_PER_THREAD, 64, "aum_conv_tile_steps")], ids=["same", "channels", "tile"])
+def test_conv_lib_checks_its_constants(channels, tile, error, monkeypatch):
+    """The conv kernel's channels per thread and steps per tile, from which
+    the card's edge checks are sized: a library built with others is refused
+    at load."""
+    lib = _Lib(aum_causal_conv1d_fwd=lambda *a: 0, aum_conv_error_string=lambda status: b"",
+               aum_conv_channels_per_thread=lambda: channels, aum_conv_tile_steps=lambda: tile)
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    if error is None:
+        assert conv._lib.__wrapped__() is lib
+    else:
+        with pytest.raises(RuntimeError, match=error):
+            conv._lib.__wrapped__()
+
+
+def _scan_lib_with(max_rank: int, smem: int) -> _Lib:
+    return _Lib(**{f"aum_selective_scan_{form}": lambda *a: 0
+                   for form in ("dual_fwd", "dual_direct_fwd", "dual_fdt_fwd", "dual_stage_fwd",
+                                "fwd")},
+                aum_scan_error_string=lambda status: b"",
+                aum_scan_state_chunk=lambda: ss.STATE_CHUNK,
+                aum_scan_fdt_max_rank=lambda: max_rank,
+                aum_scan_fdt_smem_bytes=lambda rank, dtype: smem if rank == max_rank else 0)
+
+
+@pytest.mark.parametrize("max_rank,smem,error", [
+    (ss.MAX_DT_RANK, ss.FDT_SMEM_PER_BLOCK, None),
+    (32, ss.FDT_SMEM_PER_BLOCK, "aum_scan_fdt_max_rank"),
+    (ss.MAX_DT_RANK, ss.FDT_SMEM_PER_BLOCK + 16, "shared memory")],
+    ids=["same", "rank", "smem"])
+def test_scan_lib_checks_the_fuse_dt_constants(max_rank, smem, error, monkeypatch):
+    """The fuse_dt kernel's largest dt rank (the wrapper refuses larger ones
+    before a launch) and its shared memory per block at that rank, which
+    must leave room for 4 blocks per SM: a library that differs is refused at
+    load."""
+    lib = _scan_lib_with(max_rank, smem)
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    if error is None:
+        assert ss._lib.__wrapped__() is lib
+    else:
+        with pytest.raises(RuntimeError, match=error):
+            ss._lib.__wrapped__()

@@ -359,6 +359,31 @@ def test_causal_conv1d_matches_jax(reverse, with_bias, activation, dtype):
         np.testing.assert_allclose(got, xla, rtol=1e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("seqlen,d,offset", [(37, 36, 0), (37, 24, 1), (1, 24, 0)],
+                         ids=["d36", "odd_offset", "l1"])
+def test_causal_conv1d_edges_match_jax(seqlen, d, offset):
+    """The conv kernel's edges that the card checks (``chip_smoke.py``
+    ``_check_edges``), its plain version against the JAX kernel in interpret
+    mode, fp32, causal and anti-causal: D=36 (not whole 8-channel vectors),
+    x a column slice at an odd channel offset (a view here, a copy in JAX),
+    and L=1."""
+    from aum_tpu_torch.ops import causal_conv1d
+
+    rng = np.random.default_rng(11)
+    xz = rng.standard_normal((2, seqlen, 2 * d + 1))
+    w = rng.uniform(-0.5, 0.5, (d, 4))
+    b = rng.uniform(-0.5, 0.5, d)
+    x = _torch(xz)[..., offset:offset + d]
+    for reverse in (False, True):
+        got = causal_conv1d(x, _torch(w), _torch(b), activation="silu", reverse=reverse)
+        want = jconv.causal_conv1d(
+            jnp.asarray(xz[..., offset:offset + d], jnp.float32), jnp.asarray(w, jnp.float32),
+            jnp.asarray(b, jnp.float32), activation="silu", reverse=reverse, use_kernel=True,
+            interpret=True)
+        # Same fp32 sums in the same order as _conv_kernel.
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("width", [3, 5])
 def test_conv_kernel_wrapper_takes_width_4_only(width):
     """The kernel is built for the mixer's width; another is refused before

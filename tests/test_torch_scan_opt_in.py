@@ -15,6 +15,7 @@ tests, as in the other port test modules. Tolerances are the JAX package's
 own for each form (``tests/test_selective_scan.py``, ``tests/test_model.py``).
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -81,20 +82,20 @@ def _fold_dirs(fold_f, fold_r):
     return args(fold_f), args(fold_r), ((fold_f[1], fold_f[2]), (fold_r[1], fold_r[2]))
 
 
-def _fold_inputs(shared, seed):
+def _fold_inputs(shared, seed, rank=6):
     """Both directions' 9-tuples: v1 passes the same tensors (A_b its own),
     v2 its own dtr, W, A and bias."""
-    fold_f = _fold_args(seed)
+    fold_f = _fold_args(seed, rank=rank)
     if shared:
         return fold_f, fold_f[:3] + [fold_f[3] * 0.7] + fold_f[4:]
-    other = _fold_args(seed + 1)
+    other = _fold_args(seed + 1, rank=rank)
     return fold_f, fold_f[:1] + other[1:4] + fold_f[4:8] + other[8:]
 
 
-def _fold_leaves(shared, seed):
+def _fold_leaves(shared, seed, rank=6):
     """The leaves of both directions: the first direction's 9, then for v1
     A_b, for v2 the second direction's dtr, W, A and bias."""
-    fold_f, fold_r = _fold_inputs(shared, seed)
+    fold_f, fold_r = _fold_inputs(shared, seed, rank)
     return list(fold_f) + ([fold_r[3]] if shared else [fold_r[1], fold_r[2], fold_r[3],
                                                        fold_r[8]])
 
@@ -115,6 +116,12 @@ def _jax_fold_dual(leaves, shared):
     return jss.selective_scan_dual(args_f, args_r, dt_fold=fold, **KW)
 
 
+@functools.cache
+def _jax_fold_dual_jit(shared):
+    """The JAX fuse_dt forward, jitted once per form (it retraces per shape)."""
+    return jax.jit(lambda ls: _jax_fold_dual(ls, shared))
+
+
 def _port_fold_dual(leaves, shared):
     from aum_tpu_torch.ops import selective_scan_dual
 
@@ -132,10 +139,27 @@ def test_fuse_dt_forward_matches_jax_kernel(shared, monkeypatch):
 
     _set_switches(monkeypatch, {"AUM_SCAN_FUSE_DT": "1"})
     leaves = _fold_leaves(shared, 60)
-    want = jax.jit(lambda ls: _jax_fold_dual(ls, shared))(
-        [jnp.asarray(a, jnp.float32) for a in leaves])
+    want = _jax_fold_dual_jit(shared)([jnp.asarray(a, jnp.float32) for a in leaves])
     with torch.no_grad():
         got = _port_fold_dual([_torch(a) for a in leaves], shared)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("rank", [1, 17, 64])
+def test_fuse_dt_forward_matches_jax_kernel_at_ranks(rank, monkeypatch):
+    """The fuse_dt forward at the dt ranks whose kernel edges the card checks
+    (``chip_smoke.py`` ``_check_edges``): one partial k-step of the
+    tensor-core product, one past a whole one, and the largest the kernel
+    takes; v1, the port's plain version against JAX's kernel within the same
+    2e-5."""
+    import torch
+
+    _set_switches(monkeypatch, {"AUM_SCAN_FUSE_DT": "1"})
+    leaves = _fold_leaves(True, 61, rank)
+    want = _jax_fold_dual_jit(True)([jnp.asarray(a, jnp.float32) for a in leaves])
+    with torch.no_grad():
+        got = _port_fold_dual([_torch(a) for a in leaves], True)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-5, atol=2e-5)
 
