@@ -1,7 +1,8 @@
 // What the two selective-scan backward kernels share (sm_90a): the operand
-// struct of their C entries, the lane layout of a chain, and the warp-level
-// sums. selective_scan_bwd.cu recomputes a chunk's states on two levels;
-// selective_scan_bwd_fused.cu once. See each source for its design.
+// struct of their C entries, the lane layout of a chain, the recurrence and
+// adjoint steps, and the warp-level sums. selective_scan_bwd.cu recomputes
+// a chunk's states on two levels; selective_scan_bwd_fused.cu once. See each
+// source for its design.
 #pragma once
 
 #include "common.cuh"
@@ -65,8 +66,11 @@ __device__ __forceinline__ float load(const T* p, long long offset, bool active)
 }
 
 // One step of the forward recurrence on this lane's states n = q * kNL + k.
-__device__ __forceinline__ void advance(float (&x)[kNL], const float (&A)[kNL],
-                                        const float* bt, float dtv, float uv) {
+// Row: anything that bt[k] reads B_t[n0 + k] from as a float (K2 passes a
+// pointer into its fp32 rows, the fused kernel the values themselves).
+template <typename Row>
+__device__ __forceinline__ void advance(float (&x)[kNL], const float (&A)[kNL], Row bt,
+                                       float dtv, float uv) {
   const float dtl = dtv * kLog2e;
   const float dtu = dtv * uv;
 #pragma unroll
@@ -119,33 +123,34 @@ struct OwnSteps {
 };
 
 // One adjoint step at processed step t, against the scan's direction, on
-// this lane's states: recomputes a_t and x_t from the state before the step
-// (xprev[k * xstride]) and y_t; lam_t = C_t gy_t + lam, and on return lam =
-// a_t lam_t (the carry to the step before); adds to dA and dD. Step j of the
-// sub-chunk records y_t + D u_t and the two sums of ddt in `own` on the lane
-// that writes it (write_own forms du, ddelta, dz from them). Returns this
-// lane's share of the step's dB/dC row (see channel_reduce_scatter). Both
-// backward kernels run this one step, so they cannot drift apart.
-// j must be a constant after unrolling: it indexes registers.
+// this lane's states, from a_t (a[k]) and the state before the step
+// (xprev[k]): recomputes x_t and y_t; lam_t = C_t gy_t + lam, and on return
+// lam = a_t lam_t (the carry to the step before); adds to dA and dD. Step j
+// of the sub-chunk records y_t + D u_t and the two sums of ddt in `own` on
+// the lane that writes it (write_own forms du, ddelta, dz from them).
+// Returns this lane's share of the step's dB/dC row (see
+// channel_reduce_scatter). Both backward kernels run this one step (through
+// adjoint_step, or with a_t from registers), so they cannot drift apart.
+// j must be a constant after unrolling: it indexes registers. bt and ct:
+// this lane's kNL values of B_t and C_t, as in advance; xprev: anything that
+// xprev[k] reads a state from.
 // kXminus (K2 under AUM_SCAN_BWD_XMINUS=1 or AUM_SCAN_BWD_DBU=1): the grad
 // of dt A as lam_t (x_t - (dt u) B_t) from the recomputed x_t, in place of
 // lam_t a_t x_{t-1}, equal up to fp32 rounding (a_t x_{t-1} = x_t - dBu_t).
 // The TPU kernel's two modes differ only in where dBu = (dt u) B is formed
 // (staged in the chunk's prologue, or again in its epilogue): the same fp32
 // products, so one form serves both.
-template <bool kXminus = false>
-__device__ __forceinline__ float adjoint_step(
-    int j, const float* xprev, int xstride, const float* bt, const float* ct,
-    const float (&A)[kNL], float (&lam)[kNL], float (&dA)[kNL], float& dD, OwnSteps& own,
-    float dtv, float uv, float zv, float gv, float dskip, int lane) {
-  const float dtl = dtv * kLog2e;
+template <bool kXminus = false, typename Row, typename Prev>
+__device__ __forceinline__ float adjoint_from(
+    int j, const float (&a)[kNL], Prev xprev, Row bt, Row ct, const float (&A)[kNL],
+    float (&lam)[kNL], float (&dA)[kNL], float& dD, OwnSteps& own, float dtv, float uv,
+    float zv, float gv, float dskip, int lane) {
   const float dtu = dtv * uv;
-  float a[kNL], xt[kNL];
+  float xt[kNL];
   float y = 0.0f;
 #pragma unroll
   for (int k = 0; k < kNL; ++k) {
-    a[k] = aum::exp2_sfu(dtl * A[k]);
-    xt[k] = a[k] * xprev[k * xstride] + dtu * bt[k];
+    xt[k] = a[k] * xprev[k] + dtu * bt[k];
     y += ct[k] * xt[k];
   }
   const float gy = gv * zv * aum::sigmoid_fast(zv);
@@ -160,7 +165,7 @@ __device__ __forceinline__ float adjoint_step(
     if constexpr (kXminus) {
       dla = l * (xt[k] - dtu * bt[k]);
     } else {
-      dla = l * a[k] * xprev[k * xstride];  // read again: fewer live registers
+      dla = l * a[k] * xprev[k];  // read again: fewer live registers
     }
     dA[k] += dtv * dla;
     dla_a += dla * A[k];
@@ -179,6 +184,28 @@ __device__ __forceinline__ float adjoint_step(
   }
   channel_reduce_scatter(v, lane);
   return v[0];
+}
+
+// The states before a step, kNL of them xstride floats apart in shared memory.
+struct Strided {
+  const float* p;
+  int stride;
+  __device__ __forceinline__ float operator[](int k) const { return p[k * stride]; }
+};
+
+// adjoint_from with a_t evaluated here and the state before the step read
+// from xprev[k * xstride].
+template <bool kXminus = false, typename Row>
+__device__ __forceinline__ float adjoint_step(
+    int j, const float* xprev, int xstride, Row bt, Row ct,
+    const float (&A)[kNL], float (&lam)[kNL], float (&dA)[kNL], float& dD, OwnSteps& own,
+    float dtv, float uv, float zv, float gv, float dskip, int lane) {
+  const float dtl = dtv * kLog2e;
+  float a[kNL];
+#pragma unroll
+  for (int k = 0; k < kNL; ++k) a[k] = aum::exp2_sfu(dtl * A[k]);
+  return adjoint_from<kXminus>(j, a, Strided{xprev, xstride}, bt, ct, A, lam, dA, dD, own,
+                               dtv, uv, zv, gv, dskip, lane);
 }
 
 // This lane's share of a sub-chunk's du, ddelta and dz (its steps j = r *

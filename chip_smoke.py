@@ -52,7 +52,11 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    redesigned kernels at the edges of their designs (``_check_edges``): the
    fuse_dt forward at dt ranks 1, 16, 17, 47 (unaligned dtr rows) and 64 and
    at L = 1, 15, 16, 17, 65, 81 with D=136; the conv forward and backward at
-   D=36, on a slice at an odd channel offset, at L=1 and one past its tile.
+   D=36, on a slice at an odd channel offset, at L=1 and one past its tile;
+   the fused backward (with the saving forward that feeds it) against the
+   plain version and K2, one and both directions, with and without the
+   softplus, at L = 1, 63, 64, 65, 127, 128, 129, 513 with D = 40 and 136,
+   with d_state 5, and with bf16 partials against its fp32-partials launch.
    Then the small-dt probe: ddelta at dt in [1e-6, 1e-4] from K2 and the fused
    kernel in fp32, and from the plain version, each against fp64; a kernel
    fails it if its relative error exceeds the plain version's by more than
@@ -110,7 +114,8 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    kernel launches. Then the train shapes' scan kernels (B=12, bf16): the
    saving dual forward, the backward (both directions in one launch, and one
    direction), and the saving single-direction forward, each beside its plain
-   version and its bound; the direct and fused kernels beside them, and
+   version and its bound; the direct and fused kernels beside them (the
+   fused backward and K2 in turns: fused, K2, K2, fused), and
    K2's with_state form, the stage form's saving forward, K2 with bf16
    partials and in its x-minus form (in turns with the default) and the
    fused kernel with bf16 partials. At the bench shapes also the fuse_dt
@@ -851,6 +856,35 @@ def _check_conv(label, dims, dtype, train: bool, offset=0) -> list[dict]:
     return results
 
 
+# The fused backward's edges: lengths around its chunk of 64 steps (the
+# short chunk is processed first, alone or beside a full one; 513 is the
+# train path's one-step chunk) and its sub-chunks of 8, at D=40 and D=136
+# (the last block of 16 channels half full).
+FUSED_EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 513)
+FUSED_EDGE_DIMS = (40, 136)
+
+
+def _check_fused_edges() -> list[dict]:
+    """The fused backward at the edges of its design, fp32 and bf16, v1
+    operands, one and both directions, with and without the softplus,
+    against the plain backward and K2 (``_check_scan``, which holds the
+    saving forward that feeds it too): at every length of
+    FUSED_EDGE_LENGTHS and D of FUSED_EDGE_DIMS; with d_state 5 (B/C rows
+    staged value by value) at L=65 and 513; and with bf16 partials against
+    its fp32-partials launch (``_check_bwd_forms``, which holds K2's forms
+    there too) at L=65, D=40 and L=513, D=136."""
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for seqlen in FUSED_EDGE_LENGTHS:
+            for d in FUSED_EDGE_DIMS:
+                results += _check_scan("fused_bwd_edge", (2, seqlen, d), dtype, True, True)
+        for seqlen in (65, 513):
+            results += _check_scan("fused_bwd_edge_n5", (2, seqlen, 40), dtype, True, True, n=5)
+        for dims in ((2, 65, 40), (2, 513, 136)):
+            results += _check_bwd_forms("fused_bwd_edge", dims, dtype)
+    return results
+
+
 def _check_edges() -> list[dict]:
     """The redesigned kernels at the edges of their designs, fp32 and bf16.
     The fuse_dt dual forward, v1 and v2 (``_check_fdt``): dt ranks 1 (one
@@ -860,10 +894,11 @@ def _check_edges() -> list[dict]:
     tile), 65 (one step into the second chunk) and 81 (one into the dtr
     ring's second window) at D=136 (a block with 8 channels) and rank 48. The conv, forward and backward: D=36 (not
     whole 8-channel vectors), x a slice at an odd channel offset (unaligned
-    base), L=1 and L one past a tile (the kernel's own tile length)."""
+    base), L=1 and L one past a tile (the kernel's own tile length). The
+    fused backward (``_check_fused_edges``)."""
     from aum_tpu_torch.ops.conv1d import TILE_STEPS
 
-    results = []
+    results = _check_fused_edges()
     for dtype in (torch.float32, torch.bfloat16):
         for shared in (True, False):
             for rank in (1, 16, 17, 47, 64):
@@ -1505,8 +1540,8 @@ def bench_single_kernels(sfu_rate: float) -> dict:
 def bench_train_kernels(sfu_rate: float) -> dict:
     """The train path's scan kernels at its shapes (v1, B=12, bf16): the
     saving forward, staged and direct; the backward of both directions in one
-    launch (the train path's form) and of the forward direction alone, K2
-    and fused (K2 timed again after the fused kernel); and K2's with_state
+    launch (the train path's form) and of the forward direction alone, the
+    fused kernel and K2 in turns (fused, K2, K2, fused); and K2's with_state
     form on one direction."""
     from aum_tpu_torch.ops.selective_scan import (
         STATE_CHUNK,
@@ -1537,21 +1572,26 @@ def bench_train_kernels(sfu_rate: float) -> dict:
     g = torch.Generator().manual_seed(9)
     gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
     dirs = [dir_f + (False,), dir_r + (True,)]
-    with sample_clocks({}) as card_bwd:
-        bwd_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]), iters=100)
+    # The fused kernel and K2 in turns (fused, K2, K2, fused): both
+    # directions in one launch, then the forward direction alone.
+    turns = {name: {"two": [], "one": []} for name in ("fused", "k2")}
+    cards = {}
+    for name in ("fused", "k2", "k2", "fused"):
+        with scan_switches(AUM_SCAN_BWD_FUSED=name == "fused"), sample_clocks({}) as card:
+            turns[name]["two"].append(cuda_ms(
+                lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]), iters=100))
+            turns[name]["one"].append(cuda_ms(
+                lambda: selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_f]), iters=100))
+        cards.setdefault(name, card)
+    card_bwd, card_fused = cards["k2"], cards["fused"]
+    bwd_ms, bwd1_ms = turns["k2"]["two"][0], turns["k2"]["one"][0]
+    fused_ms, fused1_ms = turns["fused"]["two"][0], turns["fused"]["one"][0]
     bwd_plain_ms = cuda_ms(lambda: selective_scan_bwd_plain(dirs, gs), iters=1, warmup=1)
-    bwd1_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_f]), iters=100)
     bwd1_plain_ms = cuda_ms(lambda: selective_scan_bwd_plain(dirs[:1], gs[:1]),
                             iters=1, warmup=1)
-    with scan_switches(AUM_SCAN_BWD_FUSED=True):
-        with sample_clocks({}) as card_fused:
-            fused_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
-                               iters=100)
-        fused1_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_f]),
-                            iters=100)
-        with scan_switches(AUM_SCAN_BWD_BF16_PARTIALS=True):
-            fused_part_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
-                                    iters=100)
+    with scan_switches(AUM_SCAN_BWD_FUSED=True, AUM_SCAN_BWD_BF16_PARTIALS=True):
+        fused_part_ms = cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
+                                iters=100)
     # K2's opt-in forms in turns with the default: default, bf16 partials,
     # x-minus, x-minus, bf16 partials, default (the default's first turn is
     # bwd_ms above).
@@ -1606,15 +1646,16 @@ def bench_train_kernels(sfu_rate: float) -> dict:
                                 "bounds_ms": save_bounds},
            "scan_save_stage": {"ms": save_stage_ms, "plain_ms": save_stage_plain_ms,
                                "bounds_ms": save_bounds},
-           "scan_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2),
+           "scan_bwd": {"ms": bwd_ms, "ms_turns": turns["k2"]["two"], "plain_ms": bwd_plain_ms,
+                        "bounds_ms": bwd_bounds(2),
                         "other_floors_ms": {"sfu_only": 2 * elems / sfu_rate * 1e3,
                                             "fp32_pipe_only": SCAN_BWD_FP32_OPS_PER_ELEMENT
                                             * 2 * elems / FP32_PIPE_OPS_PER_S * 1e3},
                         "ms_after_fused": bwd_again_ms},
-           "scan_bwd_one_direction": {"ms": bwd1_ms, "plain_ms": bwd1_plain_ms,
-                                      "bounds_ms": bwd_bounds(1)},
-           "scan_bwd_fused": {"ms": fused_ms, "plain_ms": bwd_plain_ms,
-                              "bounds_ms": bwd_bounds(2)},
+           "scan_bwd_one_direction": {"ms": bwd1_ms, "ms_turns": turns["k2"]["one"],
+                                      "plain_ms": bwd1_plain_ms, "bounds_ms": bwd_bounds(1)},
+           "scan_bwd_fused": {"ms": fused_ms, "ms_turns": turns["fused"]["two"],
+                              "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2)},
            "scan_bwd_fused_bf16_partials": {"ms": fused_part_ms, "plain_ms": bwd_plain_ms,
                                             "bounds_ms": bwd_bounds(2)},
            "scan_bwd_bf16_partials": {"ms": form_ms["bf16_partials"][0],
@@ -1622,7 +1663,8 @@ def bench_train_kernels(sfu_rate: float) -> dict:
                                       "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2)},
            "scan_bwd_xminus": {"ms": form_ms["xminus"][0], "ms_turns": form_ms["xminus"],
                                "plain_ms": bwd_plain_ms, "bounds_ms": bwd_bounds(2)},
-           "scan_bwd_fused_one_direction": {"ms": fused1_ms, "plain_ms": bwd1_plain_ms,
+           "scan_bwd_fused_one_direction": {"ms": fused1_ms, "ms_turns": turns["fused"]["one"],
+                                            "plain_ms": bwd1_plain_ms,
                                             "bounds_ms": bwd_bounds(1)},
            "scan_bwd_with_state": {"ms": state_ms, "plain_ms": state_plain_ms,
                                    "bounds_ms": state_bounds}}
@@ -1632,6 +1674,112 @@ def bench_train_kernels(sfu_rate: float) -> dict:
                                            "scan_save_stage": card_save_stage,
                                            "scan_bwd": card_bwd, "scan_bwd_fused": card_fused,
                                            "scan_bwd_with_state": card_state}})
+    return out
+
+
+# Exploratory builds of the fused backward, by the macros of its source:
+# AUM_FUSED_PROBE times one piece of its work (outputs wrong by design);
+# AUM_FUSED_HOLD (steps per slot) and AUM_FUSED_MIN_BLOCKS (the register
+# cap's blocks per SM) are the design's two choices, each build a whole
+# kernel.
+FUSED_PROBES = {"walk_only": ["-DAUM_FUSED_PROBE=1"],
+                "adjoint_only": ["-DAUM_FUSED_PROBE=2"],
+                "global_streams": ["-DAUM_FUSED_PROBE=3"],
+                **{f"hold{h}_blocks{m}": [f"-DAUM_FUSED_HOLD={h}", f"-DAUM_FUSED_MIN_BLOCKS={m}"]
+                   for h, m in ((8, 4), (8, 6), (8, 8), (4, 4), (4, 5), (4, 7), (4, 8), (2, 5))}}
+
+
+def probe_fused_bwd(trees: dict[str, str] | None = None,
+                    probes: dict[str, list[str]] | None = None) -> dict:
+    """The fused backward against its exploratory builds (``probes``, name
+    to nvcc flags; FUSED_PROBES by default) at the train path's shapes
+    (B=12, L=513, D=1536, N=16, bf16, v1; both directions in one launch and
+    the forward direction alone), with K2 and the fused kernels of other
+    trees (``trees``, name to a ``csrc`` directory) beside them: every
+    variant in one order, then in the reverse order, and each variant's
+    resources from its ``aum_kernel_info``. Not part of ``main``; after
+    ``phase_device()`` and ``phase_build()``, run as
+    ``probe_fused_bwd({"parent": "build/parent/aum_tpu_torch/csrc"})``."""
+    import ctypes
+    import importlib
+    from pathlib import Path
+
+    from aum_tpu_torch.ops import _build
+
+    ss = importlib.import_module("aum_tpu_torch.ops.selective_scan")
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    builds = {name: (_build.CSRC_DIR, flags)
+              for name, flags in (FUSED_PROBES if probes is None else probes).items()}
+    builds.update({name: (Path(src), []) for name, src in (trees or {}).items()})
+    start = time.perf_counter()
+    procs = {}
+    for name, (src_dir, flags) in builds.items():
+        path = out_dir / f"{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(path),
+               str(src_dir / "selective_scan_bwd_fused.cu")]
+        procs[name] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+    paths = {}
+    for name, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        path.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} build:\n{log}")
+        paths[name] = path
+    build_s = time.perf_counter() - start
+
+    real_library = _build.library
+    libs, resources = {"fused": ss._bwd_fused_lib()}, {}
+    try:
+        for name, path in paths.items():
+            lib = ctypes.CDLL(str(path))
+            _build.library = lambda _name, lib=lib: lib
+            libs[name] = ss._bwd_fused_lib.__wrapped__()  # the wrapper's load-time checks
+        for name, lib in libs.items():
+            _build.library = lambda _name, lib=lib: lib
+            resources[name] = _build.kernel_resources("selective_scan_bwd_fused")[0]
+    finally:
+        _build.library = real_library
+
+    (bsz, seqlen, d), n = TRAIN_DIMS, 16
+    dir_f, dir_r = _scan_dirs(bsz, seqlen, d, torch.bfloat16, shared=True)
+    _, _, xb_f, xb_r = ss.selective_scan_dual_cuda(dir_f, dir_r, save_states=True)
+    g = torch.Generator().manual_seed(9)
+    gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", torch.bfloat16)
+          for _ in range(2)]
+    dirs = [dir_f + (False,), dir_r + (True,)]
+    order = [*libs, "k2"]
+    ms = {name: {"two": [], "one": []} for name in order}
+    # Each whole build (no AUM_FUSED_PROBE) against K2 on the same inputs.
+    with scan_switches(AUM_SCAN_BWD_FUSED=False):
+        want = ss.selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r])
+    agree = {}
+    real_lib = ss._bwd_fused_lib
+    try:
+        for name in libs:
+            if any("AUM_FUSED_PROBE" in f for f in builds.get(name, (None, []))[1]):
+                continue
+            ss._bwd_fused_lib = lambda lib=libs[name]: lib
+            with scan_switches(AUM_SCAN_BWD_FUSED=True):
+                got = ss.selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r])
+            agree[name] = max(compare_scaled(a, b, GRAD_TOL[torch.bfloat16])["scaled_err"]
+                              for gd, wd in zip(got, want) for a, b in zip(gd, wd))
+        for name in order + order[::-1]:
+            if name != "k2":
+                ss._bwd_fused_lib = lambda lib=libs[name]: lib
+            with scan_switches(AUM_SCAN_BWD_FUSED=name != "k2"):
+                ms[name]["two"].append(cuda_ms(
+                    lambda: ss.selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]), iters=100))
+                ms[name]["one"].append(cuda_ms(
+                    lambda: ss.selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_f]), iters=100))
+    finally:
+        ss._bwd_fused_lib = real_lib
+    out = {"dims": [bsz, seqlen, d, n], "dtype": "bfloat16", "bimamba": "v1",
+           "order": order + order[::-1], "ms": ms, "resources": resources,
+           "scaled_err_vs_k2": agree,
+           "build_s": build_s, "card": smi("name,power.limit")}
+    emit({"phase": "probe_fused_bwd", **out})
     return out
 
 

@@ -33,24 +33,37 @@ class _Lib:
             setattr(self, name, _Entry(fn))
 
 
-def _bwd_lib_with(block_channels: int) -> _Lib:
-    return _Lib(aum_selective_scan_bwd=lambda *a: 0,
-                aum_scan_bwd_error_string=lambda status: b"",
-                aum_scan_bwd_state_chunk=lambda: ss.STATE_CHUNK,
-                aum_scan_bwd_block_channels=lambda: block_channels)
+# The two backward libraries: (library, prefix of its C entries, loader,
+# the channels per block the wrapper sums dB/dC partials over).
+_BWD_LIBS = {"k2": ("selective_scan_bwd", "scan_bwd", "_bwd_lib", ss.BWD_BLOCK_CHANNELS),
+             "fused": ("selective_scan_bwd_fused", "scan_bwd_fused", "_bwd_fused_lib",
+                       ss.BWD_FUSED_BLOCK_CHANNELS)}
 
 
-@pytest.mark.parametrize("block_channels", [ss.BWD_BLOCK_CHANNELS, 16])
-def test_bwd_lib_checks_its_block_channels(block_channels, monkeypatch):
-    """K2's channels per block size the dB/dC partials the wrapper sums: a
-    library built with another value is refused at load."""
-    lib = _bwd_lib_with(block_channels)
-    monkeypatch.setattr(_build, "library", lambda name: lib)
-    if block_channels == ss.BWD_BLOCK_CHANNELS:
-        assert ss._bwd_lib.__wrapped__() is lib
+def _bwd_lib_with(prefix: str, block_channels: int) -> _Lib:
+    return _Lib(**{f"aum_selective_{prefix}": lambda *a: 0,
+                   f"aum_{prefix}_error_string": lambda status: b"",
+                   f"aum_{prefix}_state_chunk": lambda: ss.STATE_CHUNK,
+                   f"aum_{prefix}_block_channels": lambda: block_channels})
+
+
+# K2's cases keep the ids they had before the fused library joined them.
+@pytest.mark.parametrize("which, built", [
+    pytest.param("k2", ss.BWD_BLOCK_CHANNELS, id=str(ss.BWD_BLOCK_CHANNELS)),
+    pytest.param("k2", 16, id="16"),
+    *(pytest.param("fused", c, id=f"fused-{c}") for c in (ss.BWD_FUSED_BLOCK_CHANNELS, 32, 8))])
+def test_bwd_lib_checks_its_block_channels(which, built, monkeypatch):
+    """Each backward kernel's channels per block size the dB/dC partials the
+    wrapper sums: a library built with another value is refused at load."""
+    name, prefix, loader, block_channels = _BWD_LIBS[which]
+    lib = _bwd_lib_with(prefix, built)
+    monkeypatch.setattr(_build, "library", lambda n: lib if n == name else None)
+    load = getattr(ss, loader).__wrapped__
+    if built == block_channels:
+        assert load() is lib
     else:
-        with pytest.raises(RuntimeError, match="aum_scan_bwd_block_channels"):
-            ss._bwd_lib.__wrapped__()
+        with pytest.raises(RuntimeError, match=f"aum_{prefix}_block_channels"):
+            load()
 
 
 def test_kernel_resources_reads_every_instantiation(monkeypatch):
