@@ -9,15 +9,28 @@ names so each counterpart is easy to find:
                              the sequential scan oracle, fused add+norm.
 - ``aum_tpu_torch.models`` — AudioMamba eval and train forward (remat, drop
                              path), Mamba mixer blocks, patch/pos embedding.
+- ``aum_tpu_torch.audio``  — the Kaldi fbank, normalization and the
+                             train-time augmentations (SpecAugment, mixup,
+                             noise and roll).
+- ``aum_tpu_torch.data``   — WAV datasets, the native batch decoder, the
+                             batch pipeline with the featurizer on the
+                             device, the prefetcher.
 - ``aum_tpu_torch.train``  — Adam with the reference's lr schedule, the
-                             train and eval steps.
+                             train and eval steps, the epoch loop, eval
+                             metrics, checkpoints, profiling.
+- ``aum_tpu_torch.configs``— the published training recipes.
+- ``aum_tpu_torch.run``    — the experiment runner (``python -m
+                             aum_tpu_torch.run``): train, eval, eval_wa,
+                             eval_ensemble.
+- ``aum_tpu_torch.serving``— the served forward from waveforms.
 - ``aum_tpu_torch.convert``— JAX parameter tree -> this package's state dict.
 - ``aum_tpu_torch.entry``  — the flagship forward and train step (AuM-Base
                              Fo-Bi, bf16).
 
 Nothing here imports JAX or ``aum_tpu``. Entry points run on CUDA unless the
 caller passes ``device="cpu"``; without a card and without that argument they
-raise. Kernels are compiled with nvcc at first use (``ops/_build.py``).
+raise. Kernels are compiled with nvcc at first use (``ops/_build.py``), the
+WAV decoder with the host C++ compiler (``data/native.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,281 @@
+"""Experiment entry point: train and validate a recipe from WAV files.
+
+Counterpart of ``aum_tpu/run.py``. Usage:
+
+    python -m aum_tpu_torch.run --recipe as20k/aum-base_scratch \\
+        --data-train train.json --data-val val.json [--data-eval eval.json] \\
+        --label-csv labels.csv --exp-dir ./exp/as20k [--set key=value ...]
+
+It builds the datasets and pipelines (``aum_tpu_torch.data``), the
+AudioMamba model from the recipe (weights drawn from the recipe's seed),
+Adam with the recipe's schedule, and runs ``train_loop`` with a validation
+pass and checkpoints each epoch; or only evaluates: ``--run-type eval``
+from the ``models/`` directory a train run wrote (``--ckpt``), ``eval_wa``
+on the average of the epoch checkpoints in [``--wa-start``, ``--wa-end``],
+``eval_ensemble`` on their cumulative prediction ensemble. SpeechCommands
+keeps the reference's post-train protocol: the best checkpoint is evaluated
+on the validation and the test split.
+
+It runs on the card unless ``--device`` names another device, and raises
+without one. What the port does not have yet raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item: the parallel modes (``--n-model``,
+``--n-seq``, ``--n-pipe``, ``--multihost``), EPIC-SOUNDS, the AST model,
+the pretrained inits and ``.pth`` checkpoints, and flexible patch sizes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import pickle
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="aum_tpu_torch experiment runner")
+    p.add_argument("--recipe", required=True,
+                   help="recipe key from aum_tpu_torch.configs.RECIPES")
+    p.add_argument("--data-train")
+    p.add_argument("--data-val")
+    p.add_argument("--data-eval")
+    p.add_argument("--label-csv")
+    p.add_argument("--exp-dir", required=True)
+    p.add_argument("--run-type", default="train",
+                   choices=["train", "eval", "eval_wa", "eval_ensemble"])
+    p.add_argument("--device", help="torch device (default: the CUDA card; "
+                                    "raises without one)")
+    p.add_argument("--profile-dir",
+                   help="write a torch.profiler trace of train steps 3-8 of epoch 1 here")
+    p.add_argument("--wa-start", type=int,
+                   help="eval_wa: first epoch to average (default: the earliest)")
+    p.add_argument("--wa-end", type=int,
+                   help="eval_wa: last epoch to average (default: the latest)")
+    p.add_argument("--ckpt", help="checkpoint directory: eval reads its best, "
+                                  "eval_wa/eval_ensemble its epochs, train resumes")
+    p.add_argument("--n-seq", type=int, default=1, help="not ported yet")
+    p.add_argument("--n-pipe", type=int, default=1, help="not ported yet")
+    p.add_argument("--pipe-microbatches", type=int, default=4, help="not ported yet")
+    p.add_argument("--n-model", type=int, default=1, help="not ported yet")
+    p.add_argument("--multihost", default="off", choices=["auto", "on", "off"],
+                   help="not ported yet: only 'off'")
+    p.add_argument("--coordinator-address", help="not ported yet")
+    p.add_argument("--num-processes", type=int, help="not ported yet")
+    p.add_argument("--process-id", type=int, help="not ported yet")
+    p.add_argument("--epic-yaml", help="not ported yet")
+    p.add_argument("--epic-hdf5", help="not ported yet")
+    p.add_argument("--epic-annotations-train", help="not ported yet")
+    p.add_argument("--epic-annotations-val", help="not ported yet")
+    p.add_argument("--epic-annotations-test", help="not ported yet")
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--set", action="append", default=[],
+                   help="override recipe fields, e.g. --set lr=1e-4")
+    return p.parse_args(argv)
+
+
+def apply_overrides(cfg, overrides):
+    fields = {f.name: f.type for f in dataclasses.fields(cfg)}
+    kv = {}
+    for item in overrides:
+        k, v = item.split("=", 1)
+        k = k.replace("-", "_")
+        if k not in fields:
+            raise ValueError(f"unknown recipe field {k}")
+        cur = getattr(cfg, k)
+        if "Tuple" in str(fields[k]):
+            kv[k] = tuple(int(s) for s in v.split(","))
+        elif isinstance(cur, bool):
+            kv[k] = v in ("1", "true", "True")
+        elif cur is None:
+            for cast in (int, float):
+                try:
+                    kv[k] = cast(v)
+                    break
+                except ValueError:
+                    continue
+            else:
+                kv[k] = v
+        else:
+            kv[k] = type(cur)(v)
+    return dataclasses.replace(cfg, **kv)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+
+
+def check_ported(args, cfg) -> None:
+    """Raise ``NotImplementedError`` for an option the port does not have."""
+    if (args.n_model != 1 or args.n_seq != 1 or args.n_pipe != 1 or args.pipe_microbatches != 4
+            or args.multihost != "off" or args.coordinator_address or args.num_processes
+            or args.process_id is not None):
+        _not_ported("--n-model/--n-seq/--n-pipe/--multihost (the parallel modes)",
+                    "8: parallel")
+    epic_args = (args.epic_yaml, args.epic_hdf5, args.epic_annotations_train,
+                 args.epic_annotations_val, args.epic_annotations_test)
+    if cfg.dataset == "epic_sounds" or any(epic_args):
+        _not_ported("EPIC-SOUNDS (data/epic.py, the STFT log-mel, spec_warp)",
+                    "2: data, the EPIC branch")
+    if cfg.model == "ast":
+        _not_ported("model=ast", "6: porters and AST")
+    if cfg.imagenet_pretrain_path or cfg.aum_pretrain_path or cfg.ast_pretrain_path:
+        _not_ported("a pretrained init (imagenet/aum/ast_pretrain_path)", "6: porters and AST")
+    if args.ckpt and args.ckpt.endswith(".pth"):
+        _not_ported("a torch .pth --ckpt (the checkpoint porter)", "6: porters and AST")
+    if cfg.flexible_patch_sizes:
+        _not_ported("flexible_patch_sizes", "5: the rest of the model")
+
+
+def build_pipelines(cfg, args, device):
+    from aum_tpu_torch.data import AudioJsonDataset, BatchPipeline, balanced_sample_weights
+
+    if not args.label_csv:
+        raise ValueError("--label-csv is required for this dataset")
+    train_pipe = val_pipe = eval_pipe = None
+    kw = dict(seed=cfg.seed, num_workers=args.num_workers, device=device)
+    if args.data_train:
+        ds = AudioJsonDataset(args.data_train, cfg.audio_conf(train=True), args.label_csv)
+        weights = balanced_sample_weights(ds) if cfg.bal else None
+        train_pipe = BatchPipeline(ds, cfg.batch_size, train=True, weights=weights, **kw)
+    if args.data_val:
+        ds = AudioJsonDataset(args.data_val, cfg.audio_conf(train=False), args.label_csv)
+        val_pipe = BatchPipeline(ds, cfg.batch_size * 2, train=False, **kw)
+    if args.data_eval:
+        ds = AudioJsonDataset(args.data_eval, cfg.audio_conf(train=False), args.label_csv)
+        eval_pipe = BatchPipeline(ds, cfg.batch_size * 2, train=False, **kw)
+    return train_pipe, val_pipe, eval_pipe
+
+
+def build_model(cfg, device):
+    """The recipe's AudioMamba, weights drawn from the recipe's seed."""
+    from aum_tpu_torch.models import AudioMamba
+
+    return AudioMamba(cfg.model_config(), device=device, seed=cfg.seed)
+
+
+def _write_eval_artifacts(exp_dir, metrics, scores, stats) -> None:
+    """predictions_eval.csv, result_eval.csv ([main, mAUC, the mean of each
+    class's middle PR precision and recall, d', loss]) and
+    stats_eval.pickle (the per-class stats)."""
+    np.savetxt(os.path.join(exp_dir, "predictions_eval.csv"), scores, delimiter=",")
+    mid_p = float(np.mean([st["precisions"][len(st["precisions"]) // 2] for st in stats]))
+    mid_r = float(np.mean([st["recalls"][len(st["recalls"]) // 2] for st in stats]))
+    print(f"Avg Precision: {mid_p:.6f}\nAvg Recall: {mid_r:.6f}\n"
+          f"d_prime: {metrics['d_prime']:.6f}")
+    result = [metrics["main"], metrics["AUC"], mid_p, mid_r, metrics["d_prime"],
+              metrics["loss"]]
+    np.savetxt(os.path.join(exp_dir, "result_eval.csv"), np.asarray(result, dtype=np.float64),
+               delimiter=",")
+    with open(os.path.join(exp_dir, "stats_eval.pickle"), "wb") as f:
+        pickle.dump(stats, f)
+
+
+def main(argv=None):
+    from aum_tpu_torch.configs import RECIPES
+    from aum_tpu_torch.train import (
+        AugmentConfig,
+        Checkpointer,
+        average_params,
+        init_train_state,
+        loop,
+        make_optimizer,
+    )
+    from aum_tpu_torch.utils import resolve_device
+
+    args = parse_args(argv)
+    cfg = apply_overrides(RECIPES[args.recipe], args.set)
+    check_ported(args, cfg)
+    device = resolve_device(args.device)
+    os.makedirs(args.exp_dir, exist_ok=True)
+    with open(os.path.join(args.exp_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+
+    train_pipe, val_pipe, eval_pipe = build_pipelines(cfg, args, device)
+    model = build_model(cfg, device)
+    # The steps, the eval and the loop are read from ``train.loop`` at call
+    # time, where ``train_loop`` reads them too: wrapping that module's
+    # names instruments every run type (chip_smoke.py's recipe probes).
+    eval_step = loop.make_eval_step(model)
+    hp = cfg.train_hp()
+
+    if args.run_type in ("eval_wa", "eval_ensemble"):
+        if not args.ckpt:
+            raise ValueError("--ckpt (a checkpoint directory) is required")
+        pipe = eval_pipe or val_pipe
+        if pipe is None:
+            raise ValueError("need --data-eval or --data-val")
+        ckptr = Checkpointer(args.ckpt)
+        epochs = ckptr.available_epochs()
+        if not epochs:
+            raise FileNotFoundError(f"no epoch checkpoints under {args.ckpt}")
+        if args.run_type == "eval_wa":
+            lo = args.wa_start if args.wa_start is not None else epochs[0]
+            hi = args.wa_end if args.wa_end is not None else epochs[-1]
+            epochs = [e for e in epochs if lo <= e <= hi]
+            if not epochs:
+                raise FileNotFoundError(f"no epoch checkpoints in [{lo}, {hi}]")
+        state_dicts = [ckptr.model_state(f"epoch_{e}") for e in epochs]
+        if args.run_type == "eval_wa":
+            model.load_state_dict(average_params(state_dicts))
+            metrics, _, _ = loop.evaluate(eval_step, pipe.batches(), cfg.loss, cfg.metrics,
+                                          nan2num=cfg.nan2num)
+            print(json.dumps({"n_models": len(state_dicts), **metrics}, default=float))
+            return metrics
+        results = loop.evaluate_ensemble(eval_step, model, state_dicts, pipe.batches,
+                                         cfg.loss, cfg.metrics, nan2num=cfg.nan2num)
+        for r in results:
+            print(json.dumps(r, default=float))
+        return results
+
+    if args.run_type == "eval":
+        pipe = eval_pipe or val_pipe
+        if pipe is None:
+            raise ValueError("need --data-eval or --data-val")
+        if args.ckpt:
+            model.load_state_dict(Checkpointer(args.ckpt).model_state("best"))
+        metrics, scores, _, stats = loop.evaluate(
+            eval_step, pipe.batches(), cfg.loss, cfg.metrics, nan2num=cfg.nan2num,
+            return_stats=True, full_curves=True)
+        print(json.dumps(metrics, default=float))
+        _write_eval_artifacts(args.exp_dir, metrics, scores, stats)
+        return metrics
+
+    if train_pipe is None or val_pipe is None:
+        raise ValueError("training needs --data-train and --data-val")
+    spe = max(train_pipe.steps_per_epoch(), 1)
+    state = init_train_state(model, make_optimizer(model.parameters(), hp))
+    start_epoch = 1
+    if args.ckpt:  # resume from the newest epoch checkpoint (or best)
+        rckptr = Checkpointer(args.ckpt)
+        epochs = rckptr.available_epochs()
+        state = rckptr.restore(f"epoch_{epochs[-1]}" if epochs else "best", state)
+        start_epoch = epochs[-1] + 1 if epochs else 1
+    ckptr = Checkpointer(os.path.join(args.exp_dir, "models"))
+    state, history, best = loop.train_loop(
+        state, hp, spe,
+        train_batches=train_pipe.batches,
+        eval_batches=val_pipe.batches,
+        n_epochs=cfg.n_epochs, loss_type=cfg.loss, main_metric=cfg.metrics,
+        augment=AugmentConfig(),  # the pipeline augments, on the device
+        nan2num=cfg.nan2num, continue_inf=cfg.continue_inf, exp_dir=args.exp_dir,
+        checkpointer=ckptr, accum_steps=cfg.accum_steps, profile_dir=args.profile_dir,
+        flexible_patch_sizes=cfg.flexible_patch_sizes, start_epoch=start_epoch,
+        generator=torch.Generator().manual_seed(cfg.seed + 2))
+    print(f"best epoch {best['epoch']}: {cfg.metrics}={best['main']:.4f}")
+
+    # SpeechCommands: the best checkpoint on the validation and test splits.
+    if cfg.dataset == "speechcommands" and eval_pipe is not None:
+        model.load_state_dict(ckptr.model_state("best"))
+        for split, pipe in [("valid", val_pipe), ("eval", eval_pipe)]:
+            m, _, _ = loop.evaluate(eval_step, pipe.batches(), cfg.loss, cfg.metrics,
+                                    nan2num=cfg.nan2num)
+            print(f"---------------evaluate on the {split} set---------------\n"
+                  f"Accuracy: {m['acc']:.6f}\nAUC: {m['AUC']:.6f}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

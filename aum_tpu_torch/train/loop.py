@@ -18,18 +18,35 @@ from ``lr_at_step``. As in the JAX step:
 Unlike the JAX step, which returns a new state, the params (in the model)
 and the Adam state (in the optimizer) are updated in place; the step reads
 the loss on the host once, to decide whether to update. Dropout and drop
-path draw from an explicit ``torch.Generator``. On-device augmentation
-(SpecAugment, noise) is not ported yet and raises.
+path draw from an explicit ``torch.Generator`` (on the CPU); the step's
+augmentation (``AugmentConfig``: SpecAugment, then noise and roll, on the
+batch's ``x`` before the forward, as the JAX step does) draws from another,
+on the batch's device.
+
+The epoch loop and the eval (``train_loop``, ``evaluate``,
+``evaluate_ensemble``, ``average_ensemble_views``) follow the JAX module
+too: per epoch, train, validate on the sigmoided scores, keep the best and
+the latest checkpoint, and write ``result.csv``, ``progress.json``,
+``stats_<epoch>.pickle`` and optionally the predictions under the
+experiment directory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable
+import json
+import os
+import pickle
+import time
+from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aum_tpu_torch.audio.augment import apply_noise_and_roll, apply_spec_augment, draw_augment
+from aum_tpu_torch.train.metrics import calculate_stats, d_prime
 from aum_tpu_torch.train.optim import TrainHyperParams, lr_at_step
 
 
@@ -57,11 +74,22 @@ def init_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer
 
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
-    """On-device train-time augmentation (not ported yet: non-zero raises)."""
+    """Train-time augmentation of the step's input: SpecAugment with these
+    mask parameters, then noise and roll."""
 
     freqm: int = 0
     timem: int = 0
     noise: bool = False
+
+
+def apply_augment(x: torch.Tensor, draws: dict) -> torch.Tensor:
+    """The step's augmentation of x from ``draw_augment``'s values:
+    SpecAugment, then noise and roll."""
+    if "spec_augment" in draws:
+        x = apply_spec_augment(x, draws["spec_augment"])
+    if "noise" in draws:
+        x = apply_noise_and_roll(x, draws["noise"])
+    return x
 
 
 def loss_fn_of(loss_type: str) -> Callable:
@@ -80,20 +108,24 @@ def loss_fn_of(loss_type: str) -> Callable:
 def make_train_step(hp: TrainHyperParams, steps_per_epoch: int,
                     loss_type: str = "BCE", augment: AugmentConfig = AugmentConfig(),
                     nan2num: bool = False, accum_steps: int = 1,
-                    generator: torch.Generator | None = None) -> Callable:
+                    generator: torch.Generator | None = None,
+                    aug_generator: torch.Generator | None = None) -> Callable:
     """(state, batch) -> (state, loss) for batch {'x': (B, T, F), 'y': (B, C)}.
 
     ``loss`` is the step's mean loss, a 0-d fp32 tensor on the batch's
-    device. ``generator`` feeds the model's dropout and drop path.
+    device. ``generator`` feeds the model's dropout and drop path,
+    ``aug_generator`` (on the batch's device) the augmentation, which needs
+    it.
     """
-    if augment.freqm or augment.timem or augment.noise:
-        raise NotImplementedError(
-            "SpecAugment and noise are not ported yet (frontend slice)")
+    if (augment.freqm or augment.timem or augment.noise) and aug_generator is None:
+        raise ValueError("an augmenting train step needs aug_generator")
     loss_of = loss_fn_of(loss_type)
 
     def step_fn(state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:
         model, opt = state.model, state.optimizer
         x, y = batch["x"], batch["y"]
+        x = apply_augment(x, draw_augment(aug_generator, tuple(x.shape), augment.freqm,
+                                          augment.timem, augment.noise))
         if x.shape[0] % accum_steps:
             raise ValueError(f"batch {x.shape[0]} not divisible by accum_steps={accum_steps}")
         opt.zero_grad(set_to_none=True)
@@ -128,3 +160,219 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
             return model(x)
 
     return eval_fn
+
+
+def sigmoid_np(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def _np_loss(loss_type: str, logits: np.ndarray, labels: np.ndarray) -> float:
+    """Host-side loss (numpy, fp64)."""
+    x = logits.astype(np.float64)
+    y = labels.astype(np.float64)
+    if loss_type == "BCE":
+        return float(np.mean(
+            np.maximum(x, 0) - x * y + np.log1p(np.exp(-np.abs(x)))))
+    lse = np.log(np.sum(np.exp(x - x.max(axis=-1, keepdims=True)), axis=-1)) \
+        + x.max(axis=-1)
+    return float(np.mean(lse - np.sum(x * y, axis=-1)))
+
+
+def evaluate(
+    eval_step: Callable,
+    batches: Iterable,
+    loss_type: str = "BCE",
+    main_metric: str = "mAP",
+    nan2num: bool = False,
+    return_stats: bool = False,
+    full_curves: bool = False,
+):
+    """Run eval over ``batches`` ({'x', 'y'} dicts) with ``eval_step`` (x ->
+    logits), as the reference's ``validate_acc`` does.
+
+    The scores are the sigmoided logits, and, as in the reference, the val
+    loss is taken on the *sigmoided* scores too. With ``nan2num``,
+    non-finite logits become 0 / +-max before the sigmoid. Returns (metrics,
+    scores, targets), and the per-class stats list when ``return_stats``
+    (``full_curves`` adds the PR and ROC curves).
+    """
+    from aum_tpu_torch.data.pipeline import Prefetcher
+
+    outs, tgts, losses = [], [], []
+    for batch in Prefetcher(iter(batches)):
+        logits = eval_step(batch["x"]).float().cpu().numpy()
+        if nan2num:
+            logits = np.nan_to_num(logits)
+        scores = sigmoid_np(logits)
+        outs.append(scores)
+        tgts.append(batch["y"].float().cpu().numpy())
+        losses.append(_np_loss(loss_type, scores, tgts[-1]))
+    scores = np.concatenate(outs, axis=0)
+    targets = np.concatenate(tgts, axis=0)
+    stats = calculate_stats(scores, targets, full_curves=full_curves)
+    m_ap = float(np.nanmean(np.array([s["AP"] for s in stats], dtype=np.float64)))
+    m_auc = float(np.nanmean(np.array([s["auc"] for s in stats], dtype=np.float64)))
+    metrics = {
+        "mAP": m_ap,
+        "AUC": m_auc,
+        "acc": stats[0]["acc"],
+        "d_prime": d_prime(m_auc) if 0 < m_auc < 1 else float("nan"),
+        "loss": float(np.mean(losses)) if losses else float("nan"),
+        "main": None,
+    }
+    metrics["main"] = metrics["acc" if main_metric == "acc" else "mAP"]
+    if return_stats:
+        return metrics, scores, targets, stats
+    return metrics, scores, targets
+
+
+def train_loop(
+    state: TrainState,
+    hp: TrainHyperParams,
+    steps_per_epoch: int,
+    train_batches: Callable[[int], Iterable],
+    eval_batches: Callable[[], Iterable],
+    n_epochs: int,
+    loss_type: str = "BCE",
+    main_metric: str = "mAP",
+    augment: AugmentConfig = AugmentConfig(),
+    nan2num: bool = False,
+    continue_inf: bool = True,
+    exp_dir: Optional[str] = None,
+    checkpointer=None,
+    log_every: int = 50,
+    print_fn=print,
+    save_predictions: bool = False,
+    flexible_patch_sizes=None,
+    accum_steps: int = 1,
+    profile_dir: Optional[str] = None,
+    profile_steps: tuple = (3, 8),
+    start_epoch: int = 1,
+    generator: torch.Generator | None = None,
+    aug_generator: torch.Generator | None = None,
+):
+    """Epoch loop: train, validate, track the best epoch, checkpoint.
+
+    Artifacts per epoch under ``exp_dir``: ``result.csv``,
+    ``progress.json``, ``stats_<epoch>.pickle`` (the per-class stats with
+    their curves) and, with ``save_predictions``,
+    ``predictions/predictions_<epoch>.csv`` and ``target.csv``.
+
+    A non-finite loss skips the update (the step's rule); with
+    ``continue_inf=False`` (the reference's default: exit on inf) the loop
+    raises at the first one. The epoch's ``train_loss`` is the mean over its
+    finite steps. ``start_epoch`` > 1 resumes a run: epoch labels,
+    artifacts and shuffle orders continue from there. With ``profile_dir``,
+    steps ``profile_steps`` of epoch 1 are traced (``train/profiling.py``).
+    """
+    from aum_tpu_torch.data.pipeline import Prefetcher
+    from aum_tpu_torch.train.profiling import trace
+
+    if flexible_patch_sizes:
+        raise NotImplementedError(
+            "flexible_patch_sizes is not ported yet (ROADMAP.md queue 1 item 5: "
+            "flexible patch sizes)")
+    step_fn = make_train_step(hp, steps_per_epoch, loss_type, augment, nan2num,
+                              accum_steps, generator, aug_generator)
+    eval_fn = make_eval_step(state.model)
+    history = []
+    progress = []
+    best = {"epoch": 0, "main": -np.inf}
+    for epoch in range(start_epoch, n_epochs + 1):
+        state = reset_loss_accum(state)
+        t_epoch = time.time()
+        n_clips = n_steps = 0
+        with contextlib.ExitStack() as prof:
+            for i, batch in enumerate(Prefetcher(train_batches(epoch))):
+                if profile_dir is not None and epoch == 1 and i == profile_steps[0]:
+                    prof.enter_context(trace(profile_dir))
+                state, loss = step_fn(state, batch)
+                n_clips += int(batch["x"].shape[0])
+                n_steps += 1
+                if state.nonfinite_count and not continue_inf:
+                    raise RuntimeError(
+                        f"{state.nonfinite_count} non-finite train loss(es) by epoch {epoch} "
+                        f"step {i + 1} (continue_inf=False: the reference exits on inf)")
+                if profile_dir is not None and epoch == 1 and i + 1 == profile_steps[1]:
+                    prof.close()
+                    print_fn(f"profiler trace (steps {profile_steps[0]}-{profile_steps[1]}) "
+                             f"-> {profile_dir}")
+                if (i + 1) % log_every == 0:
+                    print_fn(f"epoch {epoch} step {i + 1}: loss {float(loss):.4f}")
+        train_secs = time.time() - t_epoch
+        n_finite = n_steps - state.nonfinite_count
+        epoch_loss = state.loss_sum / n_finite if n_finite else float("nan")
+        metrics, scores, targets, epoch_stats = evaluate(
+            eval_fn, eval_batches(), loss_type, main_metric, nan2num=nan2num,
+            return_stats=True, full_curves=True)
+        metrics["epoch"] = epoch
+        metrics["train_loss"] = epoch_loss if n_steps else None
+        metrics["clips_per_sec"] = n_clips / train_secs if train_secs > 0 else 0.0
+        history.append(metrics)
+        print_fn(f"epoch {epoch}: {metrics}")
+        if metrics["main"] > best["main"]:
+            best = {"epoch": epoch, "main": metrics["main"]}
+            if checkpointer is not None:
+                checkpointer.save_best(state, epoch, metrics)
+        if checkpointer is not None:
+            checkpointer.save_latest(state, epoch, metrics)
+        if exp_dir is not None:
+            _write_result_csv(exp_dir, history)
+            progress.append([epoch, state.step, best["epoch"], float(best["main"])])
+            with open(os.path.join(exp_dir, "progress.json"), "w") as f:
+                json.dump(progress, f)
+            with open(os.path.join(exp_dir, f"stats_{epoch}.pickle"), "wb") as f:
+                pickle.dump(epoch_stats, f)
+            if save_predictions:
+                pdir = os.path.join(exp_dir, "predictions")
+                os.makedirs(pdir, exist_ok=True)
+                np.savetxt(os.path.join(pdir, f"predictions_{epoch}.csv"), scores,
+                           delimiter=",")
+                if epoch == 1:
+                    np.savetxt(os.path.join(pdir, "target.csv"), targets, delimiter=",")
+    return state, history, best
+
+
+def _write_result_csv(exp_dir: str, history):
+    """result.csv: one row per epoch."""
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "result.csv"), "w") as f:
+        f.write("epoch,mAP,AUC,acc,d_prime,loss,train_loss\n")
+        for m in history:
+            f.write(f"{m['epoch']},{m['mAP']},{m['AUC']},{m['acc']},"
+                    f"{m['d_prime']},{m['loss']},{m['train_loss']}\n")
+
+
+def evaluate_ensemble(
+    eval_step: Callable,
+    model: torch.nn.Module,
+    state_dicts: list,
+    batches_fn: Callable[[], Iterable],
+    loss_type: str = "BCE",
+    main_metric: str = "mAP",
+    nan2num: bool = False,
+):
+    """Cumulative prediction ensemble (the reference's ``validate_ensemble``):
+    load each state dict into ``model`` in turn (``eval_step`` runs it),
+    average the sigmoid scores of the first k and score that ensemble."""
+    cum = None
+    results = []
+    for k, sd in enumerate(state_dicts, start=1):
+        model.load_state_dict(sd)
+        _, scores, targets = evaluate(eval_step, batches_fn(), loss_type, main_metric,
+                                      nan2num=nan2num)
+        cum = scores if cum is None else cum + scores
+        stats = calculate_stats(cum / k, targets)
+        ap = np.nanmean([s["AP"] for s in stats])
+        results.append({"n_models": k, "mAP": float(ap), "acc": stats[0]["acc"]})
+    return results
+
+
+def average_ensemble_views(scores: np.ndarray, record_index: np.ndarray):
+    """Average test-time ensemble-view predictions per record (the EPIC
+    NUM_ENSEMBLE_VIEWS protocol)."""
+    uniq = np.unique(record_index)
+    out = np.zeros((len(uniq), scores.shape[1]), scores.dtype)
+    for i, r in enumerate(uniq):
+        out[i] = scores[record_index == r].mean(axis=0)
+    return uniq, out

@@ -102,7 +102,26 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    AUM_SCAN_DIRECT=1 too), and every opt-in form at once (the stage form's
    saving forward, K2 in its x-minus form or the fused kernel, bf16
    partials).
-6. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
+6. recipe: recipes from WAV files through ``aum_tpu_torch.run.main``, on
+   synthetic 16-bit WAV clips at 16 kHz (most of full length, every sixth
+   shorter, so that the frame mask acts) with multi-label manifests,
+   written to a temporary directory. as20k (AuM-Base Fo-Bi at full width
+   and depth, bf16, B=12, 1024 frames, mixup 0.5, SpecAugment 48/192):
+   one epoch of 48 clips (4 steps), then validation on 24 (one batch of
+   24); every launch counter is set to 0 just before ``run.main`` and read
+   just after, and each step's and validation batch's launches must be the
+   train path's and the eval path's. Per step: the loss (finite), host ms
+   and CUDA-event ms; the third step under torch.profiler (idle share,
+   the pipeline's work for the next batch included); clips/s, peak
+   memory, the val metrics and the artifacts. Then ``--run-type eval``
+   from the written ``models/``: its val scores must equal the trained
+   state's bit for bit. Then the pipeline alone: decode ms per batch
+   (native and Python decoders) and featurize ms per batch (CUDA events),
+   and one featurized train batch on the card against the CPU from the
+   same draws (``FEATURIZE_TOL``). Then SpeechCommands (B=128, 1 s clips,
+   35 classes, noise, mixup 0.6; full width and depth): 2 steps, its
+   validation, and the post-train valid and eval pass.
+7. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
    clips/s with CUDA events after warm-up; then ``wav_entry``'s model at
    B=64 from waveforms: clips/s, and the frontend's ms alone. Then per kernel
    at the shapes those forwards give it: ms per launch, the plain version's
@@ -123,7 +142,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    stage form. B=64 Fo-Bi clips/s are timed in turns: default,
    AUM_SCAN_DIRECT=1, AUM_SCAN_FUSE_DT=1, AUM_SCAN_FUSE_DT=1,
    AUM_SCAN_DIRECT=1, default.
-7. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
+8. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
    one Fo-Fo forward from waveforms (B=64), then one train step, under
    ``torch.profiler``: device time by
    kernel category (dual and single scan forward, scan backward, conv,
@@ -187,6 +206,12 @@ MODEL_FP32_TOL = (2e-3, 2e-3)
 # and the bench batch.
 EVAL_DIMS = (8, 513, 1536)
 TRAIN_DIMS = (12, 513, 1536)
+# The recipe phase's: as20k validation (B=24, batch_size * 2); SpeechCommands'
+# 128 frames (64 patches and the cls token: 65 tokens) in its train steps
+# (B=128) and its validation (B=256).
+RECIPE_DIMS = {"as20k_val": ((24, 513, 1536), False),
+               "speechcommands_train": ((128, 65, 1536), True),
+               "speechcommands_val": ((256, 65, 1536), False)}
 BENCH_BATCH = 64
 # fp32 train step, card (kernels) against CPU (plain): loss relative, grads
 # as max |err| over max |ref|; the two sum in other orders over 2 layers.
@@ -380,8 +405,14 @@ def phase_build() -> None:
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.strip() for ln in lines
                        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    # The recipe path's host WAV decoder (csrc/wavloader.cpp, g++).
+    from aum_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    decoder = native.build()
     emit({"phase": "build", "seconds": seconds, "libraries": [p.name for p in paths.values()],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "wav_decoder": decoder.name,
+          "wav_decoder_seconds": time.perf_counter() - t0})
     # What the occupancy calculator gives each kernel the paths launch.
     emit({"phase": "occupancy", "kernels": {name: _build.kernel_resources(name)
                                             for name in _build.SOURCES}})
@@ -921,6 +952,7 @@ def phase_kernels() -> dict:
     # not a multiple of the 4 lanes a chain's states are split over, so the
     # last lane of each chain holds part of its states and one none.
     shapes = {"eval": (EVAL_DIMS, False, 16), "train": (TRAIN_DIMS, True, 16),
+              **{label: (dims, train, 16) for label, (dims, train) in RECIPE_DIMS.items()},
               "ragged": ((2, 37, 40), None, 16), "ragged_n5": ((2, 37, 40), None, 5),
               "multi_chunk": ((2, 150, 40), None, 16)}
     results = []
@@ -937,10 +969,10 @@ def phase_kernels() -> dict:
             if train is not False and n == 16:
                 results += _check_chained(label, dims, dtype)
             # The opt-in forms: fuse_dt (eval shapes) at AuM-Base's dt rank
-            # and, at the ragged shape, AuM-tiny's (12: one partial k-step);
+            # and, at the narrow shapes, AuM-tiny's (12: one partial k-step);
             # the backward's forms at the train shapes.
             if train is not True:
-                for rank in (48,) if label == "eval" else (48, 12):
+                for rank in (48,) if dims[2] == 1536 else (48, 12):
                     for shared in (True, False):
                         results += _check_fdt(label, dims, dtype, shared, n, rank)
             if train is not False:
@@ -952,7 +984,7 @@ def phase_kernels() -> dict:
     worst = {}
     for r in results:
         emit({"phase": "kernels", **r})
-        if (r["shape"] in ("eval", "train") and r["dtype"] == str(torch.bfloat16)
+        if (r["shape"] in ("eval", "train", *RECIPE_DIMS) and r["dtype"] == str(torch.bfloat16)
                 and r.get("against", "plain") in ("plain", "fp32_partials_launch")
                 and "check" not in r):
             key = r["kernel"] + ("_save_states" if r.get("save_states") else "") + (
@@ -1328,6 +1360,294 @@ def phase_train() -> dict:
         out[set_name]["clips_per_s"] = TRAIN_BATCH / (ms / 1e3)
     emit(out)
     del step, state, batch
+    return out
+
+
+# The recipe path's synthetic data: 16-bit WAV clips at 16 kHz, most of a
+# recipe's full length and every RECIPE_SHORT_EVERY-th shorter, so that the
+# frame mask acts; multi-label manifests over the recipe's classes.
+RECIPE_SPLITS = {"as20k/aum-base_scratch": {"train": 48, "val": 24},
+                 "speechcommands/aum-base_scratch": {"train": 256, "val": 128, "eval": 128}}
+RECIPE_SECONDS = {"as20k/aum-base_scratch": (10.0, 7.3),
+                  "speechcommands/aum-base_scratch": (1.0, 0.73)}
+RECIPE_SHORT_EVERY = 6
+# The card's featurized batch against the CPU's from the same draws: the
+# fbank's bound against the JAX package on the CPU (cuFFT against pocketfft,
+# fp32 sums in other orders), on the normalized log-mels.
+FEATURIZE_TOL = (1e-4, 1e-4)  # (atol, rtol)
+
+
+def _write_recipe_data(root: str, recipe: str, n_classes: int, seed: int) -> dict:
+    """WAV clips, a label CSV and one JSON manifest per split under ``root``."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    long_s, short_s = RECIPE_SECONDS[recipe]
+    files = {"csv": os.path.join(root, "labels.csv")}
+    with open(files["csv"], "w") as f:
+        f.write("index,mid,display_name\n")
+        f.writelines(f"{i},/m/c{i},class {i}\n" for i in range(n_classes))
+    for split, n in RECIPE_SPLITS[recipe].items():
+        entries = []
+        for i in range(n):
+            samples = int(16000 * (short_s if i % RECIPE_SHORT_EVERY == 5 else long_s))
+            labels = rng.choice(n_classes, size=1 + int(rng.integers(0, 3)), replace=False)
+            t = np.arange(samples) / 16000
+            wav = 0.1 * rng.standard_normal(samples) + 0.3 * np.sin(
+                2 * np.pi * (200 + 20 * labels[0]) * t)
+            path = os.path.join(root, f"{split}{i}.wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(np.clip(wav * 32767, -32768, 32767).astype("<i2").tobytes())
+            entries.append({"wav": path, "labels": ",".join(f"/m/c{c}" for c in labels)})
+        files[split] = os.path.join(root, f"{split}.json")
+        with open(files[split], "w") as f:
+            json.dump({"data": entries}, f)
+    return files
+
+
+@contextlib.contextmanager
+def _recipe_probes(records: dict):
+    """Wrap the train loop's step, eval step and evaluate while a recipe runs:
+    per train step its loss, host ms, CUDA-event ms and launches (and the
+    third step under torch.profiler, the pipeline's work for the next batch
+    included); per val batch its launches; the val scores."""
+    from aum_tpu_torch.train import loop
+
+    saved = (loop.make_train_step, loop.make_eval_step, loop.evaluate)
+
+    def make_train_step(*a, **k):
+        step = saved[0](*a, **k)
+
+        def probed(state, batch):
+            before = _read_counters()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            if len(records["steps"]) == 2:
+                out = []
+                records["profile"] = _profile(
+                    "profile_recipe_step", lambda: out.append(step(state, batch)),
+                    recipe=records["recipe"], batch=int(batch["x"].shape[0]))
+                state, loss = out[0]
+            else:
+                state, loss = step(state, batch)
+            end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+            after = _read_counters()
+            records["steps"].append({
+                "loss": float(loss), "host_ms": host_ms, "cuda_ms": start.elapsed_time(end),
+                "launches": {k: after[k] - before[k] for k in after}})
+            return state, loss
+
+        return probed
+
+    def make_eval_step(model):
+        fn = saved[1](model)
+
+        def probed(x):
+            before = _read_counters()
+            out = fn(x)
+            torch.cuda.synchronize()
+            after = _read_counters()
+            records["val_batches"].append({k: after[k] - before[k] for k in after})
+            return out
+
+        return probed
+
+    def evaluate(*a, **k):
+        out = saved[2](*a, **k)
+        records["val_scores"] = out[1]
+        return out
+
+    # run.main and train_loop both read these names from the loop module.
+    loop.make_train_step, loop.make_eval_step, loop.evaluate = (make_train_step, make_eval_step,
+                                                                evaluate)
+    try:
+        yield records
+    finally:
+        loop.make_train_step, loop.make_eval_step, loop.evaluate = saved
+
+
+def _run_recipe(recipe: str, files: dict, exp_dir: str, overrides: list) -> dict:
+    """``aum_tpu_torch.run.main`` training ``recipe`` for one epoch, with every
+    launch counter set to 0 just before and read just after."""
+    from aum_tpu_torch.run import main as run_main
+
+    argv = ["--recipe", recipe, "--data-train", files["train"], "--data-val", files["val"],
+            "--label-csv", files["csv"], "--exp-dir", exp_dir, "--set", "n_epochs=1"]
+    if "eval" in files:
+        argv += ["--data-eval", files["eval"]]
+    records = {"recipe": recipe, "steps": [], "val_batches": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _recipe_probes(records):
+        t0 = time.perf_counter()
+        _reset_counters()
+        history = run_main(argv + [a for o in overrides for a in ("--set", o)])
+        torch.cuda.synchronize()
+        records["launches"] = _read_counters()
+        records["seconds"] = time.perf_counter() - t0
+    records["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    records["history"] = history
+    return records
+
+
+def _check_recipe_run(rec: dict, batch: int, n_steps: int, n_val: int, depth: int) -> dict:
+    step_launches = _expected_train_launches("Fo-Bi", depth, {}, bf16=True)
+    val_launches = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
+    losses = [s["loss"] for s in rec["steps"]]
+    # Past the first step (warm-up), and not the profiled third.
+    steady = [s["cuda_ms"] for i, s in enumerate(rec["steps"]) if i not in (0, 2)]
+    shown = [{**s, "launches": {k: v for k, v in s["launches"].items() if v}}
+             for s in rec["steps"]]
+    out = {"phase": "recipe_path", "recipe": rec["recipe"], "seconds": rec["seconds"],
+           "steps": shown, "losses": losses,
+           "val_batches": len(rec["val_batches"]), "val_metrics": rec["history"][-1],
+           "launches": rec["launches"], "expected_step_launches": step_launches,
+           "expected_val_launches": val_launches,
+           "step_launches": rec["steps"][0]["launches"] if rec["steps"] else None,
+           "val_batch_launches": rec["val_batches"][0] if rec["val_batches"] else None,
+           "peak_mem_bytes": rec["peak_mem_bytes"],
+           "epoch_clips_per_s": rec["history"][-1]["clips_per_sec"],
+           "steady_step_cuda_ms": sum(steady) / len(steady),
+           "steady_clips_per_s": batch / (sum(steady) / len(steady) / 1e3),
+           "idle_share": rec["profile"]["idle_share"] if "profile" in rec else None}
+    if "profile" in rec:
+        # The profiler slows the host's launches; the profiled step's device
+        # time over an unprofiled steady step's time estimates the idle share
+        # without it.
+        out["idle_share_steady_est"] = 1.0 - rec["profile"]["device_busy_ms"] / out[
+            "steady_step_cuda_ms"]
+    emit(out)
+    if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"{rec['recipe']}: expected {n_steps} finite losses, got {losses}")
+    if any(s["launches"] != step_launches for s in rec["steps"]):
+        raise RuntimeError(f"{rec['recipe']}: a train step launched other kernels than "
+                           f"{step_launches}")
+    if len(rec["val_batches"]) != n_val or any(v != val_launches for v in rec["val_batches"]):
+        raise RuntimeError(f"{rec['recipe']}: expected {n_val} val batches of {val_launches} "
+                           "launches")
+    total = {k: n_steps * step_launches[k] + n_val * val_launches[k] for k in step_launches}
+    if rec["launches"] != total:
+        raise RuntimeError(f"{rec['recipe']}: the run launched {rec['launches']}, not {total}")
+    return out
+
+
+def _check_featurize(pipe, python_pipe, n_batches: int = 3) -> dict:
+    """Decode ms per batch (native, and the Python decoder of
+    ``python_pipe``), featurize ms per batch; one featurized train batch on
+    the card against the same batch on the CPU from the same draws, the
+    batch before it the mixup partners."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from aum_tpu_torch.data.pipeline import draw_featurize
+
+    conf = pipe.dataset.conf
+    rng = np.random.default_rng(0)
+    order = pipe._epoch_order(1)
+    host, decode_ms = [], []
+    with cf.ThreadPoolExecutor(pipe.num_workers) as pool:
+        for b in range(n_batches):
+            t0 = time.perf_counter()
+            host.append(pipe.host_batch(order[b * pipe.batch_size:(b + 1) * pipe.batch_size],
+                                        rng, pool))
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        python_pipe.host_batch(order[:pipe.batch_size], rng, pool)
+        python_decode_ms = (time.perf_counter() - t0) * 1e3
+    pw, _, py = pipe.to_device(*host[0])
+    w, n, y = pipe.to_device(*host[1])
+    bsz = w.shape[0]
+    draws = draw_featurize(pipe.generator(1), conf, True, bsz, 2 * bsz)
+    featurize_ms = cuda_ms(lambda: pipe.featurize(w, n, y, draws, pw, py), iters=5)
+    got = pipe.featurize(w, n, y, draws, pw, py)
+
+    def cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.cpu()
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(v) for v in tree)
+        return tree
+
+    want = pipe.featurize(*cpu((w, n, y, draws, pw, py)))
+    r = compare(got["x"].cpu(), want["x"], *FEATURIZE_TOL)
+    r_y = compare(got["y"].cpu(), want["y"], 1e-6, 0.0)
+    out = {"phase": "recipe_featurize", "batch": bsz, "samples": conf.target_samples,
+           "frames": conf.target_length, "decode_ms_per_batch": decode_ms,
+           "python_decode_ms_per_batch": python_decode_ms, "featurize_ms_per_batch": featurize_ms,
+           "x_vs_cpu": r, "y_vs_cpu": r_y, "tol": FEATURIZE_TOL,
+           "n_frames": n.tolist()}
+    emit(out)
+    if not (r["ok"] and r_y["ok"]):
+        raise RuntimeError("the card's featurized batch disagrees with the CPU's")
+    return out
+
+
+def phase_recipe() -> dict:
+    """Recipes from WAV files through ``aum_tpu_torch.run``: as20k (AuM-Base
+    Fo-Bi, B=12, 1024 frames) for 4 steps and its validation, the eval run
+    from its checkpoint (bit-equal val scores), SpeechCommands (B=128, 128
+    frames, noise) for 2 steps and its valid + eval pass, and the featurizer
+    on the card against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from aum_tpu_torch.configs import RECIPES
+    from aum_tpu_torch.data import AudioJsonDataset, BatchPipeline
+    from aum_tpu_torch.run import main as run_main
+
+    out = {}
+    as20k = "as20k/aum-base_scratch"
+    cfg = RECIPES[as20k]
+    with tempfile.TemporaryDirectory(prefix="aum_recipe_") as root:
+        files = _write_recipe_data(root, as20k, cfg.n_class, seed=0)
+        exp = os.path.join(root, "exp")
+        rec = _run_recipe(as20k, files, exp, [])
+        depth = cfg.model_config().depth
+        out["as20k"] = _check_recipe_run(rec, cfg.batch_size, n_steps=4, n_val=1, depth=depth)
+        artifacts = sorted(os.listdir(exp)) + [f"models/{n}" for n in
+                                               sorted(os.listdir(os.path.join(exp, "models")))]
+        # Restore the checkpoint: the eval run's val scores against the
+        # trained state's, bit for bit.
+        ev = os.path.join(root, "eval")
+        metrics = run_main(["--recipe", as20k, "--data-val", files["val"], "--label-csv",
+                            files["csv"], "--exp-dir", ev, "--run-type", "eval", "--ckpt",
+                            os.path.join(exp, "models")])
+        restored = np.loadtxt(os.path.join(ev, "predictions_eval.csv"), delimiter=",")
+        trained = rec["val_scores"]
+        equal = bool(np.array_equal(restored.astype(np.float32), trained))
+        out["restore"] = {"phase": "recipe_restore", "artifacts": artifacts,
+                          "eval_artifacts": sorted(os.listdir(ev)),
+                          "scores_shape": list(trained.shape), "bit_equal": equal,
+                          "max_abs_diff": float(np.abs(restored - trained).max()),
+                          "eval_metrics": metrics}
+        emit(out["restore"])
+        if not equal or metrics["mAP"] != rec["history"][-1]["mAP"]:
+            raise RuntimeError("the restored checkpoint's val scores differ from the trained "
+                               "state's")
+        ds = AudioJsonDataset(files["train"], cfg.audio_conf(train=True), files["csv"])
+        out["featurize"] = _check_featurize(
+            BatchPipeline(ds, cfg.batch_size, seed=cfg.seed),
+            BatchPipeline(ds, cfg.batch_size, seed=cfg.seed, use_native=False))
+        del rec
+    spc = "speechcommands/aum-base_scratch"
+    with tempfile.TemporaryDirectory(prefix="aum_recipe_") as root:
+        files = _write_recipe_data(root, spc, RECIPES[spc].n_class, seed=1)
+        rec = _run_recipe(spc, files, os.path.join(root, "exp"), [])
+        # Validation in the epoch, then the post-train valid and eval pass.
+        out["speechcommands"] = _check_recipe_run(rec, RECIPES[spc].batch_size, n_steps=2,
+                                                  n_val=3, depth=RECIPES[spc].model_config().depth)
     return out
 
 
@@ -1931,6 +2251,7 @@ def main() -> int:
         eval_runs = timed("model", phase_model)
         wav_launches = timed("wav", phase_wav)
         train = timed("train", phase_train)
+        recipe = timed("recipe", phase_recipe)
         bench = timed("bench", phase_bench, device_info)
         timed("profile", phase_profile)
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
@@ -2074,6 +2395,19 @@ def main() -> int:
     conv["launches_by_path"] = {"eval": eval_launches["causal_conv1d_fwd"],
                                 "wav": wav_launches["causal_conv1d_fwd"],
                                 "train": train_launches["causal_conv1d_fwd"]}
+    # The recipe paths (run.main from WAV files): launches per train step and
+    # per validation batch, by the counter each entry is keyed by.
+    for entry, counter in ((scan, "selective_scan_dual_fwd"),
+                           (direct, "selective_scan_dual_direct_fwd"),
+                           (fdt, "selective_scan_dual_fdt_fwd"),
+                           (stage, "selective_scan_dual_stage_fwd"),
+                           (single, "selective_scan_fwd"), (bwd, "selective_scan_bwd"),
+                           (fused, "selective_scan_bwd_fused"), (conv, "causal_conv1d_fwd")):
+        for name in ("as20k", "speechcommands"):
+            entry["launches_by_path"][f"recipe_{name}_train_step"] = (
+                recipe[name]["step_launches"][counter])
+            entry["launches_by_path"][f"recipe_{name}_val_batch"] = (
+                recipe[name]["val_batch_launches"][counter])
     emit({"kernels": [scan, direct, fdt, stage, single, bwd, fused, conv]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

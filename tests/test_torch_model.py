@@ -172,6 +172,10 @@ def test_port_imports_no_jax():
         "import aum_tpu_torch, aum_tpu_torch.ops, aum_tpu_torch.models\n"
         "import aum_tpu_torch.convert, aum_tpu_torch.entry, aum_tpu_torch.train\n"
         "import aum_tpu_torch.audio, aum_tpu_torch.serving\n"
+        "import aum_tpu_torch.data, aum_tpu_torch.data.native, aum_tpu_torch.run\n"
+        "import aum_tpu_torch.configs, aum_tpu_torch.logging_utils\n"
+        "import aum_tpu_torch.train.metrics, aum_tpu_torch.train.checkpoints\n"
+        "import aum_tpu_torch.train.profiling\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'aum_tpu')]\n"
@@ -179,11 +183,12 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import torch
 
     from aum_tpu_torch.entry import entry
     from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
+    from aum_tpu_torch.run import main as run_main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -191,6 +196,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AudioMamba(AudioMambaConfig(depth=1, embed_dim=32, spectrogram_size=(32, 32),
                                     num_classes=3, bimamba_type="v1"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_main(["--recipe", "as20k/aum-base_scratch", "--exp-dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
 
 
 def test_entry_on_cpu_builds_the_flagship():

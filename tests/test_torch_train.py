@@ -525,9 +525,12 @@ def test_eval_step_and_unported_augmentation():
     x, _ = _batch(6)
     logits = make_eval_step(_tiny_port("v1"))(torch.from_numpy(x))
     assert logits.shape == (4, 5) and not logits.requires_grad
+    # Augmentation is ported now (tests/test_torch_run.py holds the augmented
+    # step to JAX's); it draws from a generator the step must be given.
     for aug in (AugmentConfig(freqm=8), AugmentConfig(timem=8), AugmentConfig(noise=True)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="aug_generator"):
             make_train_step(TrainHyperParams(), 100, augment=aug)
+        make_train_step(TrainHyperParams(), 100, augment=aug, aug_generator=torch.Generator())
 
 
 def test_train_entry_builds_the_workload_and_needs_a_card(monkeypatch):
