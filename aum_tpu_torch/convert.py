@@ -1,10 +1,13 @@
-"""JAX parameter tree -> this package's state dict.
+"""JAX parameter trees -> this package's state dicts.
 
-Counterpart of ``aum_tpu/convert/torch_port.py::export_aum_state_dict``: it
-takes the JAX package's parameter tree as numpy arrays (what
+``state_dict_from_jax`` is the counterpart of
+``aum_tpu/convert/torch_port.py::export_aum_state_dict``: it takes the JAX
+package's AudioMamba parameter tree as numpy arrays (what
 ``jax.device_get(params)`` gives) and returns the upstream reference's
 state-dict layout, which is also this package's module tree, so the result
-loads into ``AudioMamba`` with ``strict=True``. Layout translation:
+loads into ``AudioMamba`` with ``strict=True``. ``lm_state_dict_from_jax``
+does the same for the Mamba LM (the inverse of
+``models/lm.py::port_lm_state_dict``). Layout translation:
 
 - linear weights (in, out) -> (out, in); the JAX package's separate x/z
   in-projections concatenate into the reference's single ``in_proj``;
@@ -88,4 +91,33 @@ def state_dict_from_jax(params_np: Dict, cfg) -> Dict[str, torch.Tensor]:
         _unstack_block(p["layers"]["bwd"], range(1, cfg.depth, 2), bt, sd)
     else:
         _unstack_block(p["layers"]["block"], range(cfg.depth), bt, sd)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def lm_state_dict_from_jax(params_np: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's Mamba LM params (``MambaLM`` / ``port_lm_state_dict``'s
+    ``{'params': {...}}``, numpy leaves) -> this package's ``MambaLM`` state
+    dict (the reference ``MambaLMHeadModel``'s keys, fp32): the stacked
+    layer axis unstacked, (in, out) matmul weights transposed back, the x and
+    z halves rejoined into ``in_proj``, the conv's channel axis restored.
+    ``cfg``: an ``MambaLMConfig`` of either package (``n_layer`` is read)."""
+    p = params_np.get("params", params_np)
+    g = lambda k, i=None: np.asarray(p[k] if i is None else p[k][i], np.float32)  # noqa: E731
+    sd = {"backbone.embedding.weight": g("embedding"),
+          "backbone.norm_f.weight": g("norm_f_weight")}
+    for i in range(cfg.n_layer):
+        pre = f"backbone.layers.{i}."
+        sd.update({
+            pre + "norm.weight": g("norm_weight", i),
+            pre + "mixer.in_proj.weight": np.concatenate(
+                [g("in_proj_x", i).T, g("in_proj_z", i).T], axis=0),
+            pre + "mixer.conv1d.weight": g("conv_w", i)[:, None, :],
+            pre + "mixer.conv1d.bias": g("conv_b", i),
+            pre + "mixer.x_proj.weight": g("x_proj", i).T,
+            pre + "mixer.dt_proj.weight": g("dt_w", i).T,
+            pre + "mixer.dt_proj.bias": g("dt_b", i),
+            pre + "mixer.A_log": g("A_log", i),
+            pre + "mixer.D": g("D", i),
+            pre + "mixer.out_proj.weight": g("out_proj", i).T,
+        })
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

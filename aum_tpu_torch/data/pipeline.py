@@ -52,6 +52,23 @@ def balanced_sample_weights(dataset: AudioJsonDataset) -> np.ndarray:
     return np.array([sum(1000.0 / (counts[i] + 0.01) for i in idxs) for idxs in label_idx])
 
 
+def to_device(device: torch.device, *arrays: np.ndarray) -> list[torch.Tensor]:
+    """Copy host arrays to ``device``. On CUDA each goes through a fresh
+    pinned buffer and an asynchronous copy; the caching host allocator
+    reuses a pinned block only after the copy that read it has run."""
+    if device.type != "cuda":
+        return [torch.from_numpy(a).to(device) for a in arrays]
+    return [torch.from_numpy(a).pin_memory().to(device, non_blocking=True) for a in arrays]
+
+
+def epoch_generator(device: torch.device, *seed_words: int) -> torch.Generator:
+    """A featurizer's generator on ``device``, seeded from
+    ``np.random.default_rng(list(seed_words))``, as the JAX pipelines seed
+    their epoch's PRNG key."""
+    seed = int(np.random.default_rng(list(seed_words)).integers(2**31))
+    return torch.Generator(device).manual_seed(seed)
+
+
 def draw_featurize(generator: torch.Generator, conf: AudioConf, train: bool, batch: int,
                    pool: int) -> dict:
     """The random values of one featurized batch: 'mixup' (partners from a
@@ -136,8 +153,7 @@ class BatchPipeline:
 
     def generator(self, epoch: int) -> torch.Generator:
         """The featurizer's generator for ``epoch``, on the device."""
-        seed = int(np.random.default_rng([self.seed, epoch]).integers(2**31))
-        return torch.Generator(self.device).manual_seed(seed)
+        return epoch_generator(self.device, self.seed, epoch)
 
     def host_batch(self, idxs, rng: np.random.Generator, pool: cf.Executor
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -162,15 +178,6 @@ class BatchPipeline:
                 np.array([s[1] for s in samples], np.int64),
                 np.stack([s[2] for s in samples]))
 
-    def to_device(self, *arrays: np.ndarray) -> list[torch.Tensor]:
-        """Copy host arrays to the device. On CUDA each goes through a fresh
-        pinned buffer and an asynchronous copy; the caching host allocator
-        reuses a pinned block only after the copy that read it has run."""
-        if self.device.type != "cuda":
-            return [torch.from_numpy(a).to(self.device) for a in arrays]
-        return [torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
-                for a in arrays]
-
     def batches(self, epoch: int = 0) -> Iterator[dict]:
         conf = self.dataset.conf
         order = self._epoch_order(epoch)
@@ -186,7 +193,8 @@ class BatchPipeline:
                 idxs = order[start:start + bs]
                 if len(idxs) < bs and self._drop_last:
                     break
-                waves, n_frames, labels = self.to_device(*self.host_batch(idxs, rng, pool))
+                waves, n_frames, labels = to_device(self.device,
+                                                    *self.host_batch(idxs, rng, pool))
                 partners = (prev if use_partners and prev is not None
                             and prev[0].shape == waves.shape else (None, None))
                 pool_size = len(idxs) + (0 if partners[0] is None else len(partners[0]))

@@ -16,11 +16,13 @@ Variants: ``bimamba_type="v1"`` (Fo-Bi) runs the reverse scan over the same
 activations with its own ``A_b``; ``"v2"`` (Bi-Bi) runs a separate branch
 with an anti-causal conv, and the two outputs are summed and halved (the
 reference's ``if_devide_out``, on in every configuration). ``"none"``
-(Fo-Fo) runs one forward scan (``ops.selective_scan``, the single-direction
-kernel), not halved, and has no ``A_b_log``. The mixer's shape and init
-constants (conv width 4, expand 2, dt rank ceil(d_model / 16), dt in
-[1e-3, 1e-1] floored at 1e-4, conv bias) are the reference defaults; no
-configuration changes them.
+(Fo-Fo, and the Mamba LM's mixer) runs one forward scan
+(``ops.selective_scan``, the single-direction kernel), not halved, and has
+no ``A_b_log``. The mixer's shape and init constants (conv width 4, expand
+2, dt rank ceil(d_model / 16), dt in [1e-3, 1e-1] floored at 1e-4, conv
+bias) are the reference defaults; only an LM config changes the conv width
+and the expansion (``d_conv``, ``expand``), and the conv kernel takes width
+4 only.
 
 ``MambaMixer.pre_scan`` is the pre-scan compute (in_proj, conv, x_proj,
 dt_proj), the counterpart of the JAX mixer's ``pre_fn``: it returns the
@@ -86,13 +88,14 @@ class MambaMixer(nn.Module):
     """Selective-SSM mixer (one direction, or a direction pair) for one block."""
 
     def __init__(self, d_model: int, d_state: int = 16, bimamba_type: str = "v2",
-                 n_layer: int = 24):
+                 n_layer: int = 24, d_conv: int = D_CONV, expand: int = EXPAND):
         super().__init__()
         if bimamba_type not in ("none", "v1", "v2"):
             raise ValueError(f"unknown bimamba_type: {bimamba_type}")
         self.d_model = d_model
         self.d_state = d_state
-        self.d_inner = EXPAND * d_model
+        self.d_conv = d_conv
+        self.d_inner = expand * d_model
         self.dt_rank = math.ceil(d_model / 16)
         self.bimamba_type = bimamba_type
         self.n_layer = n_layer
@@ -108,7 +111,7 @@ class MambaMixer(nn.Module):
 
     def _add_branch(self, suffix: str) -> None:
         d_in, rank = self.d_inner, self.dt_rank
-        self.add_module(f"conv1d{suffix}", _Weights((d_in, 1, D_CONV), (d_in,)))
+        self.add_module(f"conv1d{suffix}", _Weights((d_in, 1, self.d_conv), (d_in,)))
         self.add_module(f"x_proj{suffix}",
                         _Weights((rank + 2 * self.d_state, d_in)))
         self.add_module(f"dt_proj{suffix}", _Weights((d_in, rank), (d_in,)))
@@ -125,8 +128,8 @@ class MambaMixer(nn.Module):
         suffixes = ("", "_b") if self.bimamba_type == "v2" else ("",)
         for s in suffixes:
             conv = getattr(self, f"conv1d{s}")
-            _uniform_fan_in_(conv.weight, D_CONV, generator)
-            _uniform_fan_in_(conv.bias, D_CONV, generator)
+            _uniform_fan_in_(conv.weight, self.d_conv, generator)
+            _uniform_fan_in_(conv.bias, self.d_conv, generator)
             _uniform_fan_in_(getattr(self, f"x_proj{s}").weight, d_in, generator)
             dt_proj = getattr(self, f"dt_proj{s}")
             _uniform_fan_in_(dt_proj.weight, self.dt_rank, generator)
@@ -207,12 +210,13 @@ class MambaBlock(nn.Module):
     """
 
     def __init__(self, d_model: int, norm_epsilon: float = 1e-5,
-                 bimamba_type: str = "v2", d_state: int = 16, n_layer: int = 24):
+                 bimamba_type: str = "v2", d_state: int = 16, n_layer: int = 24,
+                 d_conv: int = D_CONV, expand: int = EXPAND):
         super().__init__()
         self.norm_epsilon = norm_epsilon
         self.norm = _Weights((d_model,))
-        self.mixer = MambaMixer(d_model, d_state=d_state,
-                                bimamba_type=bimamba_type, n_layer=n_layer)
+        self.mixer = MambaMixer(d_model, d_state=d_state, bimamba_type=bimamba_type,
+                                n_layer=n_layer, d_conv=d_conv, expand=expand)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -212,3 +212,23 @@ def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
 
 
 causal_conv1d.launches = 0
+
+
+def causal_conv1d_update(x: torch.Tensor, conv_state: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor | None = None,
+                         activation: str | None = "silu") -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the causal conv, plain PyTorch on every device (the
+    JAX package's ``causal_conv1d_update`` is no kernel either).
+
+    x: (B, D) new token; conv_state: (B, D, K) the previous inputs, oldest
+    first; weight: (D, K). The window rolls left by one and takes x last, then
+    the taps, the bias and an optional SiLU. Returns (y (B, D), the new
+    (B, D, K) state).
+    """
+    conv_state = torch.cat([conv_state[:, :, 1:], x[:, :, None]], dim=2)
+    y = torch.einsum("bdk,dk->bd", conv_state, weight)
+    if bias is not None:
+        y = y + bias[None, :]
+    if activation == "silu":
+        y = F.silu(y)
+    return y, conv_state

@@ -5,8 +5,12 @@ Counterpart of ``aum_tpu/run.py``. Usage:
     python -m aum_tpu_torch.run --recipe as20k/aum-base_scratch \\
         --data-train train.json --data-val val.json [--data-eval eval.json] \\
         --label-csv labels.csv --exp-dir ./exp/as20k [--set key=value ...]
+    python -m aum_tpu_torch.run --recipe epic_sounds/aum-base_scratch \\
+        --epic-hdf5 audio.hdf5 --epic-annotations-train train.pkl \\
+        --epic-annotations-val val.pkl --exp-dir ./exp/epic
 
-It builds the datasets and pipelines (``aum_tpu_torch.data``), the
+It builds the datasets and pipelines (``aum_tpu_torch.data``; EPIC-SOUNDS
+from its annotation pickles and HDF5 audio store), the
 AudioMamba model from the recipe (weights drawn from the recipe's seed),
 Adam with the recipe's schedule, and runs ``train_loop`` with a validation
 pass and checkpoints each epoch; or only evaluates: ``--run-type eval``
@@ -14,12 +18,16 @@ from the ``models/`` directory a train run wrote (``--ckpt``), ``eval_wa``
 on the average of the epoch checkpoints in [``--wa-start``, ``--wa-end``],
 ``eval_ensemble`` on their cumulative prediction ensemble. SpeechCommands
 keeps the reference's post-train protocol: the best checkpoint is evaluated
-on the validation and the test split.
+on the validation and the test split; EPIC-SOUNDS evaluates its test split
+(``--epic-annotations-test``, ``--run-type eval``) on the average of each
+record's NUM_ENSEMBLE_VIEWS views. ``main(argv, pipelines=...)`` takes the
+(train, val, eval) pipelines from the caller instead of building them from
+the file arguments, e.g. over an in-memory EPIC dataset.
 
 It runs on the card unless ``--device`` names another device, and raises
 without one. What the port does not have yet raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item: the parallel modes (``--n-model``,
-``--n-seq``, ``--n-pipe``, ``--multihost``), EPIC-SOUNDS, the AST model,
+``--n-seq``, ``--n-pipe``, ``--multihost``), the AST model,
 the pretrained inits and ``.pth`` checkpoints, and flexible patch sizes.
 """
 
@@ -65,11 +73,12 @@ def parse_args(argv=None):
     p.add_argument("--coordinator-address", help="not ported yet")
     p.add_argument("--num-processes", type=int, help="not ported yet")
     p.add_argument("--process-id", type=int, help="not ported yet")
-    p.add_argument("--epic-yaml", help="not ported yet")
-    p.add_argument("--epic-hdf5", help="not ported yet")
-    p.add_argument("--epic-annotations-train", help="not ported yet")
-    p.add_argument("--epic-annotations-val", help="not ported yet")
-    p.add_argument("--epic-annotations-test", help="not ported yet")
+    p.add_argument("--epic-yaml", help="EPIC config yaml (needs the yaml package)")
+    p.add_argument("--epic-hdf5", help="EPIC-KITCHENS audio hdf5")
+    p.add_argument("--epic-annotations-train")
+    p.add_argument("--epic-annotations-val")
+    p.add_argument("--epic-annotations-test",
+                   help="test split: NUM_ENSEMBLE_VIEWS per record, view-averaged predictions")
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--set", action="append", default=[],
                    help="override recipe fields, e.g. --set lr=1e-4")
@@ -114,11 +123,6 @@ def check_ported(args, cfg) -> None:
             or args.process_id is not None):
         _not_ported("--n-model/--n-seq/--n-pipe/--multihost (the parallel modes)",
                     "8: parallel")
-    epic_args = (args.epic_yaml, args.epic_hdf5, args.epic_annotations_train,
-                 args.epic_annotations_val, args.epic_annotations_test)
-    if cfg.dataset == "epic_sounds" or any(epic_args):
-        _not_ported("EPIC-SOUNDS (data/epic.py, the STFT log-mel, spec_warp)",
-                    "2: data, the EPIC branch")
     if cfg.model == "ast":
         _not_ported("model=ast", "6: porters and AST")
     if cfg.imagenet_pretrain_path or cfg.aum_pretrain_path or cfg.ast_pretrain_path:
@@ -132,6 +136,8 @@ def check_ported(args, cfg) -> None:
 def build_pipelines(cfg, args, device):
     from aum_tpu_torch.data import AudioJsonDataset, BatchPipeline, balanced_sample_weights
 
+    if cfg.dataset == "epic_sounds":
+        return _build_epic_pipelines(cfg, args, device)
     if not args.label_csv:
         raise ValueError("--label-csv is required for this dataset")
     train_pipe = val_pipe = eval_pipe = None
@@ -147,6 +153,58 @@ def build_pipelines(cfg, args, device):
         ds = AudioJsonDataset(args.data_eval, cfg.audio_conf(train=False), args.label_csv)
         eval_pipe = BatchPipeline(ds, cfg.batch_size * 2, train=False, **kw)
     return train_pipe, val_pipe, eval_pipe
+
+
+def epic_audio_config(cfg, yaml_path: str | None = None):
+    """The EPIC audio config of recipe ``cfg`` (classes, frames, mel bins,
+    masks, normalization), over the yaml's AUDIO_DATA keys where one is given."""
+    from aum_tpu_torch.data.epic import EpicAudioConfig
+
+    kw = dict(num_classes=cfg.n_class, num_frames=cfg.audio_length,
+              num_frequencies=cfg.melbins, t_mask=cfg.timem, f_mask=cfg.freqm,
+              mean=cfg.dataset_mean, std=cfg.dataset_std)
+    return (EpicAudioConfig.from_yaml(yaml_path, **kw) if yaml_path
+            else EpicAudioConfig(**kw))
+
+
+def _build_epic_pipelines(cfg, args, device):
+    from aum_tpu_torch.data.epic import EpicBatchPipeline, EpicSoundsDataset
+
+    ecfg = epic_audio_config(cfg, args.epic_yaml)
+    pipe_kw = dict(seed=cfg.seed, num_workers=args.num_workers, device=device)
+    pipes = []
+    for ann, split, train, bs in ((args.epic_annotations_train, "train", True, cfg.batch_size),
+                                  (args.epic_annotations_val, "val", False, cfg.batch_size * 2),
+                                  (args.epic_annotations_test, "test", False,
+                                   cfg.batch_size * 2)):
+        pipes.append(None if not ann else EpicBatchPipeline(
+            EpicSoundsDataset.from_files(ann, args.epic_hdf5, ecfg, split=split), bs,
+            train=train, **pipe_kw))
+    return tuple(pipes)
+
+
+def evaluate_views(eval_step, pipe, main_metric: str):
+    """EPIC's test protocol: each record's NUM_ENSEMBLE_VIEWS sigmoid scores
+    (and targets) averaged before scoring. Returns (metrics, scores, stats);
+    the loss is not computed (nan)."""
+    from aum_tpu_torch.data.pipeline import Prefetcher
+    from aum_tpu_torch.train import average_ensemble_views, calculate_stats, d_prime, sigmoid_np
+
+    outs, tgts, recs = [], [], []
+    for batch in Prefetcher(pipe.batches()):
+        outs.append(sigmoid_np(eval_step(batch["x"]).float().cpu().numpy()))
+        tgts.append(batch["y"].float().cpu().numpy())
+        recs.append(batch["record_index"])
+    rec = np.concatenate(recs)
+    _, scores = average_ensemble_views(np.concatenate(outs), rec)
+    _, targets = average_ensemble_views(np.concatenate(tgts), rec)
+    stats = calculate_stats(scores, targets, full_curves=True)
+    auc = float(np.nanmean([st["auc"] for st in stats]))
+    metrics = {"mAP": float(np.nanmean([st["AP"] for st in stats])), "AUC": auc,
+               "acc": stats[0]["acc"], "d_prime": d_prime(auc) if 0 < auc < 1 else float("nan"),
+               "loss": float("nan"), "main": None}
+    metrics["main"] = metrics["acc" if main_metric == "acc" else "mAP"]
+    return metrics, scores, stats
 
 
 def build_model(cfg, device):
@@ -173,7 +231,7 @@ def _write_eval_artifacts(exp_dir, metrics, scores, stats) -> None:
         pickle.dump(stats, f)
 
 
-def main(argv=None):
+def main(argv=None, pipelines=None):
     from aum_tpu_torch.configs import RECIPES
     from aum_tpu_torch.train import (
         AugmentConfig,
@@ -193,7 +251,7 @@ def main(argv=None):
     with open(os.path.join(args.exp_dir, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=2)
 
-    train_pipe, val_pipe, eval_pipe = build_pipelines(cfg, args, device)
+    train_pipe, val_pipe, eval_pipe = pipelines or build_pipelines(cfg, args, device)
     model = build_model(cfg, device)
     # The steps, the eval and the loop are read from ``train.loop`` at call
     # time, where ``train_loop`` reads them too: wrapping that module's
@@ -236,9 +294,12 @@ def main(argv=None):
             raise ValueError("need --data-eval or --data-val")
         if args.ckpt:
             model.load_state_dict(Checkpointer(args.ckpt).model_state("best"))
-        metrics, scores, _, stats = loop.evaluate(
-            eval_step, pipe.batches(), cfg.loss, cfg.metrics, nan2num=cfg.nan2num,
-            return_stats=True, full_curves=True)
+        if cfg.dataset == "epic_sounds" and eval_pipe is not None:
+            metrics, scores, stats = evaluate_views(eval_step, eval_pipe, cfg.metrics)
+        else:
+            metrics, scores, _, stats = loop.evaluate(
+                eval_step, pipe.batches(), cfg.loss, cfg.metrics, nan2num=cfg.nan2num,
+                return_stats=True, full_curves=True)
         print(json.dumps(metrics, default=float))
         _write_eval_artifacts(args.exp_dir, metrics, scores, stats)
         return metrics

@@ -57,6 +57,8 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    plain version and K2, one and both directions, with and without the
    softplus, at L = 1, 63, 64, 65, 127, 128, 129, 513 with D = 40 and 136,
    with d_state 5, and with bf16 partials against its fp32-partials launch.
+   The single-direction forward (as is and with_state) and the conv also at
+   the LM prefill's shapes (``LM_PREFILL_DIMS``: B=8, L=512, D=1536).
    Then the small-dt probe: ddelta at dt in [1e-6, 1e-4] from K2 and the fused
    kernel in fp32, and from the plain version, each against fp64; a kernel
    fails it if its relative error exceeds the plain version's by more than
@@ -121,7 +123,28 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    same draws (``FEATURIZE_TOL``). Then SpeechCommands (B=128, 1 s clips,
    35 classes, noise, mixup 0.6; full width and depth): 2 steps, its
    validation, and the post-train valid and eval pass.
-7. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
+7. epic: the EPIC-SOUNDS recipe (AuM-Base Fo-Bi at full width and depth,
+   bf16, B=12, 44 classes, 10 s clips at 24 kHz, 1024 frames x 128 mels,
+   CE, warm-up) through ``aum_tpu_torch.run.main`` on in-memory pipelines
+   (records and a dict of samples; the card's machine has no pandas or
+   h5py): segments longer than a clip, one clip, and shorter (edge-padded).
+   4 train steps and one validation batch (B=24) between a reset and a read
+   of every launch counter (per step and batch as the recipe phase checks
+   them), then the test split from the written checkpoint (4 records x 5
+   views, averaged per record: one row of scores per record), then host
+   and featurize ms per batch (STFT, time warp, masks, normalize) and one
+   featurized train batch on the card against the CPU from the same draws
+   (``EPIC_FEATURIZE_TOL``).
+8. lm: the Mamba LM at mamba-130m's widths (bf16, 24 layers, random
+   weights from seed 0): prefill of B=8 x 512 tokens (ms, tokens/s), one
+   decode step (ms, tokens/s) and greedy generation of 32 tokens (ms,
+   tokens/s, peak memory), each between a reset and a read of every launch
+   counter: 24 with_state single-direction forwards and 24 convs per
+   prefill and per generate, none per decode step. Then, fp32 at depth 2,
+   the prefill's logits and caches and 8 decode steps' logits on the card
+   against the CPU (``LM_FP32_TOL``), and on the card the prefill against
+   decode_step stepped through a 64-token prompt (``LM_STEPWISE_TOL``).
+9. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
    clips/s with CUDA events after warm-up; then ``wav_entry``'s model at
    B=64 from waveforms: clips/s, and the frontend's ms alone. Then per kernel
    at the shapes those forwards give it: ms per launch, the plain version's
@@ -139,10 +162,11 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    partials and in its x-minus form (in turns with the default) and the
    fused kernel with bf16 partials. At the bench shapes also the fuse_dt
    form (its bound adds the dt_proj product on the tensor cores) and the
-   stage form. B=64 Fo-Bi clips/s are timed in turns: default,
+   stage form; the with_state single-direction forward at the LM prefill's
+   shapes. B=64 Fo-Bi clips/s are timed in turns: default,
    AUM_SCAN_DIRECT=1, AUM_SCAN_FUSE_DT=1, AUM_SCAN_FUSE_DT=1,
    AUM_SCAN_DIRECT=1, default.
-8. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
+10. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
    one Fo-Fo forward from waveforms (B=64), then one train step, under
    ``torch.profiler``: device time by
    kernel category (dual and single scan forward, scan backward, conv,
@@ -213,6 +237,9 @@ RECIPE_DIMS = {"as20k_val": ((24, 513, 1536), False),
                "speechcommands_train": ((128, 65, 1536), True),
                "speechcommands_val": ((256, 65, 1536), False)}
 BENCH_BATCH = 64
+# The Mamba LM's prefill: B=8 prompts of 512 tokens at mamba-130m's d_inner
+# 1536 (``scripts/bench_lm_decode.py``'s shapes).
+LM_PREFILL_DIMS = (8, 512, 1536)
 # fp32 train step, card (kernels) against CPU (plain): loss relative, grads
 # as max |err| over max |ref|; the two sum in other orders over 2 layers.
 # The params after one Adam step, as ||card - cpu|| over the norm of the
@@ -979,12 +1006,18 @@ def phase_kernels() -> dict:
                 results += _check_bwd_forms(label, dims, dtype, n)
         for shared in (True, False):
             results += _check_stage(label, dims, shared, n)
+    # The LM prefill's kernels at its shapes: the single-direction forward
+    # (as is and in its with_state form) and the conv.
+    for dtype in (torch.float32, torch.bfloat16):
+        results += _check_scan_single("lm_prefill", LM_PREFILL_DIMS, dtype, False, False)
+        results += _check_conv("lm_prefill", LM_PREFILL_DIMS, dtype, False)
     results += _check_edges()
     results += probe_small_dt()
     worst = {}
     for r in results:
         emit({"phase": "kernels", **r})
-        if (r["shape"] in ("eval", "train", *RECIPE_DIMS) and r["dtype"] == str(torch.bfloat16)
+        if (r["shape"] in ("eval", "train", "lm_prefill", *RECIPE_DIMS)
+                and r["dtype"] == str(torch.bfloat16)
                 and r.get("against", "plain") in ("plain", "fp32_partials_launch")
                 and "check" not in r):
             key = r["kernel"] + ("_save_states" if r.get("save_states") else "") + (
@@ -1474,22 +1507,28 @@ def _recipe_probes(records: dict):
         loop.make_train_step, loop.make_eval_step, loop.evaluate = saved
 
 
-def _run_recipe(recipe: str, files: dict, exp_dir: str, overrides: list) -> dict:
-    """``aum_tpu_torch.run.main`` training ``recipe`` for one epoch, with every
-    launch counter set to 0 just before and read just after."""
+def _run_recipe(recipe: str, files: dict | None, exp_dir: str, overrides: list,
+                pipelines: tuple | None = None) -> dict:
+    """``aum_tpu_torch.run.main`` training ``recipe`` for one epoch, from the
+    manifests in ``files`` or on the caller's (train, val, eval)
+    ``pipelines``, with every launch counter set to 0 just before and read
+    just after."""
     from aum_tpu_torch.run import main as run_main
 
-    argv = ["--recipe", recipe, "--data-train", files["train"], "--data-val", files["val"],
-            "--label-csv", files["csv"], "--exp-dir", exp_dir, "--set", "n_epochs=1"]
-    if "eval" in files:
-        argv += ["--data-eval", files["eval"]]
+    argv = ["--recipe", recipe, "--exp-dir", exp_dir, "--set", "n_epochs=1"]
+    if files is not None:
+        argv += ["--data-train", files["train"], "--data-val", files["val"],
+                 "--label-csv", files["csv"]]
+        if "eval" in files:
+            argv += ["--data-eval", files["eval"]]
     records = {"recipe": recipe, "steps": [], "val_batches": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _recipe_probes(records):
         t0 = time.perf_counter()
         _reset_counters()
-        history = run_main(argv + [a for o in overrides for a in ("--set", o)])
+        history = run_main(argv + [a for o in overrides for a in ("--set", o)],
+                           pipelines=pipelines)
         torch.cuda.synchronize()
         records["launches"] = _read_counters()
         records["seconds"] = time.perf_counter() - t0
@@ -1539,6 +1578,16 @@ def _check_recipe_run(rec: dict, batch: int, n_steps: int, n_val: int, depth: in
     return out
 
 
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 def _check_featurize(pipe, python_pipe, n_batches: int = 3) -> dict:
     """Decode ms per batch (native, and the Python decoder of
     ``python_pipe``), featurize ms per batch; one featurized train batch on
@@ -1548,7 +1597,7 @@ def _check_featurize(pipe, python_pipe, n_batches: int = 3) -> dict:
 
     import numpy as np
 
-    from aum_tpu_torch.data.pipeline import draw_featurize
+    from aum_tpu_torch.data.pipeline import draw_featurize, to_device
 
     conf = pipe.dataset.conf
     rng = np.random.default_rng(0)
@@ -1563,23 +1612,13 @@ def _check_featurize(pipe, python_pipe, n_batches: int = 3) -> dict:
         t0 = time.perf_counter()
         python_pipe.host_batch(order[:pipe.batch_size], rng, pool)
         python_decode_ms = (time.perf_counter() - t0) * 1e3
-    pw, _, py = pipe.to_device(*host[0])
-    w, n, y = pipe.to_device(*host[1])
+    pw, _, py = to_device(pipe.device, *host[0])
+    w, n, y = to_device(pipe.device, *host[1])
     bsz = w.shape[0]
     draws = draw_featurize(pipe.generator(1), conf, True, bsz, 2 * bsz)
     featurize_ms = cuda_ms(lambda: pipe.featurize(w, n, y, draws, pw, py), iters=5)
     got = pipe.featurize(w, n, y, draws, pw, py)
-
-    def cpu(tree):
-        if isinstance(tree, torch.Tensor):
-            return tree.cpu()
-        if isinstance(tree, dict):
-            return {k: cpu(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(cpu(v) for v in tree)
-        return tree
-
-    want = pipe.featurize(*cpu((w, n, y, draws, pw, py)))
+    want = pipe.featurize(*_to_cpu((w, n, y, draws, pw, py)))
     r = compare(got["x"].cpu(), want["x"], *FEATURIZE_TOL)
     r_y = compare(got["y"].cpu(), want["y"], 1e-6, 0.0)
     out = {"phase": "recipe_featurize", "batch": bsz, "samples": conf.target_samples,
@@ -1648,6 +1687,279 @@ def phase_recipe() -> dict:
         # Validation in the epoch, then the post-train valid and eval pass.
         out["speechcommands"] = _check_recipe_run(rec, RECIPES[spc].batch_size, n_steps=2,
                                                   n_val=3, depth=RECIPES[spc].model_config().depth)
+    return out
+
+
+# EPIC-SOUNDS on the card: the epic_sounds/aum-base_scratch recipe over an
+# in-memory dataset (records and a dict of 24 kHz samples), as the card's
+# machine has no pandas or h5py for the reference's annotation pickle and
+# HDF5 store. Segment lengths cycle through three kinds: longer than the
+# 10 s clip (a random window), one clip, and shorter (taken whole, the
+# log-mel edge-padded). 48 train records (4 steps of 12), 24 val (one
+# batch), 4 test records of 5 views (one batch of 20).
+EPIC_RECIPE = "epic_sounds/aum-base_scratch"
+EPIC_RECORDS = {"train": 48, "val": 24, "test": 4}
+EPIC_SEGMENT_SECONDS = (12.5, 10.0, 4.0)
+EPIC_VIDEOS, EPIC_VIDEO_SECONDS = 8, 40.0
+# The card's featurized train batch against the CPU's from the same draws:
+# cuFFT against pocketfft, the spline's SVD solve on each, fp32 sums in
+# other orders; the recipe featurizer's bound (FEATURIZE_TOL).
+EPIC_FEATURIZE_TOL = (1e-4, 1e-4)  # (atol, rtol)
+
+
+def _hms(sec: float) -> str:
+    return f"{int(sec // 3600):02d}:{int(sec % 3600 // 60):02d}:{sec % 60:06.3f}"
+
+
+def _epic_data(sampling_rate: int, n_classes: int, seed: int) -> tuple[dict, dict]:
+    """(audio: video_id -> fp32 samples, records per split): class-tinted
+    tones in noise, segments at whole milliseconds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(EPIC_VIDEO_SECONDS * sampling_rate)
+    t = np.arange(n) / sampling_rate
+    audio = {f"video{v}": (0.3 * np.sin(2 * np.pi * (200 + 40 * v) * t)
+                           + 0.1 * rng.standard_normal(n)).astype(np.float32)
+             for v in range(EPIC_VIDEOS)}
+    records = {}
+    for split, count in EPIC_RECORDS.items():
+        records[split] = []
+        for i in range(count):
+            dur = EPIC_SEGMENT_SECONDS[i % len(EPIC_SEGMENT_SECONDS)]
+            start = round(float(rng.uniform(0.0, EPIC_VIDEO_SECONDS - dur - 0.5)), 3)
+            records[split].append({"video_id": f"video{i % EPIC_VIDEOS}",
+                                   "start_timestamp": _hms(start),
+                                   "stop_timestamp": _hms(start + dur),
+                                   "class_id": int(rng.integers(n_classes))})
+    return audio, records
+
+
+def _check_epic_featurize(pipe, n_batches: int = 3) -> dict:
+    """Host ms per batch (window draws and slicing), featurize ms per batch
+    (STFT, time warp, masks, normalize; CUDA events), and one featurized
+    train batch on the card against the CPU from the same draws."""
+    import concurrent.futures as cf
+
+    from aum_tpu_torch.data.epic import draw_epic_featurize
+    from aum_tpu_torch.data.pipeline import to_device
+
+    cfg = pipe.dataset.cfg
+    order, rng = pipe.epoch_order(1)
+    bs = pipe.batch_size
+    host, host_ms = [], []
+    with cf.ThreadPoolExecutor(pipe.num_workers) as pool:
+        for b in range(n_batches):
+            t0 = time.perf_counter()
+            host.append(pipe.host_batch(order[b * bs:(b + 1) * bs], rng, pool))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    w, n, y = to_device(pipe.device, *host[0][:3])
+    draws = draw_epic_featurize(pipe.generator(1), cfg, True, (bs, cfg.num_frames,
+                                                                cfg.num_frequencies))
+    featurize_ms = cuda_ms(lambda: pipe.featurize(w, n, y, draws), iters=5)
+    got = pipe.featurize(w, n, y, draws)
+    want = pipe.featurize(*_to_cpu((w, n, y, draws)))
+    r = compare(got["x"].cpu(), want["x"], *EPIC_FEATURIZE_TOL)
+    out = {"phase": "epic_featurize", "batch": bs, "samples": cfg.clip_samples,
+           "frames": cfg.num_frames, "host_ms_per_batch": host_ms,
+           "featurize_ms_per_batch": featurize_ms, "x_vs_cpu": r, "tol": EPIC_FEATURIZE_TOL,
+           "n_frames": n.tolist(), "warp_point": draws["augment"]["warp"]["point"].tolist()}
+    emit(out)
+    if not r["ok"]:
+        raise RuntimeError("the card's featurized EPIC batch disagrees with the CPU's")
+    return out
+
+
+def phase_epic() -> dict:
+    """The EPIC-SOUNDS recipe (AuM-Base Fo-Bi, full width and depth, bf16,
+    B=12, 24 kHz 10 s clips, 1024 frames x 128 mels, CE, warm-up) through
+    ``aum_tpu_torch.run.main`` on in-memory pipelines: 4 train steps and one
+    validation batch (B=24), then the test split (``--run-type eval`` from
+    the written checkpoint) on 5 views per record, averaged; then the
+    featurizer on the card against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from aum_tpu_torch.configs import RECIPES
+    from aum_tpu_torch.data.epic import EpicBatchPipeline, EpicSoundsDataset
+    from aum_tpu_torch.run import epic_audio_config
+    from aum_tpu_torch.run import main as run_main
+
+    cfg = RECIPES[EPIC_RECIPE]
+    ecfg = epic_audio_config(cfg)
+    audio, records = _epic_data(ecfg.sampling_rate, cfg.n_class, seed=2)
+    pipes = {split: EpicBatchPipeline(
+        EpicSoundsDataset(records[split], audio, ecfg, split=split),
+        cfg.batch_size if split == "train" else 2 * cfg.batch_size, train=split == "train",
+        seed=cfg.seed) for split in EPIC_RECORDS}
+    depth = cfg.model_config().depth
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="aum_epic_") as root:
+        exp = os.path.join(root, "exp")
+        rec = _run_recipe(EPIC_RECIPE, None, exp, [],
+                          pipelines=(pipes["train"], pipes["val"], None))
+        out["train"] = _check_recipe_run(rec, cfg.batch_size, n_steps=4, n_val=1, depth=depth)
+        del rec
+        ev = os.path.join(root, "test")
+        test = {"recipe": EPIC_RECIPE, "steps": [], "val_batches": []}
+        with _recipe_probes(test):
+            torch.cuda.synchronize()
+            _reset_counters()
+            metrics = run_main(["--recipe", EPIC_RECIPE, "--exp-dir", ev, "--run-type", "eval",
+                                "--ckpt", os.path.join(exp, "models")],
+                               pipelines=(None, None, pipes["test"]))
+            torch.cuda.synchronize()
+            launches = _read_counters()
+        scores = np.loadtxt(os.path.join(ev, "predictions_eval.csv"), delimiter=",")
+        view_launches = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
+        n_views = EPIC_RECORDS["test"] * ecfg.num_ensemble_views
+        out["test"] = {"phase": "epic_test_split", "records": EPIC_RECORDS["test"],
+                       "views": ecfg.num_ensemble_views, "batches": len(test["val_batches"]),
+                       "batch_launches": test["val_batches"], "launches": launches,
+                       "scores_shape": list(scores.shape), "metrics": metrics,
+                       "artifacts": sorted(os.listdir(ev))}
+        emit(out["test"])
+        if (scores.shape != (EPIC_RECORDS["test"], cfg.n_class) or not np.isfinite(scores).all()
+                or not 0.0 <= metrics["acc"] <= 1.0):
+            raise RuntimeError("EPIC test split: expected finite view-averaged scores, "
+                               f"one row per record, got {scores.shape}")
+        n_batches = -(-n_views // pipes["test"].batch_size)
+        if (len(test["val_batches"]) != n_batches
+                or any(b != view_launches for b in test["val_batches"])):
+            raise RuntimeError(f"EPIC test split: expected {n_batches} batches of "
+                               f"{view_launches} launches")
+    out["featurize"] = _check_epic_featurize(pipes["train"])
+    return out
+
+
+# The Mamba LM: mamba-130m's widths (the config's defaults) at
+# scripts/bench_lm_decode.py's shapes, bf16, random weights from a seed.
+LM_CONFIG = dict(d_model=768, n_layer=24, vocab_size=50277, dtype="bfloat16")
+LM_NEW_TOKENS = 32
+# fp32, depth 2: the card (kernels) against the CPU plain path, within
+# tests/test_goldens.py's bound; the card's prefill against stepping its
+# decode_step through the same prompt, within tests/test_lm.py's.
+LM_CHECK_DEPTH, LM_CHECK_BATCH, LM_CHECK_STEPS, LM_STEPWISE_PROMPT = 2, 4, 8, 64
+LM_FP32_TOL = (2e-3, 2e-3)  # (atol, rtol)
+LM_STEPWISE_TOL = (2e-4, 2e-4)
+
+
+def _lm_fp32_checks(cfg) -> dict:
+    """(b) prefill logits and caches, then LM_CHECK_STEPS decode steps'
+    logits, card against CPU; (c) on the card, prefill's next logits and
+    caches against decode_step stepped through the same prompt."""
+    import dataclasses
+
+    from aum_tpu_torch.models.lm import MambaLM, decode_step, init_decode_state, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, n_layer=LM_CHECK_DEPTH, dtype="float32")
+    gpu = MambaLM(cfg32, device="cuda", seed=1)
+    cpu = MambaLM(cfg32, device="cpu", seed=1)
+    g = torch.Generator().manual_seed(3)
+    seqlen = LM_PREFILL_DIMS[1]
+    ids = torch.randint(0, cfg.vocab_size, (LM_CHECK_BATCH, seqlen), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (LM_CHECK_STEPS, LM_CHECK_BATCH), generator=g)
+    t0 = time.perf_counter()
+    lg, sg = prefill(gpu, ids.cuda())
+    lc, sc = prefill(cpu, ids)
+    checks = {"prefill_logits": compare(lg.cpu(), lc, *LM_FP32_TOL),
+              "prefill_conv": compare(sg["conv"].cpu(), sc["conv"], *LM_FP32_TOL),
+              "prefill_ssm": compare(sg["ssm"].cpu(), sc["ssm"], *LM_FP32_TOL)}
+    for i in range(LM_CHECK_STEPS):
+        lg, sg = decode_step(gpu, steps[i].cuda(), sg)
+        lc, sc = decode_step(cpu, steps[i], sc)
+        checks[f"decode_{i}_logits"] = compare(lg.cpu(), lc, *LM_FP32_TOL)
+    vs_cpu_s = time.perf_counter() - t0
+    # (c) stepwise against parallel, on the card.
+    prompt = ids[:, :LM_STEPWISE_PROMPT].cuda()
+    lp, sp = prefill(gpu, prompt)
+    ss = init_decode_state(cfg32, LM_CHECK_BATCH, "cuda")
+    for t in range(prompt.shape[1]):
+        ls, ss = decode_step(gpu, prompt[:, t], ss)
+    nxt = lp.argmax(dim=-1)
+    stepwise = {"logits": compare(lp, ls, *LM_STEPWISE_TOL),
+                "conv": compare(sp["conv"], ss["conv"], *LM_STEPWISE_TOL),
+                "ssm": compare(sp["ssm"], ss["ssm"], *LM_STEPWISE_TOL),
+                "next_logits": compare(decode_step(gpu, nxt, sp)[0],
+                                       decode_step(gpu, nxt, ss)[0], *LM_STEPWISE_TOL)}
+    out = {"phase": "lm_fp32_checks", "depth": LM_CHECK_DEPTH, "batch": LM_CHECK_BATCH,
+           "prompt": seqlen, "decode_steps": LM_CHECK_STEPS, "vs_cpu": checks,
+           "vs_cpu_tol": LM_FP32_TOL, "vs_cpu_s": vs_cpu_s,
+           "stepwise_prompt": LM_STEPWISE_PROMPT, "stepwise_vs_prefill": stepwise,
+           "stepwise_tol": LM_STEPWISE_TOL}
+    emit(out)
+    failed = [k for k, r in {**checks, **stepwise}.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"LM fp32 checks failed: {failed}")
+    return out
+
+
+def phase_lm() -> dict:
+    """The Mamba LM at mamba-130m's widths (bf16, random weights from seed
+    0): prefill of B=8 x 512 tokens (ms, tokens/s, launches: 24 with_state
+    single-direction forwards and 24 convs), one decode step (launches: no
+    scan or conv kernel; ms), greedy generation of 32 tokens (ms per decode
+    step, tokens/s, peak memory); then the fp32 checks."""
+    from aum_tpu_torch.models.lm import MambaLM, MambaLMConfig, decode_step, generate, prefill
+
+    cfg = MambaLMConfig(**LM_CONFIG)
+    bsz, seqlen, _ = LM_PREFILL_DIMS
+    model = MambaLM(cfg, device="cuda", seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (bsz, seqlen),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    prefill(model, ids)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    logits, state = prefill(model, ids)
+    torch.cuda.synchronize()
+    prefill_launches = _read_counters()
+    token = logits.argmax(dim=-1)
+    _reset_counters()
+    step_logits, _ = decode_step(model, token, state)
+    torch.cuda.synchronize()
+    decode_launches = _read_counters()
+    prefill_ms = cuda_ms(lambda: prefill(model, ids), iters=5)
+    decode_ms = cuda_ms(lambda: decode_step(model, token, state), iters=20)
+    generate(model, ids, 2, temperature=0.0)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _reset_counters()
+    t0 = time.perf_counter()
+    start.record()
+    tokens = generate(model, ids, LM_NEW_TOKENS, temperature=0.0)
+    end.record()
+    end.synchronize()
+    generate_host_ms = (time.perf_counter() - t0) * 1e3
+    generate_launches = _read_counters()
+    generate_ms = start.elapsed_time(end)
+    depth = cfg.n_layer
+    expected_prefill = _launches(selective_scan_fwd=depth, selective_scan_fwd_with_state=depth,
+                                 causal_conv1d_fwd=depth)
+    finite = bool(torch.isfinite(logits.float()).all() and torch.isfinite(step_logits.float()).all())
+    out = {"phase": "lm_path", "config": LM_CONFIG, "batch": bsz, "prompt": seqlen,
+           "new_tokens": LM_NEW_TOKENS, "logits_shape": list(logits.shape),
+           "dtype": str(logits.dtype), "finite": finite,
+           "prefill_ms": prefill_ms, "prefill_tokens_per_s": bsz * seqlen / (prefill_ms / 1e3),
+           "decode_step_ms": decode_ms, "decode_tokens_per_s": bsz / (decode_ms / 1e3),
+           "generate_ms": generate_ms, "generate_host_ms": generate_host_ms,
+           "generate_tokens_per_s": bsz * LM_NEW_TOKENS / (generate_ms / 1e3),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "prefill_launches": prefill_launches, "decode_step_launches": decode_launches,
+           "generate_launches": generate_launches, "tokens_shape": list(tokens.shape)}
+    emit(out)
+    if tuple(logits.shape) != (bsz, cfg.padded_vocab) or not finite:
+        raise RuntimeError("LM prefill/decode logits are not finite (B, padded vocab) values")
+    if tuple(tokens.shape) != (bsz, seqlen + LM_NEW_TOKENS) or int(tokens.max()) >= cfg.vocab_size:
+        raise RuntimeError(f"generate returned {tuple(tokens.shape)} tokens or padded ids")
+    if prefill_launches != expected_prefill or generate_launches != expected_prefill:
+        raise RuntimeError(f"expected {expected_prefill} launches per prefill and per generate, "
+                           f"got {prefill_launches} and {generate_launches}")
+    if decode_launches != _launches():
+        raise RuntimeError(f"a decode step launched {decode_launches}")
+    del model, logits, state
+    out["fp32"] = _lm_fp32_checks(cfg)
     return out
 
 
@@ -1818,8 +2130,8 @@ def _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra_bytes=0) -> dict:
 
 def bench_single_kernels(sfu_rate: float) -> dict:
     """The single-direction scan forward (bf16): at the Fo-Fo bench forward's
-    shapes (B=64) as is and in its with_state form, and its saving form at
-    the train shapes (B=12)."""
+    shapes (B=64) as is, in its with_state form at the LM prefill's (B=8,
+    L=512), and its saving form at the train shapes (B=12)."""
     from aum_tpu_torch.ops.selective_scan import (
         STATE_CHUNK,
         _prep_dt,
@@ -1827,11 +2139,12 @@ def bench_single_kernels(sfu_rate: float) -> dict:
         selective_scan_plain,
     )
 
-    (_, seqlen, d), n, es = EVAL_DIMS, 16, 2
+    (_, eval_len, d), n, es = EVAL_DIMS, 16, 2
     dtype = torch.bfloat16
     out, cards = {}, {}
-    for bsz, form in ((BENCH_BATCH, "eval"), (BENCH_BATCH, "with_state"),
-                      (TRAIN_DIMS[0], "save_states")):
+    for bsz, seqlen, form in ((BENCH_BATCH, eval_len, "eval"),
+                              (LM_PREFILL_DIMS[0], LM_PREFILL_DIMS[1], "with_state"),
+                              (TRAIN_DIMS[0], eval_len, "save_states")):
         u, delta, A, B, C, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed=13)
         args = (u, _prep_dt(delta, bias), A, B, C, D, z)
         kw, extra = {}, 0
@@ -1845,14 +2158,15 @@ def bench_single_kernels(sfu_rate: float) -> dict:
         # Enough launches (about a second) that the clock sampler, which
         # takes a few hundred ms to start, sees the kernel alone.
         with sample_clocks({}) as cards[form]:
-            ms = cuda_ms(lambda: selective_scan_cuda(args, False, **kw), iters=1500)
+            ms = cuda_ms(lambda: selective_scan_cuda(args, False, **kw),
+                         iters=1500 * BENCH_BATCH // bsz if form == "with_state" else 1500)
         plain_ms = cuda_ms(lambda: selective_scan_plain(args, False, **kw), iters=2, warmup=1)
         out[f"scan_single_{form}"] = {
-            "ms": ms, "plain_ms": plain_ms, "batch": bsz,
+            "ms": ms, "plain_ms": plain_ms, "batch": bsz, "seqlen": seqlen,
             "bounds_ms": _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra),
             "other_floors_ms": {"sfu_only": bsz * seqlen * d * n / sfu_rate * 1e3}}
         del u, delta, z, B, C, args
-    emit({"phase": "bench_single_kernels", "dims": [seqlen, d, n], "dtype": "bfloat16", **out,
+    emit({"phase": "bench_single_kernels", "dims": [d, n], "dtype": "bfloat16", **out,
           "card": cards})
     return out
 
@@ -2252,6 +2566,8 @@ def main() -> int:
         wav_launches = timed("wav", phase_wav)
         train = timed("train", phase_train)
         recipe = timed("recipe", phase_recipe)
+        epic = timed("epic", phase_epic)
+        lm = timed("lm", phase_lm)
         bench = timed("bench", phase_bench, device_info)
         timed("profile", phase_profile)
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
@@ -2375,14 +2691,14 @@ def main() -> int:
         "aum_tpu/ops/selective_scan.py:111", wav_launches["selective_scan_fwd"],
         worst["selective_scan_fwd"], bench["scan_single_eval"])
     # Its saving form, under grad (the Fo-Fo train check), and its with_state
-    # form, which no path runs yet (the LM prefill and sequence parallelism).
+    # form, which the LM prefill runs (timed at its shapes).
     single["save_states"] = _kernel_entry(
         "selective_scan_fwd", single["source"], single["replaces"],
         fofo_launches["selective_scan_fwd_save_states"],
         worst["selective_scan_fwd_save_states"], bench["scan_single_save_states"])
     single["with_state"] = _kernel_entry(
         "selective_scan_fwd", single["source"], single["replaces"],
-        wav_launches["selective_scan_fwd_with_state"],
+        lm["prefill_launches"]["selective_scan_fwd_with_state"],
         worst["selective_scan_fwd_with_state"], bench["scan_single_with_state"])
     single["launches_by_path"] = {"eval": eval_launches["selective_scan_fwd"],
                                   "wav": wav_launches["selective_scan_fwd"],
@@ -2408,6 +2724,14 @@ def main() -> int:
                 recipe[name]["step_launches"][counter])
             entry["launches_by_path"][f"recipe_{name}_val_batch"] = (
                 recipe[name]["val_batch_launches"][counter])
+        # EPIC-SOUNDS (run.main on in-memory pipelines) and the LM.
+        entry["launches_by_path"].update({
+            "epic_train_step": epic["train"]["step_launches"][counter],
+            "epic_val_batch": epic["train"]["val_batch_launches"][counter],
+            "lm_prefill": lm["prefill_launches"][counter],
+            "lm_decode_step": lm["decode_step_launches"][counter]})
+    single["launches_by_path"]["lm_prefill_with_state"] = (
+        lm["prefill_launches"]["selective_scan_fwd_with_state"])
     emit({"kernels": [scan, direct, fdt, stage, single, bwd, fused, conv]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

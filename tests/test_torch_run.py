@@ -330,12 +330,11 @@ def test_run_main_train_eval_wa_ensemble(spc_like_data, tmp_path, capsys):  # no
     (["--n-seq", "2"], "8: parallel"),
     (["--n-pipe", "2"], "8: parallel"),
     (["--multihost", "on"], "8: parallel"),
-    (["--recipe", "epic_sounds/aum-base_scratch"], "2: data, the EPIC branch"),
     (["--set", "model=ast"], "6: porters and AST"),
     (["--set", "aum_pretrain_path=x.pth"], "6: porters and AST"),
     (["--run-type", "eval", "--ckpt", "model.pth"], "6: porters and AST"),
     (["--set", "flexible_patch_sizes=8,16"], "5: the rest of the model"),
-], ids=["n_model", "n_seq", "n_pipe", "multihost", "epic", "ast", "pretrain", "pth",
+], ids=["n_model", "n_seq", "n_pipe", "multihost", "ast", "pretrain", "pth",
         "flexible_patch"])
 def test_run_main_raises_on_unported_options(tmp_path, extra, item):
     from aum_tpu_torch.run import main
