@@ -12,7 +12,11 @@ does the same for the Mamba LM (the inverse of
 - linear weights (in, out) -> (out, in); the JAX package's separate x/z
   in-projections concatenate into the reference's single ``in_proj``;
 - the patch kernel HWIO -> OIHW; depthwise conv taps (D, K) -> (D, 1, K);
-- the stacked layer axis unstacks into ``layers.{i}``.
+- the stacked layer axis unstacks into ``layers.{i}``;
+- the parameters of the non-default config fields go along: the
+  LayerNorm biases of ``rms_norm=False`` (``layers.{i}.norm.bias``,
+  ``norm_f.bias``, which the JAX exporter leaves out) and LayerScale's
+  ``gamma``.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ def _mixer_to_torch(m: Dict, j: int, bt: str) -> Dict:
 def _unstack_block(block: Dict, layer_ids, bt: str, out: Dict) -> None:
     for j, i in enumerate(layer_ids):
         out[f"layers.{i}.norm.weight"] = np.asarray(block["norm_weight"][j], np.float32)
+        if "norm_bias" in block:  # rms_norm=False: a LayerNorm
+            out[f"layers.{i}.norm.bias"] = np.asarray(block["norm_bias"][j], np.float32)
         for k, v in _mixer_to_torch(block["mixer"], j, bt).items():
             out[f"layers.{i}.mixer.{k}"] = v
 
@@ -76,6 +82,8 @@ def state_dict_from_jax(params_np: Dict, cfg) -> Dict[str, torch.Tensor]:
         "pos_embed.pos_embed": np.asarray(p["pos_embed"]["pos_embed"], np.float32),
         "norm_f.weight": np.asarray(p["norm_f_weight"], np.float32),
     }
+    if "norm_f_bias" in p:
+        sd["norm_f.bias"] = np.asarray(p["norm_f_bias"], np.float32)
     if cfg.if_cls_token:
         if cfg.use_double_cls_token:
             sd["cls_token_head"] = np.asarray(p["cls_token_head"], np.float32)

@@ -16,9 +16,10 @@ Semantics kept from the JAX package:
   times.
 
 WAV files decode here through the stdlib ``wave`` module and numpy (PCM
-8/16/24/32-bit and float32), or in batches through the native decoder
-(``data/native.py``). Other formats need the JAX package's generic ffmpeg
-decoder (``csrc/audiodecode.cpp``), which is not ported yet: they raise.
+8/16/24/32-bit and float32), or in batches through the native WAV decoder;
+every other format (flac, m4a, mp3, ogg) through the native ffmpeg-backed
+decoder (``data/native.py``, ``csrc/audiodecode.cpp``), one file at a time
+or in batches. A decoder that cannot be built raises; it is never retried.
 """
 
 from __future__ import annotations
@@ -165,13 +166,17 @@ class AudioJsonDataset:
         self.decoder_is_default = decoder is None
         self.rev_audio = rev_audio
 
-    @staticmethod
-    def _default_decode(path: str) -> tuple[np.ndarray, int]:
+    def _default_decode(self, path: str) -> tuple[np.ndarray, int]:
+        """WAV through ``load_wav``; anything else through the native
+        ffmpeg-backed decoder, capped at ``target_samples`` (``waveform``
+        crops there anyway)."""
         if path.lower().endswith(".wav"):
             return load_wav(path)
-        raise NotImplementedError(
-            f"no decoder for {path}: only WAV is ported; the generic ffmpeg decoder "
-            "(csrc/audiodecode.cpp, aum_tpu/data/native.py::decode_audio) is still to port")
+        from aum_tpu_torch.data.native import decode_audio
+
+        cap = self.conf.target_samples
+        out, n_samples, sr = decode_audio(path, cap)
+        return out[:min(n_samples, cap)], sr
 
     def __len__(self) -> int:
         return len(self.data)
@@ -199,12 +204,14 @@ class AudioJsonDataset:
 
     def sample(self, index: int, rng: np.random.Generator):
         """One (wave, n_frames, label), retrying a failed decode with a random
-        replacement index."""
+        replacement index; a decoder that cannot be built raises at once."""
+        from aum_tpu_torch.data.native import DecoderUnavailable
+
         for _ in range(20):
             try:
                 wave, n_frames = self.waveform(index)
                 return wave, n_frames, self.labels(index)
-            except NotImplementedError:
+            except DecoderUnavailable:
                 raise
             except Exception:
                 index = int(rng.integers(0, len(self.data)))

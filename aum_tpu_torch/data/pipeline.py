@@ -127,8 +127,10 @@ class BatchPipeline:
         self.device = resolve_device(self.device)
         self.featurize = make_featurize(self.dataset.conf, self.train)
         self._drop_last = self.train if self.drop_last is None else self.drop_last
-        # The native decoder covers WAV batches on the default decoder
-        # without reversal; it is built here, so a failed build raises now.
+        # The native decoders cover batches on the default decoder without
+        # reversal: all-WAV batches the WAV decoder (built here, so a failed
+        # build raises now), any other batch the ffmpeg-backed one (built at
+        # its first such batch).
         self._native = (self.use_native and self.dataset.decoder_is_default
                         and not self.dataset.rev_audio)
         if self._native:
@@ -158,15 +160,18 @@ class BatchPipeline:
     def host_batch(self, idxs, rng: np.random.Generator, pool: cf.Executor
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(waves (B, S) float32, n_frames (B,) int64, labels (B, C) float32)
-        of the clips ``idxs``: the native batch decode for all-WAV batches,
-        falling back to ``dataset.sample`` (with its retries) per failed clip;
-        else ``dataset.sample`` on ``pool``'s threads."""
+        of the clips ``idxs``: the native batch decode (the WAV decoder for
+        all-WAV batches, the ffmpeg-backed one for any other), falling back
+        to ``dataset.sample`` (with its retries) per failed clip; else
+        ``dataset.sample`` on ``pool``'s threads."""
         conf = self.dataset.conf
         paths = [self.dataset.data[int(i)]["wav"] for i in idxs]
-        if self._native and all(p.lower().endswith(".wav") for p in paths):
-            from aum_tpu_torch.data.native import decode_wav_batch
+        if self._native:
+            from aum_tpu_torch.data.native import decode_audio_batch, decode_wav_batch
 
-            waves, n_samples, _, statuses = decode_wav_batch(
+            all_wav = all(p.lower().endswith(".wav") for p in paths)
+            decode = decode_wav_batch if all_wav else decode_audio_batch
+            waves, n_samples, _, statuses = decode(
                 paths, conf.target_samples, threads=self.num_workers)
             n_frames = conf.n_frames(n_samples).astype(np.int64)
             labels = np.stack([self.dataset.labels(int(i)) for i in idxs])

@@ -7,7 +7,8 @@
 - ``train_entry``: one train step of the same model, the counterpart of
   ``scripts/bench_train_step.py``: B = 12 (the recipes' batch size), BCE,
   Adam with lr 5e-5 and weight decay 5e-7 over 1000 steps per epoch, one-hot
-  labels ``arange(B) % 527``, no augmentation, ``remat_mode="split"``.
+  labels ``arange(B) % 527``, no augmentation, the default
+  ``remat_mode="auto"`` (which resolves to ``"split"`` there).
 - ``wav_entry``: the eval forward of AuM-Base Fo-Fo (bimamba ``"none"``)
   served from raw waveforms, the counterpart of the JAX serving graph with
   ``include_frontend=True``: B = 8 clips of 10 s at 16 kHz (AudioSet's clip
@@ -62,7 +63,7 @@ def train_entry(device: str | torch.device | None = None):
     """(step_fn, state, batch); ``step_fn(state, batch)`` takes one train step
     and returns (state, loss)."""
     device = resolve_device(device)
-    cfg = flagship_config(remat=True, remat_mode="split")
+    cfg = flagship_config(remat=True)
     model = AudioMamba(cfg, device=device, seed=0)
     state = init_train_state(model, make_optimizer(model.parameters(), TRAIN_HP))
     step_fn = make_train_step(TRAIN_HP, STEPS_PER_EPOCH, loss_type="BCE",

@@ -15,7 +15,8 @@ views, and so do B and C of the x_proj product.
 Variants: ``bimamba_type="v1"`` (Fo-Bi) runs the reverse scan over the same
 activations with its own ``A_b``; ``"v2"`` (Bi-Bi) runs a separate branch
 with an anti-causal conv, and the two outputs are summed and halved (the
-reference's ``if_devide_out``, on in every configuration). ``"none"``
+reference's ``if_devide_out``, on in every published configuration; off,
+they are only summed). ``"none"``
 (Fo-Fo, and the Mamba LM's mixer) runs one forward scan
 (``ops.selective_scan``, the single-direction kernel), not halved, and has
 no ``A_b_log``. The mixer's shape and init constants (conv width 4, expand
@@ -23,6 +24,12 @@ no ``A_b_log``. The mixer's shape and init constants (conv width 4, expand
 bias) are the reference defaults; only an LM config changes the conv width
 and the expansion (``d_conv``, ``expand``), and the conv kernel takes width
 4 only.
+
+``init_layer_scale`` adds the reference's LayerScale: a ``gamma`` (d_model,)
+initialised to that value, multiplying the out_proj output. The block's
+norm is RMSNorm, or with ``rms_norm=False`` a LayerNorm with a
+``norm.bias``; its residual stream is fp32, or with
+``residual_in_fp32=False`` in the compute dtype.
 
 ``MambaMixer.pre_scan`` is the pre-scan compute (in_proj, conv, x_proj,
 dt_proj), the counterpart of the JAX mixer's ``pre_fn``: it returns the
@@ -88,10 +95,13 @@ class MambaMixer(nn.Module):
     """Selective-SSM mixer (one direction, or a direction pair) for one block."""
 
     def __init__(self, d_model: int, d_state: int = 16, bimamba_type: str = "v2",
-                 n_layer: int = 24, d_conv: int = D_CONV, expand: int = EXPAND):
+                 n_layer: int = 24, d_conv: int = D_CONV, expand: int = EXPAND,
+                 if_devide_out: bool = True, init_layer_scale: float | None = None):
         super().__init__()
         if bimamba_type not in ("none", "v1", "v2"):
             raise ValueError(f"unknown bimamba_type: {bimamba_type}")
+        self.if_devide_out = if_devide_out
+        self.init_layer_scale = init_layer_scale
         self.d_model = d_model
         self.d_state = d_state
         self.d_conv = d_conv
@@ -108,6 +118,8 @@ class MambaMixer(nn.Module):
         if bimamba_type == "v2":
             self._add_branch("_b")
         self.out_proj = _Weights((d_model, d_in))
+        if init_layer_scale is not None:
+            self.gamma = nn.Parameter(torch.empty((d_model,)))
 
     def _add_branch(self, suffix: str) -> None:
         d_in, rank = self.d_inner, self.dt_rank
@@ -140,6 +152,8 @@ class MambaMixer(nn.Module):
             _a_log_(self.A_b_log)
         _uniform_fan_in_(self.out_proj.weight, d_in, generator,
                          scale=1.0 / math.sqrt(self.n_layer))
+        if self.init_layer_scale is not None:
+            nn.init.constant_(self.gamma, self.init_layer_scale)
 
     def _branch(self, xs: torch.Tensor, suffix: str, reverse_conv: bool, fold: bool):
         """conv -> x_proj -> dt_proj: (u, delta, B, C, None) for one scan
@@ -197,35 +211,48 @@ class MambaMixer(nn.Module):
         else:
             y_f, y_b = selective_scan_dual(*args)
             y = y_f + y_b  # in the compute dtype, as XLA sums it
-            if self.bimamba_type == "v2":
+            if self.bimamba_type == "v2" and self.if_devide_out:
                 y = y / 2
-        return y @ self.out_proj.weight.to(dtype).t()
+        out = y @ self.out_proj.weight.to(dtype).t()
+        if self.init_layer_scale is not None:
+            out = out * self.gamma.to(dtype)
+        return out
 
 
 class MambaBlock(nn.Module):
-    """Add -> RMSNorm -> Mixer block with an fp32 residual stream.
+    """Add -> Norm -> Mixer block, an fp32 residual stream by default.
 
     Takes (hidden, residual), returns (mixer_out, residual + hidden), the norm
-    applied to the fp32 residual sum (the reference Block's contract).
+    applied to the residual sum (the reference Block's contract).
     """
 
     def __init__(self, d_model: int, norm_epsilon: float = 1e-5,
                  bimamba_type: str = "v2", d_state: int = 16, n_layer: int = 24,
-                 d_conv: int = D_CONV, expand: int = EXPAND):
+                 d_conv: int = D_CONV, expand: int = EXPAND, rms_norm: bool = True,
+                 residual_in_fp32: bool = True, if_devide_out: bool = True,
+                 init_layer_scale: float | None = None):
         super().__init__()
         self.norm_epsilon = norm_epsilon
-        self.norm = _Weights((d_model,))
+        self.rms_norm = rms_norm
+        self.residual_in_fp32 = residual_in_fp32
+        self.norm = _Weights((d_model,), None if rms_norm else (d_model,))
         self.mixer = MambaMixer(d_model, d_state=d_state, bimamba_type=bimamba_type,
-                                n_layer=n_layer, d_conv=d_conv, expand=expand)
+                                n_layer=n_layer, d_conv=d_conv, expand=expand,
+                                if_devide_out=if_devide_out,
+                                init_layer_scale=init_layer_scale)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.norm.weight)
+        if self.norm.bias is not None:
+            nn.init.zeros_(self.norm.bias)
         self.mixer.reset_parameters(generator)
 
     def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None,
                 dtype: torch.dtype, split_remat: bool = False):
-        normed, residual = fused_add_norm(
-            hidden, self.norm.weight.to(dtype), residual=residual,
-            prenorm=True, eps=self.norm_epsilon)
+        normed, residual = fused_add_norm(  # the bias stays fp32, as in JAX
+            hidden, self.norm.weight.to(dtype), self.norm.bias, residual=residual,
+            prenorm=True, eps=self.norm_epsilon,
+            norm_type="rms" if self.rms_norm else "layer",
+            residual_in_fp32=self.residual_in_fp32)
         return self.mixer(normed, split_remat=split_remat), residual

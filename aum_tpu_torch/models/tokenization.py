@@ -1,26 +1,38 @@
-"""Spectrogram patch embedding + learnable absolute position embedding.
+"""Spectrogram patch embedding + learnable absolute position embedding,
+with flexible patch sizes.
 
-Counterpart of ``aum_tpu/models/tokenization.py`` for fixed patch sizes:
+Counterpart of ``aum_tpu/models/tokenization.py``:
 
 - ``patch_grid_shape``: the closed-form valid-conv output grid.
+- ``resize_matrix`` / ``resize_matrix_pinv``: the bilinear resize
+  (``F.interpolate``'s align_corners=False, no antialias) as a matrix in
+  float64 numpy, and the pseudo-inverse of its transpose (big_vision's
+  PI-resize); ``resample_patch_embed`` (PI-resize),
+  ``vanilla_resample_patch_embed`` (plain bilinear) and
+  ``resample_abs_pos_embed`` apply them in fp32 as one matrix product.
 - ``PatchEmbed``: (B, F, T) in, (B, F'*T', D) tokens out, F-major then T
   (the reference's Conv2d(...).flatten(2) order). Written as unfold + one
-  matrix product, which keeps it a plain product (no cuDNN, no TF32).
+  matrix product, which keeps it a plain product (no cuDNN, no TF32). A
+  run-time ``patch_size`` PI-resizes the stored kernel, and ``strides``
+  override the stored ones.
 - ``PosEmbed``: stored as (1, n_prefix + F'*T', D) with the cls slot(s) in
   front; the forward adds it to a sequence whose cls token sits at a static
-  position (middle, end, front, or the double head/tail pair).
+  position (middle, end, front, the double head/tail pair, or a drawn one),
+  bilinearly resampled to a run-time grid.
 - ``lecun_normal_truncated_`` / ``trunc_normal_02_``: the JAX package's
   initialisers, drawn from an explicit ``torch.Generator``.
 
-Flexible patch sizes (PI-resize) and ``resample_abs_pos_embed`` are not
-ported yet.
+The matrices are built once per (old, new) size and cached, with their
+fp32 copy on each device they are used on.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,6 +51,90 @@ def patch_grid_shape(strides, patch_size, input_fdim: int,
     f = (input_fdim - patch_size[0]) // strides[0] + 1
     t = (input_tdim - patch_size[1]) // strides[1] + 1
     return f, t
+
+
+def _bilinear_resize_matrix_1d(old: int, new: int) -> np.ndarray:
+    """(new, old) matrix M with (M @ x) the bilinear resize of x:
+    source coordinate s = (d + 0.5) * old/new - 0.5, clamped, a linear blend
+    of floor and ceil."""
+    m = np.zeros((new, old), dtype=np.float64)
+    scale = old / new
+    for d in range(new):
+        s = (d + 0.5) * scale - 0.5
+        s = min(max(s, 0.0), old - 1.0)
+        lo = int(math.floor(s))
+        hi = min(lo + 1, old - 1)
+        w = s - lo
+        m[d, lo] += 1.0 - w
+        m[d, hi] += w
+    return m
+
+
+def resize_matrix(old_size: Sequence[int], new_size: Sequence[int]) -> np.ndarray:
+    """(new_h*new_w, old_h*old_w) separable bilinear resize matrix, float64."""
+    return _resize_matrix(to_2tuple(old_size), to_2tuple(new_size)).copy()
+
+
+def resize_matrix_pinv(old_size: Sequence[int], new_size: Sequence[int]) -> np.ndarray:
+    """pinv of the resize matrix's transpose, (new_h*new_w, old_h*old_w),
+    float64: big_vision's PI-resize."""
+    return _resize_matrix_pinv(to_2tuple(old_size), to_2tuple(new_size)).copy()
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(old: Tuple[int, int], new: Tuple[int, int]) -> np.ndarray:
+    return np.kron(_bilinear_resize_matrix_1d(old[0], new[0]),
+                   _bilinear_resize_matrix_1d(old[1], new[1]))
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_matrix_pinv(old: Tuple[int, int], new: Tuple[int, int]) -> np.ndarray:
+    if old == new:
+        return np.eye(old[0] * old[1])
+    return np.linalg.pinv(_resize_matrix(old, new).T)
+
+
+@functools.lru_cache(maxsize=64)
+def _on_device(which: str, old: Tuple[int, int], new: Tuple[int, int],
+               device: torch.device) -> torch.Tensor:
+    """The fp32 copy of a cached matrix on ``device``."""
+    mat = (_resize_matrix_pinv if which == "pinv" else _resize_matrix)(old, new)
+    return torch.from_numpy(mat.astype(np.float32)).to(device)
+
+
+def _resize_kernel(kernel: torch.Tensor, new_size, which: str) -> torch.Tensor:
+    d, cin, kh, kw = kernel.shape
+    new_size = to_2tuple(new_size)
+    if (kh, kw) == new_size:
+        return kernel
+    mat = _on_device(which, (kh, kw), new_size, kernel.device)  # (new, old)
+    flat = kernel.reshape(d * cin, kh * kw).float()
+    out = flat @ mat.t()
+    return out.reshape(d, cin, *new_size).to(kernel.dtype)
+
+
+def resample_patch_embed(kernel: torch.Tensor, new_size) -> torch.Tensor:
+    """PI-resize a patch-projection kernel (D, in_ch, kh, kw) -> (D, in_ch,
+    nh, nw), in fp32, returned in the kernel's dtype."""
+    return _resize_kernel(kernel, new_size, "pinv")
+
+
+def vanilla_resample_patch_embed(kernel: torch.Tensor, new_size) -> torch.Tensor:
+    """Plain bilinear resize of a patch-projection kernel (D, in_ch, kh, kw)."""
+    return _resize_kernel(kernel, new_size, "resize")
+
+
+def resample_abs_pos_embed(posemb: torch.Tensor, new_size, old_size,
+                           num_prefix_tokens: int = 1) -> torch.Tensor:
+    """Bilinearly resample a (1, prefix + oh*ow, D) pos embedding to the grid
+    ``new_size``, in fp32; the prefix slots are kept as they are."""
+    new_size, old_size = to_2tuple(new_size), to_2tuple(old_size)
+    if new_size == old_size:
+        return posemb
+    prefix, grid = posemb[:, :num_prefix_tokens], posemb[:, num_prefix_tokens:]
+    mat = _on_device("resize", old_size, new_size, posemb.device)
+    out = (mat @ grid[0].float()).to(posemb.dtype)[None]
+    return torch.cat([prefix, out], dim=1)
 
 
 def lecun_normal_truncated_(t: torch.Tensor, fan_in: int,
@@ -75,13 +171,20 @@ class PatchEmbed(nn.Module):
         lecun_normal_truncated_(self.proj.weight, ph * pw, generator)
         nn.init.zeros_(self.proj.bias)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """x: (B, F, T) -> (B, F'*T', D) in ``dtype``."""
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, patch_size=None,
+                strides=None) -> torch.Tensor:
+        """x: (B, F, T) -> (B, F'*T', D) in ``dtype``. A run-time
+        ``patch_size`` PI-resizes the kernel (in fp32, then cast);
+        ``strides`` default to the stored ones."""
+        weight = self.proj.weight
         ph, pw = self.patch_size
-        sh, sw = self.strides
+        if patch_size is not None and to_2tuple(patch_size) != (ph, pw):
+            ph, pw = to_2tuple(patch_size)
+            weight = resample_patch_embed(weight, (ph, pw))
+        sh, sw = to_2tuple(strides) if strides is not None else self.strides
         patches = x.to(dtype).unfold(1, ph, sh).unfold(2, pw, sw)  # (B, F', T', ph, pw)
         b, f, t = patches.shape[:3]
-        w = self.proj.weight.to(dtype).reshape(self.proj.weight.shape[0], ph * pw)
+        w = weight.to(dtype).reshape(weight.shape[0], ph * pw)
         out = patches.reshape(b, f * t, ph * pw) @ w.t()
         return out + self.proj.bias.to(dtype)
 
@@ -93,6 +196,7 @@ class PosEmbed(nn.Module):
                  n_prefix_tokens: int = 1):
         super().__init__()
         gh, gw = pos_grid_size
+        self.grid_size = (gh, gw)
         self.n_prefix_tokens = n_prefix_tokens
         self.pos_embed = nn.Parameter(
             torch.empty((1, n_prefix_tokens + gh * gw, embed_dim)))
@@ -101,8 +205,13 @@ class PosEmbed(nn.Module):
         trunc_normal_02_(self.pos_embed, generator)
 
     def forward(self, x: torch.Tensor,
-                token_position: int | Sequence[int] | None = None) -> torch.Tensor:
-        pos = self.pos_embed.to(x.dtype)
+                token_position: int | Sequence[int] | None = None,
+                run_grid_size: Tuple[int, int] | None = None) -> torch.Tensor:
+        pos = self.pos_embed
+        if run_grid_size is not None:
+            pos = resample_abs_pos_embed(pos, run_grid_size, self.grid_size,
+                                         self.n_prefix_tokens)
+        pos = pos.to(x.dtype)
         npre = self.n_prefix_tokens
         if token_position is None or npre == 0:
             return x + pos

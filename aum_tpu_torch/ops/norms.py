@@ -3,8 +3,8 @@
 Counterpart of ``aum_tpu/ops/norms.py``; plain PyTorch on every device, as
 the JAX package leaves it to XLA. The numerics contract is kept:
 
-- the residual is summed in fp32, always (the JAX op's default
-  ``residual_in_fp32=True``; the port has no other setting),
+- the residual is summed and kept in fp32 (``residual_in_fp32=True``, the
+  default), or else in the promoted dtype of the two operands,
 - the norm is computed in fp32,
 - the normalised output is cast to the weight's dtype.
 """
@@ -43,12 +43,16 @@ def fused_add_norm(
     prenorm: bool = True,
     eps: float = 1e-5,
     norm_type: str = "rms",
+    residual_in_fp32: bool = True,
 ):
-    """residual' = residual + x (fp32); y = Norm(residual').
+    """residual' = residual + x (in fp32 with ``residual_in_fp32``);
+    y = Norm(residual').
 
     Returns (y, residual') if prenorm else y.
     """
-    res = (x if residual is None else residual + x).float()
+    res = x if residual is None else residual + x
+    if residual_in_fp32:
+        res = res.float()
     if norm_type == "rms":
         y = rms_norm(res, weight, eps)
     elif norm_type == "layer":

@@ -28,7 +28,9 @@ It runs on the card unless ``--device`` names another device, and raises
 without one. What the port does not have yet raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item: the parallel modes (``--n-model``,
 ``--n-seq``, ``--n-pipe``, ``--multihost``), the AST model,
-the pretrained inits and ``.pth`` checkpoints, and flexible patch sizes.
+and the pretrained inits and ``.pth`` checkpoints. ``--set
+flexible_patch_sizes=8,12,16`` trains each step at a patch size drawn from
+those (``train_loop``), and validates at the recipe's.
 """
 
 from __future__ import annotations
@@ -129,8 +131,6 @@ def check_ported(args, cfg) -> None:
         _not_ported("a pretrained init (imagenet/aum/ast_pretrain_path)", "6: porters and AST")
     if args.ckpt and args.ckpt.endswith(".pth"):
         _not_ported("a torch .pth --ckpt (the checkpoint porter)", "6: porters and AST")
-    if cfg.flexible_patch_sizes:
-        _not_ported("flexible_patch_sizes", "5: the rest of the model")
 
 
 def build_pipelines(cfg, args, device):

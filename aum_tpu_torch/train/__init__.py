@@ -5,6 +5,7 @@ from aum_tpu_torch.train.loop import (
     average_ensemble_views,
     evaluate,
     evaluate_ensemble,
+    flexible_patch_schedule,
     init_train_state,
     loss_fn_of,
     make_eval_step,
@@ -27,6 +28,7 @@ __all__ = [
     "d_prime",
     "evaluate",
     "evaluate_ensemble",
+    "flexible_patch_schedule",
     "init_train_state",
     "loss_fn_of",
     "lr_at_step",

@@ -50,6 +50,16 @@ from aum_tpu_torch.train.metrics import calculate_stats, d_prime
 from aum_tpu_torch.train.optim import TrainHyperParams, lr_at_step
 
 
+# The seed of the host generator that picks each flexible-patch step's size.
+FLEX_SEED = 1234
+
+
+def flexible_patch_schedule(sizes, n_steps: int) -> list:
+    """The patch sizes ``train_loop`` runs in its first ``n_steps`` steps."""
+    rng = np.random.default_rng(FLEX_SEED)
+    return [sizes[int(rng.integers(len(sizes)))] for _ in range(n_steps)]
+
+
 @dataclasses.dataclass
 class TrainState:
     """What one train step reads and advances. ``model`` holds the params and
@@ -109,17 +119,23 @@ def make_train_step(hp: TrainHyperParams, steps_per_epoch: int,
                     loss_type: str = "BCE", augment: AugmentConfig = AugmentConfig(),
                     nan2num: bool = False, accum_steps: int = 1,
                     generator: torch.Generator | None = None,
-                    aug_generator: torch.Generator | None = None) -> Callable:
+                    aug_generator: torch.Generator | None = None,
+                    patch_size=None, strides=None) -> Callable:
     """(state, batch) -> (state, loss) for batch {'x': (B, T, F), 'y': (B, C)}.
 
     ``loss`` is the step's mean loss, a 0-d fp32 tensor on the batch's
     device. ``generator`` feeds the model's dropout and drop path,
     ``aug_generator`` (on the batch's device) the augmentation, which needs
-    it.
+    it. ``patch_size`` runs the model at that patch size, with ``strides``
+    (the patch size unless given): the flexible-patch step of one size.
     """
     if (augment.freqm or augment.timem or augment.noise) and aug_generator is None:
         raise ValueError("an augmenting train step needs aug_generator")
     loss_of = loss_fn_of(loss_type)
+    model_kwargs = {}
+    if patch_size is not None:
+        model_kwargs = {"patch_size": patch_size,
+                        "strides": strides if strides is not None else patch_size}
 
     def step_fn(state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:
         model, opt = state.model, state.optimizer
@@ -131,7 +147,7 @@ def make_train_step(hp: TrainHyperParams, steps_per_epoch: int,
         opt.zero_grad(set_to_none=True)
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
         for xm, ym in zip(x.chunk(accum_steps), y.chunk(accum_steps)):
-            micro = loss_of(model(xm, train=True, generator=generator), ym)
+            micro = loss_of(model(xm, train=True, generator=generator, **model_kwargs), ym)
             if nan2num:
                 micro = torch.nan_to_num(micro)
             (micro / accum_steps).backward()
@@ -264,16 +280,26 @@ def train_loop(
     finite steps. ``start_epoch`` > 1 resumes a run: epoch labels,
     artifacts and shuffle orders continue from there. With ``profile_dir``,
     steps ``profile_steps`` of epoch 1 are traced (``train/profiling.py``).
+    With ``flexible_patch_sizes`` each train step runs at a size drawn from
+    them by ``np.random.default_rng(FLEX_SEED)`` (``flexible_patch_schedule``),
+    as in JAX; the validation runs at the model's own patch size.
     """
     from aum_tpu_torch.data.pipeline import Prefetcher
     from aum_tpu_torch.train.profiling import trace
 
     if flexible_patch_sizes:
-        raise NotImplementedError(
-            "flexible_patch_sizes is not ported yet (ROADMAP.md queue 1 item 5: "
-            "flexible patch sizes)")
-    step_fn = make_train_step(hp, steps_per_epoch, loss_type, augment, nan2num,
-                              accum_steps, generator, aug_generator)
+        # One step per size; each step's size is drawn as JAX draws it.
+        steps = {ps: make_train_step(hp, steps_per_epoch, loss_type, augment, nan2num,
+                                     accum_steps, generator, aug_generator, patch_size=ps)
+                 for ps in flexible_patch_sizes}
+        flex_rng = np.random.default_rng(FLEX_SEED)
+
+        def step_fn(state, batch):
+            ps = flexible_patch_sizes[int(flex_rng.integers(len(flexible_patch_sizes)))]
+            return steps[ps](state, batch)
+    else:
+        step_fn = make_train_step(hp, steps_per_epoch, loss_type, augment, nan2num,
+                                  accum_steps, generator, aug_generator)
     eval_fn = make_eval_step(state.model)
     history = []
     progress = []

@@ -89,8 +89,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    the launches of the card's forward and backward are read (Fo-Fo: 2 saving
    single-direction forwards and 2 one-direction backwards).
    Then the train path itself, ``aum_tpu_torch.entry.train_entry()`` (Fo-Bi,
-   depth 24, bf16, B=12, split remat): three steps with finite losses, one of
-   them between a reset and a read of every launch counter (24 saving
+   depth 24, bf16, B=12, remat "auto", which resolves to split): three steps
+   with finite losses, one of them between a reset and a read of every
+   launch counter (24 saving
    forwards, 24 backwards, 96 conv launches: forward, split recompute, and
    the backward's pre-activation and dx); then ms per step and clips/s (CUDA
    events after warm-up), peak memory, SM clock and power. The fp32 checks
@@ -135,7 +136,30 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    and featurize ms per batch (STFT, time warp, masks, normalize) and one
    featurized train batch on the card against the CPU from the same draws
    (``EPIC_FEATURIZE_TOL``).
-8. lm: the Mamba LM at mamba-130m's widths (bf16, 24 layers, random
+8. flex: the as20k recipe trained with flexible patch sizes, from flac
+   files. (a) The saving dual forward (outputs and states), K2 on both
+   directions and the conv forward and backward against their plain
+   versions at the token counts of patch 8 and 32 (``FLEX_DIMS``: B=12, L =
+   2049 and 129), fp32 and bf16, and each one's ms beside its bound and its
+   plain version's ms. (b) ``run.main`` with ``--set
+   flexible_patch_sizes=8,12,16`` on 60 clips (flac, written by the native
+   decoder library's encoder and decoded by it; WAV, with a line that says
+   so, where the ffmpeg headers are missing): 5 steps at patches 16, 16,
+   16, 12, 8, each with the train path's launches and a finite loss, and
+   one validation batch with the eval path's; peak memory. (c) One train
+   step at each of patches 8, 12, 16, 24, 32 through
+   ``make_train_step(patch_size=)`` (AuM-Base Fo-Bi, B=12, split remat),
+   bf16 and fp32: ms, launches, peak memory, a profiled step (bf16), and
+   the least-squares slope of
+   the peak over depth x B x L x d_inner, the bytes per element that
+   ``remat_mode="auto"`` reads; "auto" must resolve to split at each. (d)
+   fp32 on the card against the CPU on the same weights and draws: depth-2
+   Fo-Bi train steps at patch 8 (B=1) and 32 (B=2) and a depth-2 Bi-Bi
+   train step (phase 5's bounds); full-depth B=2 forwards with a random cls position,
+   a shuffle and a flip, with RoPE, and Bi-Bi (``MODEL_FP32_TOL``). (e) Two
+   bf16 Fo-Bi forwards at B=8, with the three stochastic knobs and with
+   RoPE: finite logits and ``entry()``'s launches.
+9. lm: the Mamba LM at mamba-130m's widths (bf16, 24 layers, random
    weights from seed 0): prefill of B=8 x 512 tokens (ms, tokens/s), one
    decode step (ms, tokens/s) and greedy generation of 32 tokens (ms,
    tokens/s, peak memory), each between a reset and a read of every launch
@@ -144,7 +168,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    the prefill's logits and caches and 8 decode steps' logits on the card
    against the CPU (``LM_FP32_TOL``), and on the card the prefill against
    decode_step stepped through a 64-token prompt (``LM_STEPWISE_TOL``).
-9. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
+10. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
    clips/s with CUDA events after warm-up; then ``wav_entry``'s model at
    B=64 from waveforms: clips/s, and the frontend's ms alone. Then per kernel
    at the shapes those forwards give it: ms per launch, the plain version's
@@ -166,7 +190,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    shapes. B=64 Fo-Bi clips/s are timed in turns: default,
    AUM_SCAN_DIRECT=1, AUM_SCAN_FUSE_DT=1, AUM_SCAN_FUSE_DT=1,
    AUM_SCAN_DIRECT=1, default.
-10. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
+11. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
    one Fo-Fo forward from waveforms (B=64), then one train step, under
    ``torch.profiler``: device time by
    kernel category (dual and single scan forward, scan backward, conv,
@@ -1224,7 +1248,8 @@ def _expected_train_launches(aum_type: str, depth: int, switches: dict, bf16: bo
     forward and its backward (the kernels the switches choose: the fuse_dt
     rule's saving forward is the staged kernel whatever AUM_SCAN_DIRECT says;
     the stage form takes bf16 streams only) and the conv four times (split
-    remat: forward, recompute, the backward's pre-activation and dx)."""
+    remat: forward, recompute, the backward's pre-activation and dx; Bi-Bi's
+    two convs each)."""
     on = {k for k, v in switches.items() if v}
     direct = "AUM_SCAN_DIRECT" in on and "AUM_SCAN_FUSE_DT" not in on
     if aum_type == "Fo-Fo":
@@ -1243,15 +1268,18 @@ def _expected_train_launches(aum_type: str, depth: int, switches: dict, bf16: bo
         bwd["selective_scan_bwd_xminus"] = depth
     if "AUM_SCAN_BWD_BF16_PARTIALS" in on:
         bwd["selective_scan_bwd_bf16_partials"] = depth
-    return _launches(**scans, **bwd, causal_conv1d_fwd=4 * depth)
+    convs = 2 if aum_type == "Bi-Bi" else 1
+    return _launches(**scans, **bwd, causal_conv1d_fwd=4 * convs * depth)
 
 
-def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
+def _train_fp32_check(aum_type: str, switch_sets: dict, patch_size: int | None = None,
+                      batch: int = 2) -> dict:
     """fp32, full width, depth 2 (the CPU oracle's backward stays short): the
     loss and grads of one forward and backward, then one full train step
     without warmup (its lr is the schedule's 5e-5, not the warmup's 0), card
-    against CPU. The card runs once per switch set (name -> switches), the CPU
-    once. Returns the launches of each card run's forward and backward."""
+    against CPU; at the run-time ``patch_size`` where given. The card runs
+    once per switch set (name -> switches), the CPU once. Returns the
+    launches of each card run's forward and backward."""
     import dataclasses
 
     from aum_tpu_torch.entry import STEPS_PER_EPOCH, TRAIN_HP, flagship_config
@@ -1261,13 +1289,14 @@ def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
     cfg = flagship_config(aum_type, dtype="float32", depth=2, remat=True, remat_mode="split")
     hp = dataclasses.replace(TRAIN_HP, warmup=False)
     g = torch.Generator().manual_seed(8)
-    x = torch.randn((2, 1024, 128), generator=g)
-    y = torch.nn.functional.one_hot(torch.arange(2) % 527, 527).float()
+    x = torch.randn((batch, 1024, 128), generator=g)
+    y = torch.nn.functional.one_hot(torch.arange(batch) % 527, 527).float()
     keys = ("in_proj.weight", "A_log", "A_b_log", "dt_proj.bias", "conv1d.weight",
             "x_proj.weight", "dt_proj.weight")
     if cfg.bimamba_type == "none":  # Fo-Fo has no A_b_log
         keys = tuple(k for k in keys if k != "A_b_log")
     names = [f"layers.{i}.mixer.{k}" for i in range(cfg.depth) for k in keys]
+    patch = {} if patch_size is None else {"patch_size": patch_size, "strides": patch_size}
 
     def run(device):
         t0 = time.perf_counter()
@@ -1276,7 +1305,7 @@ def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
         if device == "cuda":
             torch.cuda.synchronize()
             _reset_counters()
-        loss = loss_fn_of("BCE")(model(batch["x"], train=True), batch["y"])
+        loss = loss_fn_of("BCE")(model(batch["x"], train=True, **patch), batch["y"])
         loss.backward()
         launches = None
         if device == "cuda":
@@ -1286,7 +1315,7 @@ def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
         grads = {k: params[k].grad.cpu() for k in names}
         before = {k: params[k].detach().cpu().clone() for k in names}
         state = init_train_state(model, make_optimizer(model.parameters(), hp))
-        make_train_step(hp, STEPS_PER_EPOCH, "BCE")(state, batch)
+        make_train_step(hp, STEPS_PER_EPOCH, "BCE", patch_size=patch_size)(state, batch)
         after = {k: params[k].detach().cpu() for k in names}
         return loss.item(), grads, before, after, time.perf_counter() - t0, launches
 
@@ -1307,8 +1336,8 @@ def _train_fp32_check(aum_type: str, switch_sets: dict) -> dict:
         loss_ok = abs(loss_g - loss_c) <= TRAIN_FP32_TOL["loss_rtol"] * abs(loss_c)
         ok = (loss_ok and all(c["ok"] for c in checks.values())
               and all(u["ok"] for u in updates.values()) and launches == expected)
-        emit({"phase": "train_fp32_vs_cpu", "aum_type": aum_type,
-              "switches": {k: int(bool(v)) for k, v in switches.items()}, "batch": 2,
+        emit({"phase": "train_fp32_vs_cpu", "aum_type": aum_type, "patch_size": patch_size,
+              "switches": {k: int(bool(v)) for k, v in switches.items()}, "batch": batch,
               "depth": cfg.depth, "width": cfg.embed_dim, "loss_gpu": loss_g, "loss_cpu": loss_c,
               "loss_rtol": TRAIN_FP32_TOL["loss_rtol"], "grads": checks, "lr": hp.lr,
               "params_after_step": updates, "update_tol": TRAIN_FP32_TOL["update"],
@@ -1410,8 +1439,12 @@ RECIPE_SHORT_EVERY = 6
 FEATURIZE_TOL = (1e-4, 1e-4)  # (atol, rtol)
 
 
-def _write_recipe_data(root: str, recipe: str, n_classes: int, seed: int) -> dict:
-    """WAV clips, a label CSV and one JSON manifest per split under ``root``."""
+def _write_recipe_data(root: str, recipe: str, n_classes: int, seed: int,
+                       splits: dict | None = None, codec: str | None = None) -> dict:
+    """Clips, a label CSV and one JSON manifest per split under ``root``:
+    16-bit WAV files, or with ``codec`` ("flac") files written by the native
+    decoder library's own encoder. ``splits``: clips per split (default
+    ``RECIPE_SPLITS[recipe]``)."""
     import wave
 
     import numpy as np
@@ -1422,7 +1455,7 @@ def _write_recipe_data(root: str, recipe: str, n_classes: int, seed: int) -> dic
     with open(files["csv"], "w") as f:
         f.write("index,mid,display_name\n")
         f.writelines(f"{i},/m/c{i},class {i}\n" for i in range(n_classes))
-    for split, n in RECIPE_SPLITS[recipe].items():
+    for split, n in (splits or RECIPE_SPLITS[recipe]).items():
         entries = []
         for i in range(n):
             samples = int(16000 * (short_s if i % RECIPE_SHORT_EVERY == 5 else long_s))
@@ -1430,12 +1463,18 @@ def _write_recipe_data(root: str, recipe: str, n_classes: int, seed: int) -> dic
             t = np.arange(samples) / 16000
             wav = 0.1 * rng.standard_normal(samples) + 0.3 * np.sin(
                 2 * np.pi * (200 + 20 * labels[0]) * t)
-            path = os.path.join(root, f"{split}{i}.wav")
-            with wave.open(path, "wb") as w:
-                w.setnchannels(1)
-                w.setsampwidth(2)
-                w.setframerate(16000)
-                w.writeframes(np.clip(wav * 32767, -32768, 32767).astype("<i2").tobytes())
+            if codec is not None:
+                from aum_tpu_torch.data.native import encode_test_audio
+
+                path = os.path.join(root, f"{split}{i}.{codec}")
+                encode_test_audio(path, codec, np.clip(wav, -1.0, 1.0).astype(np.float32), 16000)
+            else:
+                path = os.path.join(root, f"{split}{i}.wav")
+                with wave.open(path, "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(16000)
+                    w.writeframes(np.clip(wav * 32767, -32768, 32767).astype("<i2").tobytes())
             entries.append({"wav": path, "labels": ",".join(f"/m/c{c}" for c in labels)})
         files[split] = os.path.join(root, f"{split}.json")
         with open(files[split], "w") as f:
@@ -1446,12 +1485,14 @@ def _write_recipe_data(root: str, recipe: str, n_classes: int, seed: int) -> dic
 @contextlib.contextmanager
 def _recipe_probes(records: dict):
     """Wrap the train loop's step, eval step and evaluate while a recipe runs:
-    per train step its loss, host ms, CUDA-event ms and launches (and the
-    third step under torch.profiler, the pipeline's work for the next batch
-    included); per val batch its launches; the val scores."""
+    per train step its loss, host ms, CUDA-event ms, launches and patch size
+    (and step ``records["profile_step"]``, the third by default, under
+    torch.profiler, the pipeline's work for the next batch included); per
+    val batch its launches; the val scores."""
     from aum_tpu_torch.train import loop
 
     saved = (loop.make_train_step, loop.make_eval_step, loop.evaluate)
+    profile_step = records.setdefault("profile_step", 2)
 
     def make_train_step(*a, **k):
         step = saved[0](*a, **k)
@@ -1461,7 +1502,7 @@ def _recipe_probes(records: dict):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
-            if len(records["steps"]) == 2:
+            if len(records["steps"]) == profile_step:
                 out = []
                 records["profile"] = _profile(
                     "profile_recipe_step", lambda: out.append(step(state, batch)),
@@ -1475,7 +1516,8 @@ def _recipe_probes(records: dict):
             after = _read_counters()
             records["steps"].append({
                 "loss": float(loss), "host_ms": host_ms, "cuda_ms": start.elapsed_time(end),
-                "launches": {k: after[k] - before[k] for k in after}})
+                "launches": {n: after[n] - before[n] for n in after},
+                "patch_size": k.get("patch_size")})
             return state, loss
 
         return probed
@@ -1508,11 +1550,12 @@ def _recipe_probes(records: dict):
 
 
 def _run_recipe(recipe: str, files: dict | None, exp_dir: str, overrides: list,
-                pipelines: tuple | None = None) -> dict:
+                pipelines: tuple | None = None, profile_step: int | None = 2) -> dict:
     """``aum_tpu_torch.run.main`` training ``recipe`` for one epoch, from the
     manifests in ``files`` or on the caller's (train, val, eval)
     ``pipelines``, with every launch counter set to 0 just before and read
-    just after."""
+    just after; train step ``profile_step`` (None: none) under
+    torch.profiler."""
     from aum_tpu_torch.run import main as run_main
 
     argv = ["--recipe", recipe, "--exp-dir", exp_dir, "--set", "n_epochs=1"]
@@ -1521,7 +1564,7 @@ def _run_recipe(recipe: str, files: dict | None, exp_dir: str, overrides: list,
                  "--label-csv", files["csv"]]
         if "eval" in files:
             argv += ["--data-eval", files["eval"]]
-    records = {"recipe": recipe, "steps": [], "val_batches": []}
+    records = {"recipe": recipe, "steps": [], "val_batches": [], "profile_step": profile_step}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _recipe_probes(records):
@@ -1541,8 +1584,9 @@ def _check_recipe_run(rec: dict, batch: int, n_steps: int, n_val: int, depth: in
     step_launches = _expected_train_launches("Fo-Bi", depth, {}, bf16=True)
     val_launches = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
     losses = [s["loss"] for s in rec["steps"]]
-    # Past the first step (warm-up), and not the profiled third.
-    steady = [s["cuda_ms"] for i, s in enumerate(rec["steps"]) if i not in (0, 2)]
+    # Past the first step (warm-up), and not the profiled one.
+    steady = [s["cuda_ms"] for i, s in enumerate(rec["steps"])
+              if i not in (0, rec["profile_step"])]
     shown = [{**s, "launches": {k: v for k, v in s["launches"].items() if v}}
              for s in rec["steps"]]
     out = {"phase": "recipe_path", "recipe": rec["recipe"], "seconds": rec["seconds"],
@@ -1833,6 +1877,381 @@ def phase_epic() -> dict:
     return out
 
 
+# The flex phase: the as20k recipe trained with flexible patch sizes (the
+# runner's ``--set flexible_patch_sizes``, the reference's FlexiAuM
+# training) from flac files, decoded by the native ffmpeg-backed decoder.
+# train_loop draws each step's size from np.random.default_rng(1234): 16,
+# 16, 16, 12, 8 over the first five steps, so 60 train clips (5 steps of
+# 12) reach every size; one validation batch of 24 at the recipe's patch 16.
+FLEX_RECIPE = "as20k/aum-base_scratch"
+FLEX_SIZES = (8, 12, 16)
+FLEX_SPLITS = {"train": 60, "val": 24}
+FLEX_STEPS = 5
+# The recipe's kernels at the token counts of patch 8 (16 x 128 patches and
+# the cls token) and of patch 32 (4 x 32 and the cls token), at B=12.
+FLEX_DIMS = {"flex_p8": (12, 2049, 1536), "flex_p32": (12, 129, 1536)}
+# One train step at each of these patch sizes (AuM-Base Fo-Bi, B=12, split
+# remat): ms, launches and peak memory at each token count, and the fit of
+# the memory per (layer, sample, token, channel) that remat_mode="auto" reads.
+FLEX_STEP_PATCHES = (8, 12, 16, 24, 32)
+FLEX_EVAL_BATCH = 8
+
+
+def _tokens(patch: int, cfg) -> int:
+    from aum_tpu_torch.models.tokenization import patch_grid_shape
+
+    f, t = patch_grid_shape(patch, patch, *cfg.spectrogram_size)
+    return f * t + cfg.num_prefix_tokens
+
+
+def _check_flex_kernels(label, dims, dtype) -> list[dict]:
+    """The flexible recipe's kernels at ``dims``, against their plain
+    versions: the saving dual forward on v1 operands (outputs and states), K2
+    on both directions from those states, and the conv forward and
+    backward."""
+    from aum_tpu_torch.ops.selective_scan import (
+        selective_scan_bwd_cuda,
+        selective_scan_bwd_plain,
+        selective_scan_dual_cuda,
+        selective_scan_dual_plain,
+    )
+
+    bsz, seqlen, d = dims
+    tag = dict(shape=label, dims=[bsz, seqlen, d, 16], dtype=str(dtype), bimamba="v1")
+    dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, shared=True)
+    got = selective_scan_dual_cuda(dir_f, dir_r, save_states=True)
+    torch.cuda.synchronize()
+    want = selective_scan_dual_plain(dir_f, dir_r, save_states=True)
+    atol, rtol = SCAN_TOL[dtype]
+    results = []
+    for i, (y, w) in enumerate(zip(got, want)):
+        results.append({**compare(y, w, *((atol, rtol) if i < 2 else XB_TOL)),
+                        "kernel": "selective_scan_dual_fwd", "against": "plain",
+                        "save_states": True, "output": "out" if i < 2 else "xb",
+                        "direction": "reverse" if i % 2 else "forward", **tag})
+    del want
+    g = torch.Generator().manual_seed(5)
+    gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
+    dirs = [dir_f + (False,), dir_r + (True,)]
+    grads = selective_scan_bwd_cuda(dirs, gs, list(got[2:]))
+    torch.cuda.synchronize()
+    want = selective_scan_bwd_plain(dirs, gs)
+    for direction, (gr, wr) in enumerate(zip(grads, want)):
+        results.append({**_grad_checks(GRAD_NAMES, gr, wr, GRAD_TOL[dtype]),
+                        "kernel": "selective_scan_bwd", "form": "two_directions",
+                        "against": "plain", "direction": "reverse" if direction else "forward",
+                        **tag})
+    for train in (False, True):
+        results += _check_conv(label, dims, dtype, train)
+    return results
+
+
+def _bench_flex_kernels(sfu_rate: float) -> dict:
+    """The three kernels of the flexible recipe at each of FLEX_DIMS (bf16):
+    ms per launch (CUDA events), the plain version's ms, the bound, and for
+    the conv the PyTorch call that computes its function."""
+    from aum_tpu_torch.ops.conv1d import causal_conv1d_cuda, causal_conv1d_plain
+    from aum_tpu_torch.ops.selective_scan import (
+        selective_scan_bwd_cuda,
+        selective_scan_bwd_plain,
+        selective_scan_dual_cuda,
+        selective_scan_dual_plain,
+    )
+
+    n, k, es, dtype = 16, 4, 2, torch.bfloat16
+    out = {}
+    for label, (bsz, seqlen, d) in FLEX_DIMS.items():
+        dir_f, dir_r = _scan_dirs(bsz, seqlen, d, dtype, shared=True)
+        iters = max(20, 100 * 513 // seqlen)
+        save = {"ms": cuda_ms(lambda: selective_scan_dual_cuda(dir_f, dir_r, save_states=True),
+                              iters=iters),
+                "plain_ms": cuda_ms(lambda: selective_scan_dual_plain(dir_f, dir_r,
+                                                                      save_states=True),
+                                    iters=1, warmup=1),
+                "bounds_ms": _save_bounds(bsz, seqlen, d, n, es, sfu_rate)}
+        _, _, xb_f, xb_r = selective_scan_dual_cuda(dir_f, dir_r, save_states=True)
+        g = torch.Generator().manual_seed(9)
+        gs = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
+        dirs = [dir_f + (False,), dir_r + (True,)]
+        bwd = {"ms": cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
+                             iters=iters),
+               "plain_ms": cuda_ms(lambda: selective_scan_bwd_plain(dirs, gs), iters=1,
+                                   warmup=1),
+               "bounds_ms": _bwd_bounds(bsz, seqlen, d, n, es, sfu_rate, 2)}
+        del dir_f, dir_r, xb_f, xb_r, gs, dirs
+        xc, w, b = conv_inputs(bsz, seqlen, d, k, dtype, seed=5)
+        w3 = w[:, None, :]
+        conv = {"ms": cuda_ms(lambda: causal_conv1d_cuda(xc, w, b, "silu", False),
+                              iters=10 * iters),
+                "plain_ms": cuda_ms(lambda: causal_conv1d_plain(xc, w, b, "silu", False),
+                                    iters=10),
+                "library_ms": cuda_ms(lambda: torch.nn.functional.silu(
+                    torch.nn.functional.conv1d(xc.transpose(1, 2), w3, b, padding=k - 1,
+                                               groups=d)[..., :seqlen]), iters=50),
+                "bounds_ms": _conv_bounds(bsz, seqlen, d, k, es)}
+        del xc, w, b, w3
+        for entry in (save, bwd, conv):
+            entry["bound_ms"], entry["bound_by"] = _bound(entry["bounds_ms"])
+            entry["over_bound"] = entry["ms"] / entry["bound_ms"]
+        out[label] = {"dims": [bsz, seqlen, d, n], "scan_save": save, "scan_bwd": bwd,
+                      "conv": conv}
+    emit({"phase": "flex_bench_kernels", "dtype": "bfloat16", **out})
+    return out
+
+
+def _flex_steps() -> dict:
+    """One train step of AuM-Base Fo-Bi (B=12, split remat) at each patch of
+    FLEX_STEP_PATCHES through ``make_train_step(patch_size=)``, bf16 and
+    fp32: launches, finite loss, ms per step and one step profiled (bf16: 3
+    steps after one) and peak memory after one warm-up step. The peak's slope over depth x B x L x
+    d_inner is the bytes per element of remat_mode="auto"'s estimate."""
+    import dataclasses
+
+    import numpy as np
+
+    from aum_tpu_torch.entry import STEPS_PER_EPOCH, TRAIN_BATCH, TRAIN_HP, flagship_config
+    from aum_tpu_torch.models import AudioMamba
+    from aum_tpu_torch.models.audio_mamba import (
+        SPLIT_REMAT_BYTES_PER_ELEMENT,
+        resolve_remat_mode,
+    )
+    from aum_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = flagship_config(dtype=dtype, remat=True, remat_mode="split")
+        g = torch.Generator().manual_seed(11)
+        x = torch.randn((TRAIN_BATCH, *reversed(cfg.spectrogram_size)), generator=g)
+        y = torch.nn.functional.one_hot(torch.arange(TRAIN_BATCH) % cfg.num_classes,
+                                        cfg.num_classes).float()
+        batch = {"x": x.cuda(), "y": y.cuda()}
+        model = AudioMamba(cfg, device="cuda", seed=0)
+        state = init_train_state(model, make_optimizer(model.parameters(), TRAIN_HP))
+        param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        rows = []
+        for patch in FLEX_STEP_PATCHES:
+            step = make_train_step(TRAIN_HP, STEPS_PER_EPOCH, "BCE", patch_size=patch)
+            state, _ = step(state, batch)  # Adam's moments exist from here on
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            launches = _read_counters()
+            peak = torch.cuda.max_memory_allocated()
+            tokens = _tokens(patch, cfg)
+            row = {"patch_size": patch, "tokens": tokens, "loss": float(loss),
+                   "launches": {k: v for k, v in launches.items() if v},
+                   "peak_mem_bytes": peak,
+                   "elements": cfg.depth * TRAIN_BATCH * tokens * 2 * cfg.embed_dim,
+                   "auto_resolves_to": resolve_remat_mode(
+                       dataclasses.replace(cfg, remat_mode="auto"), TRAIN_BATCH, tokens,
+                       torch.device("cuda"), param_bytes)}
+            if dtype == "bfloat16":
+                row["ms_per_step"] = cuda_ms(lambda: step(state, batch), iters=3, warmup=0)
+                # A steady step under torch.profiler: where its time goes.
+                prof = _profile("profile_flex_step", lambda: step(state, batch),
+                                patch_size=patch, tokens=tokens, batch=TRAIN_BATCH)
+                row["idle_share"] = prof["idle_share"]
+                row["device_busy_ms"] = prof["device_busy_ms"]
+            emit({"phase": "flex_step", "dtype": dtype, "batch": TRAIN_BATCH, **row})
+            expected = _expected_train_launches("Fo-Bi", cfg.depth, {}, bf16=dtype == "bfloat16")
+            if launches != expected or not math.isfinite(row["loss"]):
+                raise RuntimeError(f"flex step at patch {patch} ({dtype}): expected {expected} "
+                                   f"launches and a finite loss, got {launches}, {row['loss']}")
+            rows.append(row)
+        elements = np.array([r["elements"] for r in rows], np.float64)
+        peaks = np.array([r["peak_mem_bytes"] for r in rows], np.float64)
+        slope, intercept = np.polyfit(elements, peaks, 1)
+        fit = {"bytes_per_element": float(slope), "fixed_bytes": float(intercept),
+               "param_bytes": param_bytes,
+               "max_residual_bytes": float(np.abs(peaks - (slope * elements + intercept)).max()),
+               "table_bytes_per_element": SPLIT_REMAT_BYTES_PER_ELEMENT[
+                   getattr(torch, dtype).itemsize]}
+        emit({"phase": "flex_remat_fit", "dtype": dtype, **fit,
+              "total_memory_bytes": torch.cuda.get_device_properties(0).total_memory})
+        if any(r["auto_resolves_to"] != "split" for r in rows):
+            raise RuntimeError(f"remat_mode='auto' does not resolve to split at every patch "
+                               f"({dtype})")
+        out[dtype] = {"steps": rows, "fit": fit}
+        del model, state, step
+    return out
+
+
+def _flex_fp32_checks() -> dict:
+    """fp32 against the CPU, on the same weights and draws: a depth-2 train
+    step at patch 8 (B=1: the CPU oracle's backward over 2049 tokens takes
+    ~75 s a sample on the card's host) and at patch 32 (Fo-Bi) and a
+    depth-2 Bi-Bi train step (``_train_fp32_check``'s bounds); full-depth
+    forwards at the model bound
+    (B=2): Fo-Bi with a random cls position, a token shuffle and a flip
+    drawn once on the CPU and applied on both, Fo-Bi with RoPE on the hidden
+    and the residual stream, and Bi-Bi."""
+    from aum_tpu_torch.entry import flagship_config
+    from aum_tpu_torch.models import AudioMamba, draw_tokens
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"train": {}}
+    for patch, batch in ((8, 1), (32, 2)):
+        out["train"][f"fobi_p{patch}"] = _train_fp32_check("Fo-Bi", {"default": {}}, patch,
+                                                           batch)
+    out["train"]["bibi"] = _train_fp32_check("Bi-Bi", {"default": {}})
+    base = flagship_config(dtype="float32")
+    x = torch.randn((2, *reversed(base.spectrogram_size)),
+                    generator=torch.Generator().manual_seed(12))
+    draws = draw_tokens(torch.Generator().manual_seed(13), base.num_patches,
+                        base.num_patches + 1, True, True, 1.0)
+    stochastic = dict(if_random_cls_token_position=True, if_random_token_rank=True,
+                      flip_sequence_prob=1.0, token_draws=draws)
+    forwards = {"stochastic_tokens": (base, stochastic),
+                "rope": (flagship_config(dtype="float32", if_rope=True, if_rope_residual=True),
+                         {}),
+                "bibi": (flagship_config("Bi-Bi", dtype="float32"), {})}
+    atol, rtol = MODEL_FP32_TOL
+    for name, (cfg, kw) in forwards.items():
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            gpu = AudioMamba(cfg, device="cuda", seed=0)
+            torch.cuda.synchronize()
+            _reset_counters()
+            got = gpu(x.cuda(), **kw).cpu()
+            launches = _read_counters()
+            del gpu
+            t1 = time.perf_counter()
+            want = AudioMamba(cfg, device="cpu", seed=0)(x, **kw)
+        r = compare(got, want, atol, rtol)
+        expected = _launches(selective_scan_dual_fwd=cfg.depth, causal_conv1d_fwd=cfg.depth * (
+            2 if cfg.bimamba_type == "v2" else 1))
+        out[name] = {"phase": "flex_fp32_vs_cpu", "forward": name, "batch": 2,
+                     "depth": cfg.depth, "width": cfg.embed_dim, "bimamba": cfg.bimamba_type,
+                     "launches": launches, "expected_launches": expected,
+                     "gpu_s": t1 - t0, "cpu_s": time.perf_counter() - t1, **r,
+                     **({"draws": {"cls_position": draws.cls_position, "flip": draws.flip}}
+                        if kw else {})}
+        emit(out[name])
+        if not r["ok"] or launches != expected:
+            raise RuntimeError(f"fp32 {name} forward on the card disagrees with the CPU, or "
+                               "launched other kernels than expected")
+    return out
+
+
+def _flex_bf16_forwards() -> dict:
+    """Two full-width bf16 Fo-Bi forwards at B=8, as ``entry()`` runs them:
+    with a random cls position, a shuffle and a flip (drawn from a
+    generator), and with RoPE; finite (8, 527) logits and entry()'s
+    launches."""
+    from aum_tpu_torch.entry import flagship_config
+    from aum_tpu_torch.models import AudioMamba
+
+    runs = {"stochastic_tokens": ({}, dict(if_random_cls_token_position=True,
+                                           if_random_token_rank=True, flip_sequence_prob=0.5,
+                                           generator=torch.Generator().manual_seed(14))),
+            "rope": ({"if_rope": True, "if_rope_residual": True}, {})}
+    out = {}
+    for name, (cfg_kw, kw) in runs.items():
+        cfg = flagship_config(**cfg_kw)
+        model = AudioMamba(cfg, device="cuda", seed=0)
+        x = torch.zeros((FLEX_EVAL_BATCH, *reversed(cfg.spectrogram_size)), device="cuda")
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            _reset_counters()
+            logits = model(x, **kw)
+            torch.cuda.synchronize()
+            launches = _read_counters()
+            ms = cuda_ms(lambda: model(x, **kw), iters=5)
+        finite = bool(torch.isfinite(logits.float()).all())
+        expected = _launches(selective_scan_dual_fwd=cfg.depth, causal_conv1d_fwd=cfg.depth)
+        out[name] = {"phase": "flex_bf16_forward", "forward": name, "batch": FLEX_EVAL_BATCH,
+                     "logits_shape": list(logits.shape), "finite": finite,
+                     "launches": launches, "ms_per_forward": ms}
+        emit(out[name])
+        if (tuple(logits.shape) != (FLEX_EVAL_BATCH, cfg.num_classes) or not finite
+                or launches != expected):
+            raise RuntimeError(f"bf16 {name} forward: expected finite (8, 527) logits and "
+                               f"{expected} launches, got {launches}")
+        del model
+    return out
+
+
+def phase_flex(device_info: dict) -> dict:
+    """The flexible-patch recipe and its kernels: (a) the saving dual
+    forward, K2 and the conv at FLEX_DIMS against their plain versions, fp32
+    and bf16, and their times beside their bounds; (b) ``run.main`` on the
+    as20k recipe with ``--set flexible_patch_sizes=8,12,16`` from flac
+    files, 5 train steps (patches 16, 16, 16, 12, 8) and one validation
+    batch, every launch counter set to 0 just before and read
+    just after; (c) one train step at each of FLEX_STEP_PATCHES, the memory
+    fit of remat_mode="auto"; (d) fp32 checks against the CPU; (e) two bf16
+    forwards with the stochastic token order and with RoPE. Where the
+    ffmpeg headers are missing, (b) runs from WAV files and says so."""
+    import tempfile
+
+    from aum_tpu_torch.configs import RECIPES
+    from aum_tpu_torch.data import native
+    from aum_tpu_torch.train import flexible_patch_schedule
+
+    results = []
+    for label, dims in FLEX_DIMS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            results += _check_flex_kernels(label, dims, dtype)
+    worst = {}
+    for r in results:
+        emit({"phase": "flex_kernels", **r})
+        if r["dtype"] == str(torch.bfloat16):
+            key = r["kernel"] + ("_save_states" if r.get("save_states") else "")
+            worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+    failed = [r for r in results if not r["ok"]]
+    emit({"phase": "flex_kernels_summary", "checks": len(results), "failed": len(failed),
+          "worst_bf16_max_abs_err": worst})
+    if failed:
+        raise RuntimeError(f"{len(failed)} flex kernel checks disagree with the plain version")
+    sfu_rate = device_info["sms"] * SFU_PER_SM_PER_CLOCK * max_sm_clock_hz()
+    bench = _bench_flex_kernels(sfu_rate)
+
+    cfg = RECIPES[FLEX_RECIPE]
+    codec = "flac" if native.av_headers() is not None else None
+    if codec is None:
+        emit({"phase": "flex_decoder", "ffmpeg_headers": None,
+              "note": "no libav headers on this machine: the flex recipe runs from WAV files "
+                      "and the ffmpeg-backed decoder is not exercised"})
+    else:
+        native.audio_decoder_available()  # a failed build raises here
+        emit({"phase": "flex_decoder", "ffmpeg_headers": native.av_headers(),
+              "library": native.audio_library_path().name})
+    sizes = ",".join(str(p) for p in FLEX_SIZES)
+    with tempfile.TemporaryDirectory(prefix="aum_flex_") as root:
+        t0 = time.perf_counter()
+        files = _write_recipe_data(root, FLEX_RECIPE, cfg.n_class, seed=3, splits=FLEX_SPLITS,
+                                   codec=codec)
+        write_s = time.perf_counter() - t0
+        # No step profiled: each size's first step grows the allocator's
+        # pool; _flex_steps profiles steady steps at every size.
+        rec = _run_recipe(FLEX_RECIPE, files, os.path.join(root, "exp"),
+                          [f"flexible_patch_sizes={sizes}"], profile_step=None)
+    depth = cfg.model_config().depth
+    recipe = _check_recipe_run(rec, cfg.batch_size, n_steps=FLEX_STEPS, n_val=1, depth=depth)
+    want_sizes = flexible_patch_schedule(FLEX_SIZES, FLEX_STEPS)
+    per_step = [{"patch_size": s["patch_size"], "tokens": _tokens(s["patch_size"],
+                                                                   cfg.model_config()),
+                 "cuda_ms": s["cuda_ms"], "host_ms": s["host_ms"], "loss": s["loss"],
+                 "launches": {k: v for k, v in s["launches"].items() if v}}
+                for s in rec["steps"]]
+    flex = {"phase": "flex_recipe", "format": codec or "wav", "write_s": write_s,
+            "patch_sizes": [s["patch_size"] for s in rec["steps"]], "steps": per_step,
+            "peak_mem_bytes": rec["peak_mem_bytes"],
+            "val_batch_launches": rec["val_batches"][0] if rec["val_batches"] else None}
+    emit(flex)
+    if flex["patch_sizes"] != want_sizes:
+        raise RuntimeError(f"flex recipe ran patch sizes {flex['patch_sizes']}, not "
+                           f"{want_sizes}")
+    del rec
+    steps = _flex_steps()
+    checks = _flex_fp32_checks()
+    forwards = _flex_bf16_forwards()
+    return {"worst": worst, "bench": bench, "recipe": recipe, "flex": flex, "steps": steps,
+            "checks": checks, "forwards": forwards}
+
+
 # The Mamba LM: mamba-130m's widths (the config's defaults) at
 # scripts/bench_lm_decode.py's shapes, bf16, random weights from a seed.
 LM_CONFIG = dict(d_model=768, n_layer=24, vocab_size=50277, dtype="bfloat16")
@@ -2061,9 +2480,7 @@ def phase_bench(device_info: dict) -> dict:
     w3 = w[:, None, :]
     conv_lib_ms = cuda_ms(lambda: torch.nn.functional.silu(torch.nn.functional.conv1d(
         xc.transpose(1, 2), w3, b, padding=k - 1, groups=d)[..., :seqlen]), iters=50)
-    conv_bytes = 2 * bsz * seqlen * d * es + d * (k + 1) * es
-    conv_bounds = {"bytes": conv_bytes / HBM_BYTES_PER_S * 1e3,
-                   "fp32_flops": (2 * k + 4) * bsz * seqlen * d / FP32_FLOPS_PER_S * 1e3}
+    conv_bounds = _conv_bounds(bsz, seqlen, d, k, es)
     # The direct kernel computes the staged one's function: the same plain
     # version and bounds; the staged kernel timed again after it.
     out = {"scan": {"ms": scan_ms, "plain_ms": scan_plain_ms, "bounds_ms": scan_bounds,
@@ -2171,6 +2588,48 @@ def bench_single_kernels(sfu_rate: float) -> dict:
     return out
 
 
+def _save_bounds(bsz, seqlen, d, n, es, sfu_rate) -> dict:
+    """The saving dual forward (v1): u, dt, z, B, C read once (shared by the
+    two directions), both outputs and both directions' chunk-entry states
+    written once; per direction one exp2 and SCAN_FP32_OPS_PER_ELEMENT
+    FP32-pipe instructions per (b, l, d, n)."""
+    from aum_tpu_torch.ops.selective_scan import STATE_CHUNK
+
+    bld, bln = bsz * seqlen * d, bsz * seqlen * n
+    xb_bytes = bsz * math.ceil(seqlen / STATE_CHUNK) * n * d * 4  # one direction
+    elems = bld * n
+    nbytes = (3 * bld + 2 * bln) * es + 2 * bld * es + 2 * xb_bytes + 2 * d * n * 4 + d * 4
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": exp_floor_s(2 * elems, SCAN_FP32_OPS_PER_ELEMENT * 2 * elems,
+                                      sfu_rate) * 1e3}
+
+
+def _bwd_bounds(bsz, seqlen, d, n, es, sfu_rate, ndir: int) -> dict:
+    """The scan backward of ``ndir`` directions: u, dt, z, B, C read once,
+    and per direction its cotangent, states, A and D; per direction du,
+    ddelta, dz, dB, dC and the fp32 dA, dD, dbias written once (the kernel's
+    own fp32 partials, summed by its wrapper, are a choice of its design,
+    not bytes the function needs); SCAN_BWD_FP32_OPS_PER_ELEMENT per (b, l,
+    d, n) and direction."""
+    from aum_tpu_torch.ops.selective_scan import STATE_CHUNK
+
+    bld, bln = bsz * seqlen * d, bsz * seqlen * n
+    xb_bytes = bsz * math.ceil(seqlen / STATE_CHUNK) * n * d * 4
+    elems = bld * n
+    nbytes = ((3 * bld + 2 * bln) * es + ndir * (bld * es + xb_bytes + (n + 1) * d * 4
+              + (3 * bld + 2 * bln) * es + (n + 2) * d * 4))
+    fp32 = SCAN_BWD_FP32_OPS_PER_ELEMENT * ndir * elems
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": exp_floor_s(ndir * elems, fp32, sfu_rate) * 1e3}
+
+
+def _conv_bounds(bsz, seqlen, d, k, es) -> dict:
+    """The conv forward: x read and out written once, the taps and bias;
+    2k + 4 fp32 flops per output (the taps' FMAs, the bias, SiLU)."""
+    return {"bytes": (2 * bsz * seqlen * d * es + d * (k + 1) * es) / HBM_BYTES_PER_S * 1e3,
+            "fp32_flops": (2 * k + 4) * bsz * seqlen * d / FP32_FLOPS_PER_S * 1e3}
+
+
 def bench_train_kernels(sfu_rate: float) -> dict:
     """The train path's scan kernels at its shapes (v1, B=12, bf16): the
     saving forward, staged and direct; the backward of both directions in one
@@ -2249,26 +2708,11 @@ def bench_train_kernels(sfu_rate: float) -> dict:
                                                               states=[(x0, gfin)]),
                              iters=1, warmup=1)
 
-    bld, bln = bsz * seqlen * d, bsz * seqlen * n
-    xb_bytes = bsz * math.ceil(seqlen / STATE_CHUNK) * n * d * 4  # one direction
-    elems = bld * n  # (b, l, d, n) of one direction
-    # Saving forward: u, dt, z, B, C read once (v1 shares them), both outputs
-    # and both directions' states written once.
-    save_bytes = (3 * bld + 2 * bln) * es + 2 * bld * es + 2 * xb_bytes + 2 * d * n * 4 + d * 4
-    save_fp32 = SCAN_FP32_OPS_PER_ELEMENT * 2 * elems
-    save_bounds = {"bytes": save_bytes / HBM_BYTES_PER_S * 1e3,
-                   "operations": exp_floor_s(2 * elems, save_fp32, sfu_rate) * 1e3}
+    elems = bsz * seqlen * d * n  # (b, l, d, n) of one direction
+    save_bounds = _save_bounds(bsz, seqlen, d, n, es, sfu_rate)
+
     def bwd_bounds(ndir: int) -> dict:
-        # The function's bytes: u, dt, z, B, C read once, and per direction
-        # its cotangent, states, A and D; per direction du, ddelta, dz, dB,
-        # dC and the fp32 dA, dD, dbias written once. The kernel's own fp32
-        # partials (summed by its wrapper) are a choice of its design, not
-        # bytes the function needs.
-        nbytes = ((3 * bld + 2 * bln) * es + ndir * (bld * es + xb_bytes + (n + 1) * d * 4
-                  + (3 * bld + 2 * bln) * es + (n + 2) * d * 4))
-        fp32 = SCAN_BWD_FP32_OPS_PER_ELEMENT * ndir * elems
-        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                "operations": exp_floor_s(ndir * elems, fp32, sfu_rate) * 1e3}
+        return _bwd_bounds(bsz, seqlen, d, n, es, sfu_rate, ndir)
 
     # The direct and the fused kernels compute the functions of the staged
     # forward and K2: the same plain versions and bounds. The with_state
@@ -2567,10 +3011,14 @@ def main() -> int:
         train = timed("train", phase_train)
         recipe = timed("recipe", phase_recipe)
         epic = timed("epic", phase_epic)
+        flex = timed("flex", phase_flex, device_info)
         lm = timed("lm", phase_lm)
         bench = timed("bench", phase_bench, device_info)
         timed("profile", phase_profile)
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
+    # The flex phase's kernel checks (L = 2049 and 129) count in the worst errors.
+    for key, err in flex["worst"].items():
+        worst[key] = max(worst.get(key, 0.0), err)
     eval_launches, eval_direct = eval_runs["default"], eval_runs["direct"]
     train_launches = train["default"]["launches_per_step"]
     train_switched = train["direct_fused"]["launches_per_step"]
@@ -2724,14 +3172,28 @@ def main() -> int:
                 recipe[name]["step_launches"][counter])
             entry["launches_by_path"][f"recipe_{name}_val_batch"] = (
                 recipe[name]["val_batch_launches"][counter])
-        # EPIC-SOUNDS (run.main on in-memory pipelines) and the LM.
+        # EPIC-SOUNDS (run.main on in-memory pipelines), the flexible-patch
+        # recipe (run.main from flac; each of its steps launches the same)
+        # and the LM.
         entry["launches_by_path"].update({
             "epic_train_step": epic["train"]["step_launches"][counter],
             "epic_val_batch": epic["train"]["val_batch_launches"][counter],
+            "flex_train_step": flex["recipe"]["step_launches"][counter],
+            "flex_val_batch": flex["recipe"]["val_batch_launches"][counter],
             "lm_prefill": lm["prefill_launches"][counter],
             "lm_decode_step": lm["decode_step_launches"][counter]})
     single["launches_by_path"]["lm_prefill_with_state"] = (
         lm["prefill_launches"]["selective_scan_fwd_with_state"])
+    # The three kernels of the flexible-patch recipe, timed at its longest
+    # and shortest token counts.
+    for entry, key in ((scan["save_states"], "scan_save"), (bwd, "scan_bwd"), (conv, "conv")):
+        entry["by_length"] = {
+            str(b["dims"][1]): {f: b[key][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            | ({"library_ms": b[key]["library_ms"]} if "library_ms" in b[key] else {})
+            for b in flex["bench"].values()}
+    scan["save_states"]["launches_by_path"] = {
+        "train": train_launches["selective_scan_dual_fwd_save_states"],
+        "flex_train_step": flex["recipe"]["step_launches"]["selective_scan_dual_fwd_save_states"]}
     emit({"kernels": [scan, direct, fdt, stage, single, bwd, fused, conv]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -263,17 +263,3 @@ def test_wrappers_refuse_other_devices():
         selective_scan_dual(args, args)
     with pytest.raises(ValueError, match="cpu or cuda"):
         selective_scan(*args)
-
-
-@pytest.mark.parametrize("kind", ["sequence_flip", "token_shuffle"])
-def test_unported_variants_raise(kind):
-    import torch
-
-    from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
-
-    model = AudioMamba(AudioMambaConfig(depth=2, embed_dim=32, spectrogram_size=(32, 32),
-                                        num_classes=3, bimamba_type="none"), device="cpu")
-    kw = ({"flip_sequence_prob": 0.5} if kind == "sequence_flip"
-          else {"if_random_token_rank": True})
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros((1, 32, 32)), train=True, **kw)

@@ -333,9 +333,7 @@ def test_run_main_train_eval_wa_ensemble(spc_like_data, tmp_path, capsys):  # no
     (["--set", "model=ast"], "6: porters and AST"),
     (["--set", "aum_pretrain_path=x.pth"], "6: porters and AST"),
     (["--run-type", "eval", "--ckpt", "model.pth"], "6: porters and AST"),
-    (["--set", "flexible_patch_sizes=8,16"], "5: the rest of the model"),
-], ids=["n_model", "n_seq", "n_pipe", "multihost", "ast", "pretrain", "pth",
-        "flexible_patch"])
+], ids=["n_model", "n_seq", "n_pipe", "multihost", "ast", "pretrain", "pth"])
 def test_run_main_raises_on_unported_options(tmp_path, extra, item):
     from aum_tpu_torch.run import main
 
@@ -357,16 +355,6 @@ def test_train_loop_raises_on_a_nonfinite_loss_unless_continue_inf():
     with pytest.raises(RuntimeError, match="non-finite train loss"):
         train_loop(state, TrainHyperParams(), 1, lambda e: [nan], lambda: [], 1,
                    continue_inf=False)
-
-
-def test_train_loop_raises_on_flexible_patch_sizes():
-    from aum_tpu_torch.train import TrainHyperParams, init_train_state, make_optimizer, train_loop
-
-    model = _tiny()
-    state = init_train_state(model, make_optimizer(model.parameters(), TrainHyperParams()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        train_loop(state, TrainHyperParams(), 1, lambda e: [], lambda: [], 1,
-                   flexible_patch_sizes=[8, 16])
 
 
 def test_average_ensemble_views_matches_jax():

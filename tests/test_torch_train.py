@@ -450,13 +450,13 @@ def test_remat_modes_give_identical_grads():
 
     x, y = _batch(2)
     base = _grads(_tiny_port("v1"), x, y)
-    for mode in ("none", "block", "split"):
+    for mode in ("none", "block", "split", "auto"):
         got = _grads(_tiny_port("v1", remat=True, remat_mode=mode), x, y)
         for k, g in base.items():
             assert torch.equal(got[k], g), (mode, k)  # the same ops, recomputed
-    with pytest.raises(NotImplementedError, match="auto"):
-        AudioMamba(AudioMambaConfig(**{**_tiny_kw("v1"), "remat": True, "remat_mode": "auto"}),
-                   device="cpu")
+    # "auto" is the default, and on the CPU without a budget it is "split".
+    model = AudioMamba(AudioMambaConfig(**{**_tiny_kw("v1"), "remat": True}), device="cpu")
+    assert model.config.remat_mode == "auto" and model.remat_mode(4, 9) == "split"
 
 
 def test_drop_path_rates_follow_the_jax_rule():
@@ -540,7 +540,8 @@ def test_train_entry_builds_the_workload_and_needs_a_card(monkeypatch):
 
     step, state, batch = train_entry(device="cpu")
     assert callable(step) and state.step == 0
-    assert state.model.config.remat_mode == "split" and state.model.config.depth == 24
+    assert state.model.config.remat_mode == "auto" and state.model.config.depth == 24
+    assert state.model.remat_mode(TRAIN_BATCH, 513) == "split"
     assert tuple(batch["x"].shape) == (TRAIN_BATCH, 1024, 128)
     assert torch.equal(batch["y"].argmax(1), torch.arange(TRAIN_BATCH) % 527)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
