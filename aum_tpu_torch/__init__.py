@@ -8,7 +8,8 @@ names so each counterpart is easy to find:
                              autograd, with their plain PyTorch versions,
                              the sequential scan oracle, fused add+norm.
 - ``aum_tpu_torch.models`` — AudioMamba eval and train forward (remat, drop
-                             path), Mamba mixer blocks, patch/pos embedding.
+                             path), Mamba mixer blocks, patch/pos embedding;
+                             the AST baseline (``models.ast``); the Mamba LM.
 - ``aum_tpu_torch.audio``  — the Kaldi fbank, normalization and the
                              train-time augmentations (SpecAugment, mixup,
                              noise and roll).
@@ -21,9 +22,16 @@ names so each counterpart is easy to find:
 - ``aum_tpu_torch.configs``— the published training recipes.
 - ``aum_tpu_torch.run``    — the experiment runner (``python -m
                              aum_tpu_torch.run``): train, eval, eval_wa,
-                             eval_ensemble.
-- ``aum_tpu_torch.serving``— the served forward from waveforms.
-- ``aum_tpu_torch.convert``— JAX parameter tree -> this package's state dict.
+                             eval_ensemble; AuM or AST, from scratch or
+                             from a pretrained checkpoint.
+- ``aum_tpu_torch.serving``— the served forward (also from waveforms),
+                             serving bundles (export, int8 weights, load,
+                             predict) and the HTTP server (``python -m
+                             aum_tpu_torch.serving export|serve``).
+- ``aum_tpu_torch.convert``— the checkpoint porters (reference AuM, ViM,
+                             DeiT and AST ``.pth`` -> state dicts, and
+                             back), and the JAX package's parameter trees
+                             -> this package's state dicts.
 - ``aum_tpu_torch.entry``  — the flagship forward and train step (AuM-Base
                              Fo-Bi, bf16).
 

@@ -8,9 +8,9 @@ published per-dataset recipes (the reference's
 statistics. ``model_config``, ``audio_conf`` and ``train_hp`` build the
 port's ``AudioMambaConfig``, ``AudioConf`` and ``TrainHyperParams``.
 
-The variant helpers at the end are copied too; what they set (an AuM or
-ImageNet pretrain checkpoint, the AST model) needs the checkpoint porters
-and AST, which are not ported yet, so ``run.main`` raises on them.
+The variant helpers at the end are copied too: an AudioSet-pretrained AuM,
+the AST baseline, and the small Bi-Bi from an ImageNet ViM
+(``run.build_model`` ports their checkpoints).
 """
 
 from __future__ import annotations

@@ -7,12 +7,18 @@ package's AudioMamba parameter tree as numpy arrays (what
 state-dict layout, which is also this package's module tree, so the result
 loads into ``AudioMamba`` with ``strict=True``. ``lm_state_dict_from_jax``
 does the same for the Mamba LM (the inverse of
-``models/lm.py::port_lm_state_dict``). Layout translation:
+``models/lm.py::port_lm_state_dict``), and ``ast_state_dict_from_jax`` for
+the AST baseline (the counterpart of
+``aum_tpu/convert/ast_port.py::export_ast_state_dict``: the reference AST
+audio checkpoint's layout, which is ``models/ast.py::ASTModel``'s module
+tree). Layout translation:
 
 - linear weights (in, out) -> (out, in); the JAX package's separate x/z
   in-projections concatenate into the reference's single ``in_proj``;
 - the patch kernel HWIO -> OIHW; depthwise conv taps (D, K) -> (D, 1, K);
 - the stacked layer axis unstacks into ``layers.{i}``;
+- flax attention's per-head query, key and value kernels (D, H, Dh) fuse
+  back into one ``qkv`` (3D, D), its out kernel (H, Dh, D) into ``proj``;
 - the parameters of the non-default config fields go along: the
   LayerNorm biases of ``rms_norm=False`` (``layers.{i}.norm.bias``,
   ``norm_f.bias``, which the JAX exporter leaves out) and LayerScale's
@@ -128,4 +134,45 @@ def lm_state_dict_from_jax(params_np: Dict, cfg) -> Dict[str, torch.Tensor]:
             pre + "mixer.D": g("D", i),
             pre + "mixer.out_proj.weight": g("out_proj", i).T,
         })
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def ast_state_dict_from_jax(params_np: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's ASTModel params (numpy leaves) -> this package's
+    ``ASTModel`` state dict (the reference AST audio checkpoint's keys:
+    the DeiT encoder under ``v.``, LayerNorm + Linear under ``mlp_head.``),
+    fp32. ``cfg``: an ``ASTConfig`` of either package (``embed_dim`` and
+    ``depth`` are read)."""
+    p = params_np.get("params", params_np)
+    d = cfg.embed_dim
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    sd: Dict = {
+        "v.patch_embed.proj.weight": np.transpose(f32(p["patch_proj_weight"]), (3, 2, 0, 1)),
+        "v.patch_embed.proj.bias": f32(p["patch_proj_bias"]),
+        "v.cls_token": f32(p["cls_token"]),
+        "v.pos_embed": f32(p["pos_embed"]),
+        "v.norm.weight": f32(p["norm"]["scale"]),
+        "v.norm.bias": f32(p["norm"]["bias"]),
+    }
+    if "dist_token" in p:
+        sd["v.dist_token"] = f32(p["dist_token"])
+    for i in range(cfg.depth):
+        b, v = p[f"block_{i}"], f"v.blocks.{i}."
+        attn = b["attn"]
+        sd[v + "attn.qkv.weight"] = np.concatenate(
+            [f32(attn[k]["kernel"]).reshape(d, d).T for k in ("query", "key", "value")])
+        sd[v + "attn.qkv.bias"] = np.concatenate(
+            [f32(attn[k]["bias"]).reshape(d) for k in ("query", "key", "value")])
+        sd[v + "attn.proj.weight"] = f32(attn["out"]["kernel"]).reshape(d, d).T
+        sd[v + "attn.proj.bias"] = f32(attn["out"]["bias"])
+        for name in ("norm1", "norm2"):
+            sd[v + name + ".weight"] = f32(b[name]["scale"])
+            sd[v + name + ".bias"] = f32(b[name]["bias"])
+        for name in ("fc1", "fc2"):
+            sd[v + "mlp." + name + ".weight"] = f32(b[name]["kernel"]).T
+            sd[v + "mlp." + name + ".bias"] = f32(b[name]["bias"])
+    sd["mlp_head.0.weight"] = f32(p["head_norm"]["scale"])
+    sd["mlp_head.0.bias"] = f32(p["head_norm"]["bias"])
+    sd["mlp_head.1.weight"] = f32(p["head"]["kernel"]).T
+    sd["mlp_head.1.bias"] = f32(p["head"]["bias"])
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

@@ -24,13 +24,20 @@ record's NUM_ENSEMBLE_VIEWS views. ``main(argv, pipelines=...)`` takes the
 (train, val, eval) pipelines from the caller instead of building them from
 the file arguments, e.g. over an in-memory EPIC dataset.
 
+The model is the recipe's AudioMamba, or with ``--set model=ast`` the AST
+baseline. A pretrained init comes from a reference checkpoint through the
+porters (``aum_tpu_torch.convert``): ``imagenet_pretrain_path`` (an ImageNet
+ViM, under ``imagenet_pretrain_modelkey``), ``aum_pretrain_path`` (an AuM,
+its grid inferred at ``aum_pretrain_fstride``/``tstride``) or, for AST,
+``ast_pretrain_path`` (its grid from the ``ast_pretrain_*`` geometry).
+``--run-type eval --ckpt x.pth`` evaluates a reference AuM checkpoint.
+
 It runs on the card unless ``--device`` names another device, and raises
-without one. What the port does not have yet raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item: the parallel modes (``--n-model``,
-``--n-seq``, ``--n-pipe``, ``--multihost``), the AST model,
-and the pretrained inits and ``.pth`` checkpoints. ``--set
-flexible_patch_sizes=8,12,16`` trains each step at a patch size drawn from
-those (``train_loop``), and validates at the recipe's.
+without one. The parallel modes (``--n-model``, ``--n-seq``, ``--n-pipe``,
+``--multihost``) are not ported yet and raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item. ``--set flexible_patch_sizes=8,12,16`` trains
+each step at a patch size drawn from those (``train_loop``), and validates
+at the recipe's.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ def parse_args(argv=None):
     p.add_argument("--wa-end", type=int,
                    help="eval_wa: last epoch to average (default: the latest)")
     p.add_argument("--ckpt", help="checkpoint directory: eval reads its best, "
-                                  "eval_wa/eval_ensemble its epochs, train resumes")
+                                  "eval_wa/eval_ensemble its epochs, train resumes; "
+                                  "or a reference AuM .pth for eval")
     p.add_argument("--n-seq", type=int, default=1, help="not ported yet")
     p.add_argument("--n-pipe", type=int, default=1, help="not ported yet")
     p.add_argument("--pipe-microbatches", type=int, default=4, help="not ported yet")
@@ -114,23 +122,14 @@ def apply_overrides(cfg, overrides):
     return dataclasses.replace(cfg, **kv)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
-def check_ported(args, cfg) -> None:
+def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for an option the port does not have."""
     if (args.n_model != 1 or args.n_seq != 1 or args.n_pipe != 1 or args.pipe_microbatches != 4
             or args.multihost != "off" or args.coordinator_address or args.num_processes
             or args.process_id is not None):
-        _not_ported("--n-model/--n-seq/--n-pipe/--multihost (the parallel modes)",
-                    "8: parallel")
-    if cfg.model == "ast":
-        _not_ported("model=ast", "6: porters and AST")
-    if cfg.imagenet_pretrain_path or cfg.aum_pretrain_path or cfg.ast_pretrain_path:
-        _not_ported("a pretrained init (imagenet/aum/ast_pretrain_path)", "6: porters and AST")
-    if args.ckpt and args.ckpt.endswith(".pth"):
-        _not_ported("a torch .pth --ckpt (the checkpoint porter)", "6: porters and AST")
+        raise NotImplementedError(
+            "--n-model/--n-seq/--n-pipe/--multihost (the parallel modes) is not ported yet "
+            "(ROADMAP.md queue 1 item 8: parallel)")
 
 
 def build_pipelines(cfg, args, device):
@@ -207,11 +206,80 @@ def evaluate_views(eval_step, pipe, main_metric: str):
     return metrics, scores, stats
 
 
-def build_model(cfg, device):
-    """The recipe's AudioMamba, weights drawn from the recipe's seed."""
-    from aum_tpu_torch.models import AudioMamba
+def ast_config(cfg):
+    """The AST of recipe ``cfg``: deit_base (768 wide, 12 heads) for
+    ``model_type=base``, else deit_small (384, 6); 12 layers unless
+    ``depth`` is set."""
+    from aum_tpu_torch.models.ast import ASTConfig
 
-    return AudioMamba(cfg.model_config(), device=device, seed=cfg.seed)
+    base = cfg.model_type == "base"
+    return ASTConfig(label_dim=cfg.n_class, fstride=cfg.fstride, tstride=cfg.tstride,
+                     input_fdim=cfg.melbins, input_tdim=cfg.audio_length,
+                     embed_dim=768 if base else 384, num_heads=12 if base else 6,
+                     depth=cfg.depth if cfg.depth is not None else 12, dtype=cfg.dtype)
+
+
+def build_model(cfg, device):
+    """The recipe's model, weights drawn from the recipe's seed, then any
+    pretrained init ported over them (keys the checkpoint lacks keep their
+    init)."""
+    from aum_tpu_torch.convert import (
+        load_torch_checkpoint,
+        merge_with_init,
+        port_ast_pretrain_state_dict,
+        port_aum_state_dict,
+        port_vim_imagenet_state_dict,
+    )
+    from aum_tpu_torch.models import AudioMamba
+    from aum_tpu_torch.models.ast import ASTModel
+
+    if cfg.model == "ast":
+        if cfg.aum_drop_path:
+            # The reference AST never enables stochastic depth or dropout
+            # (timm's rates default to 0): refuse rather than silently train
+            # an unregularized model.
+            raise ValueError(
+                "--aum_drop_path has no effect on the AST model: the reference AST never "
+                "enables stochastic depth/dropout (timm defaults 0). Unset it for model=ast.")
+        acfg = ast_config(cfg)
+        model = ASTModel(acfg, device=device, seed=cfg.seed)
+        if cfg.ast_pretrain_path:
+            pre_grid = dataclasses.replace(
+                acfg, fstride=cfg.ast_pretrain_fstride, tstride=cfg.ast_pretrain_tstride,
+                input_fdim=cfg.ast_pretrain_input_fdim,
+                input_tdim=cfg.ast_pretrain_input_tdim).patch_grid
+            ported = port_ast_pretrain_state_dict(load_torch_checkpoint(cfg.ast_pretrain_path),
+                                                  acfg, pretrain_grid=pre_grid)
+            model.load_state_dict(merge_with_init(ported, model.state_dict()))
+        return model
+
+    mcfg = cfg.model_config()
+    model = AudioMamba(mcfg, device=device, seed=cfg.seed)
+    if cfg.imagenet_pretrain_path:
+        sd = load_torch_checkpoint(cfg.imagenet_pretrain_path, cfg.imagenet_pretrain_modelkey)
+        ported = port_vim_imagenet_state_dict(sd, mcfg)
+    elif cfg.aum_pretrain_path:
+        ported = port_aum_state_dict(load_torch_checkpoint(cfg.aum_pretrain_path), mcfg,
+                                     pretrain_fstride=cfg.aum_pretrain_fstride,
+                                     pretrain_tstride=cfg.aum_pretrain_tstride)
+    else:
+        return model
+    model.load_state_dict(merge_with_init(ported, model.state_dict()))
+    return model
+
+
+def load_checkpoint(model, cfg, ckpt: str) -> None:
+    """Load ``ckpt`` into ``model``: a reference AuM ``.pth`` through the
+    porter (keys it lacks keep the model's values), else the best state of
+    a checkpoint directory that a train run wrote."""
+    from aum_tpu_torch.convert import load_torch_checkpoint, merge_with_init, port_aum_state_dict
+    from aum_tpu_torch.train import Checkpointer
+
+    if ckpt.endswith(".pth"):
+        ported = port_aum_state_dict(load_torch_checkpoint(ckpt), cfg.model_config())
+        model.load_state_dict(merge_with_init(ported, model.state_dict()))
+    else:
+        model.load_state_dict(Checkpointer(ckpt).model_state("best"))
 
 
 def _write_eval_artifacts(exp_dir, metrics, scores, stats) -> None:
@@ -245,7 +313,7 @@ def main(argv=None, pipelines=None):
 
     args = parse_args(argv)
     cfg = apply_overrides(RECIPES[args.recipe], args.set)
-    check_ported(args, cfg)
+    check_ported(args)
     device = resolve_device(args.device)
     os.makedirs(args.exp_dir, exist_ok=True)
     with open(os.path.join(args.exp_dir, "config.json"), "w") as f:
@@ -293,7 +361,7 @@ def main(argv=None, pipelines=None):
         if pipe is None:
             raise ValueError("need --data-eval or --data-val")
         if args.ckpt:
-            model.load_state_dict(Checkpointer(args.ckpt).model_state("best"))
+            load_checkpoint(model, cfg, args.ckpt)
         if cfg.dataset == "epic_sounds" and eval_pipe is not None:
             metrics, scores, stats = evaluate_views(eval_step, eval_pipe, cfg.metrics)
         else:

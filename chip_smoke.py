@@ -168,7 +168,33 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    the prefill's logits and caches and 8 decode steps' logits on the card
    against the CPU (``LM_FP32_TOL``), and on the card the prefill against
    decode_step stepped through a 64-token prompt (``LM_STEPWISE_TOL``).
-10. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
+10. porters: reference checkpoints with random weights through the
+   porters and ``aum_tpu_torch.run.main``, on synthetic WAV clips: an
+   AuM-Base Fo-Bi checkpoint of AudioSet's geometry (1024 x 128, 527
+   classes, ``module.`` keys) into SpeechCommands
+   (``audioset_pretrained_variant``: the grid resampled (8, 64) -> (8, 8),
+   the head dropped), and an ImageNet ViM-small checkpoint (3-channel
+   kernel, 14 x 14 grid, middle cls, under ``model``) into SpeechCommands'
+   Bi-Bi small (``small_imagenet_variant``): 2 train steps (B=128) and a
+   val batch each, the built model bit-equal to the porter's weights, each
+   step's and batch's launches the train and eval paths'; ``--run-type eval
+   --ckpt x.pth`` on an as20k val batch, bit-equal to the same weights drawn
+   in process; the ported model in fp32 on the card against the CPU.
+11. ast: the AST baseline (``ast_variant``: deit_base, strides 10, 1213
+   tokens) on as20k from a random AST audio checkpoint at the (8, 64)
+   pretrain grid: 3 train steps (the third profiled) and a val batch
+   through ``run.main``, none launching a kernel of ours (ms per step,
+   clips/s, idle share, peak memory); fp32 on the card against the CPU.
+12. serving: AuM-Base Fo-Bi bundles at batch sizes 1, 8, 64 (bf16 float and
+   int8, from log-mels and from 10 s waveforms; fp32): MB, load seconds,
+   ``predict`` at B=3, 64, 70 against the in-process forward (fp32 1e-5
+   elementwise, bf16 1e-2 of the largest logit: ``SERVE_TOL``), int8
+   against float at the JAX package's bound, the B=64 predicts' launches,
+   ms per predict at B=8 and 64 beside the in-process forward (in turns;
+   the bf16 bundles but the int8 one from waveforms), the int8
+   dequantization's ms, and the HTTP server's /healthz and
+   /predict (topk 5).
+13. bench: the ``bench.py`` workload (Fo-Bi, B=64 x 1024 x 128, bf16):
    clips/s with CUDA events after warm-up; then ``wav_entry``'s model at
    B=64 from waveforms: clips/s, and the frontend's ms alone. Then per kernel
    at the shapes those forwards give it: ms per launch, the plain version's
@@ -190,7 +216,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    shapes. B=64 Fo-Bi clips/s are timed in turns: default,
    AUM_SCAN_DIRECT=1, AUM_SCAN_FUSE_DT=1, AUM_SCAN_FUSE_DT=1,
    AUM_SCAN_DIRECT=1, default.
-11. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
+14. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
    one Fo-Fo forward from waveforms (B=64), then one train step, under
    ``torch.profiler``: device time by
    kernel category (dual and single scan forward, scan backward, conv,
@@ -1580,9 +1606,17 @@ def _run_recipe(recipe: str, files: dict | None, exp_dir: str, overrides: list,
     return records
 
 
-def _check_recipe_run(rec: dict, batch: int, n_steps: int, n_val: int, depth: int) -> dict:
-    step_launches = _expected_train_launches("Fo-Bi", depth, {}, bf16=True)
-    val_launches = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
+def _check_recipe_run(rec: dict, batch: int, n_steps: int, n_val: int, depth: int,
+                      aum_type: str = "Fo-Bi", kernels: bool = True) -> dict:
+    """The recipe run's steps and validation batches: finite losses, and
+    each one's launches those of the train and eval paths of an AuM of
+    ``aum_type`` (Fo-Bi or Bi-Bi); ``kernels=False``: none of ours (AST)."""
+    if kernels:
+        convs = 2 if aum_type == "Bi-Bi" else 1
+        step_launches = _expected_train_launches(aum_type, depth, {}, bf16=True)
+        val_launches = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=convs * depth)
+    else:
+        step_launches = val_launches = _launches()
     losses = [s["loss"] for s in rec["steps"]]
     # Past the first step (warm-up), and not the profiled one.
     steady = [s["cuda_ms"] for i, s in enumerate(rec["steps"])
@@ -2382,6 +2416,465 @@ def phase_lm() -> dict:
     return out
 
 
+# The checkpoint porters on the card: reference checkpoints with random
+# weights, written by the porters' inverse, brought in through run.main.
+PORTER_SPC = "speechcommands/aum-base_scratch"
+PORTER_AS20K = "as20k/aum-base_scratch"
+PORTER_SPC_SPLITS = {"train": 256, "val": 128}  # 2 steps at B=128, one val batch
+PORTER_AS20K_SPLITS = {"val": 24}  # one as20k val batch
+# The AuM donor's seed: run.main with --set seed=PORTER_SEED draws the same
+# weights in process, which the .pth eval must reproduce bit for bit.
+PORTER_SEED = 11
+VIM_SEED = 12
+
+
+def _variant_sets(variant, base) -> list:
+    """The ``--set`` overrides that make recipe ``base`` into ``variant``
+    (what a ``configs`` variant helper returns), its name aside."""
+    import dataclasses
+
+    return [f"{f.name}={getattr(variant, f.name)}" for f in dataclasses.fields(variant)
+            if f.name != "name" and getattr(variant, f.name) != getattr(base, f.name)]
+
+
+@contextlib.contextmanager
+def _build_probe(records: dict, expected: dict):
+    """Wrap ``run.build_model`` while a run builds its model: the built
+    model's state dict against ``expected`` (the ported keys), key for key
+    and bit for bit, and the keys the init kept."""
+    from aum_tpu_torch import run
+
+    saved = run.build_model
+
+    def build_model(cfg, device):
+        model = saved(cfg, device)
+        sd = model.state_dict()
+        records.update({
+            "ported_keys": len(expected),
+            "equal": sum(k in sd and torch.equal(sd[k].cpu(), v) for k, v in expected.items()),
+            "kept_from_init": sorted(set(sd) - set(expected)),
+            "params": sum(v.numel() for v in sd.values())})
+        return model
+
+    run.build_model = build_model
+    try:
+        yield records
+    finally:
+        run.build_model = saved
+
+
+def _check_build(label: str, built: dict, fresh: set) -> dict:
+    emit({"phase": label, **built})
+    if built.get("equal") != built.get("ported_keys") or set(built["kept_from_init"]) != fresh:
+        raise RuntimeError(f"{label}: the built model does not hold the ported weights "
+                           f"(keys kept from the init: {built.get('kept_from_init')}, "
+                           f"expected {sorted(fresh)})")
+    return built
+
+
+def _reference_aum(path: str, cfg, seed: int) -> None:
+    """A random reference AuM checkpoint of ``cfg``, keys prefixed
+    ``module.`` (as the reference's DDP runs save them)."""
+    from aum_tpu_torch.convert import export_aum_state_dict
+    from aum_tpu_torch.models import AudioMamba
+
+    sd = export_aum_state_dict(AudioMamba(cfg, device="cpu", seed=seed))
+    torch.save({"module." + k: v for k, v in sd.items()}, path)
+
+
+def _vim_checkpoint(path: str, seed: int) -> None:
+    """A random ImageNet ViM-small checkpoint, under the ``model`` key:
+    Bi-Bi, 384 wide, 24 layers, a 3-channel 16 x 16 patch kernel, the
+    224 x 224 image's 14 x 14 grid with the cls pos embed in the middle,
+    1000 classes."""
+    from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
+
+    cfg = AudioMambaConfig.from_variant("small", "Bi-Bi", spectrogram_size=(224, 224),
+                                        num_classes=1000)
+    sd = dict(AudioMamba(cfg, device="cpu", seed=seed).state_dict())
+    pos = sd.pop("pos_embed.pos_embed")
+    grid = pos[:, 1:]
+    mid = grid.shape[1] // 2
+    sd["pos_embed"] = torch.cat([grid[:, :mid], pos[:, :1], grid[:, mid:]], dim=1)
+    sd["patch_embed.proj.weight"] = 0.02 * torch.randn(
+        (cfg.embed_dim, 3, 16, 16), generator=torch.Generator().manual_seed(seed))
+    torch.save({"model": sd, "epoch": 300}, path)
+
+
+def phase_porters() -> dict:
+    """Reference checkpoints through the porters and ``run.main``: (a) a
+    random AuM-Base Fo-Bi checkpoint of AudioSet's geometry (1024 x 128,
+    patch 16, 527 classes, ``module.`` keys) into SpeechCommands
+    (``audioset_pretrained_variant``: the grid resampled (8, 64) -> (8, 8),
+    the head dropped for 35 classes), 2 train steps and a val batch; (b) a
+    random ImageNet ViM-small checkpoint into SpeechCommands' Bi-Bi small
+    (``small_imagenet_variant``), 2 train steps and a val batch; each
+    built model held to the porter's weights bit for bit, each step's and
+    batch's launches to the train and eval paths'; (c) ``--run-type eval
+    --ckpt x.pth`` of the AuM checkpoint on an as20k val batch: its scores
+    bit-equal to those of the same weights drawn in process; (d) the ported
+    AuM-Base in fp32 on the card against the CPU (B=1)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from aum_tpu_torch.configs import RECIPES, audioset_pretrained_variant, small_imagenet_variant
+    from aum_tpu_torch.convert import (
+        load_torch_checkpoint,
+        merge_with_init,
+        port_aum_state_dict,
+        port_vim_imagenet_state_dict,
+    )
+    from aum_tpu_torch.models import AudioMamba
+    from aum_tpu_torch.run import main as run_main
+
+    out = {}
+    spc = RECIPES[PORTER_SPC]
+    with tempfile.TemporaryDirectory(prefix="aum_porters_") as root:
+        t0 = time.perf_counter()
+        aum_pth, vim_pth = os.path.join(root, "aum_base.pth"), os.path.join(root, "vim_small.pth")
+        _reference_aum(aum_pth, RECIPES[PORTER_AS20K].model_config(), PORTER_SEED)
+        _vim_checkpoint(vim_pth, VIM_SEED)
+        files = _write_recipe_data(root, PORTER_SPC, spc.n_class, seed=4, splits=PORTER_SPC_SPLITS)
+        emit({"phase": "porters_setup", "seconds": time.perf_counter() - t0,
+              "aum_pth_mb": os.path.getsize(aum_pth) / 1e6,
+              "vim_pth_mb": os.path.getsize(vim_pth) / 1e6})
+        # (variant, its AuM type, its porter); the head comes from the init.
+        runs = {"pretrained": (audioset_pretrained_variant(PORTER_SPC, aum_pth), "Fo-Bi",
+                               lambda cfg: port_aum_state_dict(load_torch_checkpoint(aum_pth),
+                                                               cfg)),
+                "imagenet": (small_imagenet_variant(PORTER_SPC, vim_pth), "Bi-Bi",
+                             lambda cfg: port_vim_imagenet_state_dict(
+                                 load_torch_checkpoint(vim_pth, "model"), cfg))}
+        ported = {}
+        for name, (variant, aum_type, port) in runs.items():
+            mcfg = variant.model_config()
+            expected = ported[name] = port(mcfg)
+            built = {}
+            with _build_probe(built, expected):
+                rec = _run_recipe(PORTER_SPC, files, os.path.join(root, f"exp_{name}"),
+                                  _variant_sets(variant, spc), profile_step=None)
+            out[name] = _check_recipe_run(rec, spc.batch_size, n_steps=2, n_val=1,
+                                          depth=mcfg.depth, aum_type=aum_type)
+            out[name]["build"] = _check_build(f"porters_{name}_build", built,
+                                              {"head.weight", "head.bias"})
+            del rec
+
+        # (c) The .pth eval, against the same weights drawn in process.
+        as20k_root = os.path.join(root, "as20k")
+        os.makedirs(as20k_root)
+        a20 = _write_recipe_data(as20k_root, PORTER_AS20K, RECIPES[PORTER_AS20K].n_class, seed=5,
+                                 splits=PORTER_AS20K_SPLITS)
+        argv = ["--recipe", PORTER_AS20K, "--data-val", a20["val"], "--label-csv", a20["csv"],
+                "--run-type", "eval"]
+        evals = {}
+        for name, extra in (("pth", ["--ckpt", aum_pth]), ("seed", ["--set",
+                                                                    f"seed={PORTER_SEED}"])):
+            rec = {"recipe": PORTER_AS20K, "steps": [], "val_batches": []}
+            torch.cuda.synchronize()
+            _reset_counters()
+            with _recipe_probes(rec):
+                metrics = run_main(argv + ["--exp-dir", os.path.join(root, f"ev_{name}")] + extra)
+            torch.cuda.synchronize()
+            evals[name] = {"metrics": metrics, "launches": _read_counters(),
+                           "val_batches": rec["val_batches"], "scores": rec["val_scores"]}
+        depth = RECIPES[PORTER_AS20K].model_config().depth
+        val_launches = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
+        pth = evals["pth"]
+        equal = bool(np.array_equal(pth["scores"], evals["seed"]["scores"]))
+        out["pth_eval"] = {"phase": "porters_pth_eval", "recipe": PORTER_AS20K,
+                           "val_batches": len(pth["val_batches"]), "launches": pth["launches"],
+                           "val_batch_launches": pth["val_batches"][0],
+                           "scores_shape": list(pth["scores"].shape),
+                           "bit_equal_to_in_process": equal, "metrics": pth["metrics"]}
+        emit(out["pth_eval"])
+        if not equal or pth["val_batches"] != [val_launches] or pth["launches"] != val_launches:
+            raise RuntimeError("the .pth eval's scores or launches are not those of the same "
+                               "weights drawn in process")
+
+    # (d) The ported AuM-Base (SpeechCommands' grid, resampled), fp32: the
+    # card against the CPU.
+    cfg32 = dataclasses.replace(runs["pretrained"][0].model_config(), dtype="float32")
+    ref = AudioMamba(cfg32, device="cpu", seed=spc.seed)
+    ref.load_state_dict(merge_with_init(ported["pretrained"], ref.state_dict()))
+    gpu = AudioMamba(cfg32, device="cuda", seed=0)
+    gpu.load_state_dict(ref.state_dict())
+    x = torch.randn((1, spc.audio_length, spc.melbins), generator=torch.Generator().manual_seed(8))
+    with torch.inference_mode():
+        got = gpu(x.cuda()).cpu()
+        want = ref(x)
+    r = compare(got, want, *MODEL_FP32_TOL)
+    out["fp32"] = {"phase": "porters_fp32_vs_cpu", "batch": 1, "depth": cfg32.depth,
+                   "grid": list(cfg32.patch_grid), "logits_shape": list(got.shape),
+                   "tol": MODEL_FP32_TOL, **r}
+    emit(out["fp32"])
+    if not r["ok"]:
+        raise RuntimeError("the ported AuM-Base in fp32 on the card disagrees with the CPU")
+    return out
+
+
+AST_RECIPE = "as20k/aum-base_scratch"
+AST_SPLITS = {"train": 36, "val": 24}  # 3 steps at B=12, one val batch
+AST_STEPS = 3
+
+
+def phase_ast() -> dict:
+    """The AST baseline (``ast_variant``: deit_base, 768 wide, 12 heads, 12
+    layers, strides 10: 12 x 101 patches and the cls token) on as20k from a
+    random reference AST audio checkpoint at the 16/16 pretrain grid (8,
+    64): 3 train steps (the third profiled) and a val batch through
+    ``run.main``, none of which launches a kernel of ours; the built model
+    held to the porter's weights; then an fp32 forward on the card against
+    the CPU (B=1)."""
+    import dataclasses
+    import tempfile
+
+    from aum_tpu_torch.configs import RECIPES, ast_variant
+    from aum_tpu_torch.convert import (
+        export_ast_state_dict,
+        load_torch_checkpoint,
+        port_ast_pretrain_state_dict,
+    )
+    from aum_tpu_torch.models.ast import ASTModel
+    from aum_tpu_torch.run import ast_config
+
+    base = RECIPES[AST_RECIPE]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="aum_ast_") as root:
+        path = os.path.join(root, "ast_audioset.pth")
+        variant = dataclasses.replace(ast_variant(AST_RECIPE), ast_pretrain_path=path)
+        acfg = ast_config(variant)
+        pre = dataclasses.replace(acfg, fstride=variant.ast_pretrain_fstride,
+                                  tstride=variant.ast_pretrain_tstride,
+                                  input_fdim=variant.ast_pretrain_input_fdim,
+                                  input_tdim=variant.ast_pretrain_input_tdim)
+        sd = export_ast_state_dict(ASTModel(pre, device="cpu", seed=13))
+        torch.save({"module." + k: v for k, v in sd.items()}, path)
+        expected = port_ast_pretrain_state_dict(load_torch_checkpoint(path), acfg,
+                                                pretrain_grid=pre.patch_grid)
+        files = _write_recipe_data(root, AST_RECIPE, base.n_class, seed=6, splits=AST_SPLITS)
+        built = {}
+        with _build_probe(built, expected):
+            rec = _run_recipe(AST_RECIPE, files, os.path.join(root, "exp"),
+                              _variant_sets(variant, base), profile_step=AST_STEPS - 1)
+    out["recipe"] = _check_recipe_run(rec, base.batch_size, n_steps=AST_STEPS, n_val=1,
+                                      depth=acfg.depth, kernels=False)
+    out["build"] = _check_build("ast_build", built, set())
+    out["grid"] = {"phase": "ast_geometry", "pretrain_grid": list(pre.patch_grid),
+                   "grid": list(acfg.patch_grid), "tokens": acfg.num_prefix + acfg.patch_grid[0]
+                   * acfg.patch_grid[1], "width": acfg.embed_dim, "heads": acfg.num_heads,
+                   "depth": acfg.depth, "params": built["params"]}
+    emit(out["grid"])
+    del rec
+
+    cfg32 = dataclasses.replace(acfg, dtype="float32")
+    x = torch.randn((1, base.audio_length, base.melbins), generator=torch.Generator().manual_seed(9))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got = ASTModel(cfg32, device="cuda", seed=0)(x.cuda()).cpu()
+        t1 = time.perf_counter()
+        want = ASTModel(cfg32, device="cpu", seed=0)(x)
+    r = compare(got, want, *MODEL_FP32_TOL)
+    out["fp32"] = {"phase": "ast_fp32_vs_cpu", "batch": 1, "logits_shape": list(got.shape),
+                   "gpu_s": t1 - t0, "cpu_s": time.perf_counter() - t1, "tol": MODEL_FP32_TOL,
+                   **r}
+    emit(out["fp32"])
+    if not r["ok"]:
+        raise RuntimeError("the AST in fp32 on the card disagrees with the CPU")
+    return out
+
+
+SERVE_BATCH_SIZES = (1, 8, 64)
+SERVE_REQUESTS = (3, 64, 70)  # padded to 8; exact; chunked 64 + (6 padded to 8)
+# The bundle's predict against the in-process forward at the request's
+# batch size. fp32: elementwise (atol, rtol). bf16: max |diff| over the
+# logits' largest magnitude, as the GEMMs (by batch rows) and the frontend's
+# FFTs (by batch) round differently at a padded size, by about one bf16 ulp
+# of the largest logit wherever the reference is small (on an H100: 0.0156
+# at B=70 from waveforms, where |ref| ~ 1e-3).
+SERVE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": 1e-2}
+SERVE_TIMED = (8, 64)
+SERVE_TIMED_BUNDLES = ("bfloat16", "bfloat16_wav", "bfloat16_int8")
+# The JAX package's int8 bound against the float logits (tests/test_serving.py).
+INT8_MIN_COS, INT8_MAX_ABS_FRAC = 0.99, 0.35
+
+
+def _in_turns(fns: dict, iters: int = 10) -> dict:
+    """ms per call of each function (``cuda_ms`` over ``iters`` calls),
+    timed in turns: in order, then in the reverse order; each one's mean of
+    its two runs, and the runs."""
+    runs = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        runs[name].append(cuda_ms(fns[name], iters))
+    return {**{name: sum(v) / len(v) for name, v in runs.items()}, "runs": runs}
+
+
+def _int8_vs_float(got: torch.Tensor, want: torch.Tensor) -> dict:
+    got, want = got.float().cpu(), want.float().cpu()
+    cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
+    max_abs = float((got - want).abs().max())
+    bound = INT8_MAX_ABS_FRAC * max(1.0, float(want.abs().max()))
+    return {"min_cos": float(cos.min()), "max_abs": max_abs, "max_abs_bound": bound,
+            "ok": bool(cos.min() > INT8_MIN_COS and max_abs < bound)}
+
+
+def phase_serving() -> dict:
+    """Serving bundles of AuM-Base Fo-Bi (random weights, seed 0) at batch
+    sizes 1, 8 and 64: bf16 float and int8, each from log-mels and from
+    10 s waveforms (the frontend), and an fp32 one. Per bundle its MB and
+    load seconds; ``predict`` at B=3, 64 and 70 against the in-process
+    forward (``SERVE_TOL``), int8 against float at the JAX package's
+    bound; each B=64 predict's launches (the eval path's); ms per
+    ``predict`` at B=8 and 64 beside the in-process forward, from a device
+    tensor and from a host array, in turns (``SERVE_TIMED_BUNDLES``); the int8
+    dequantization's ms alone; then the HTTP server's /healthz and
+    /predict (topk 5) on 127.0.0.1."""
+    from aum_tpu_torch.entry import (
+        AUDIOSET_MEAN,
+        AUDIOSET_STD,
+        CLIP_SAMPLES,
+        SAMPLE_RATE,
+        flagship_config,
+        wav_forward_fn,
+    )
+    from aum_tpu_torch.models import AudioMamba
+    from aum_tpu_torch.serving import (
+        dequantize_params,
+        export_bundle,
+        load_bundle,
+        quantize_weights_int8,
+    )
+    from aum_tpu_torch.train import make_eval_step
+
+    labels = [f"class {i}" for i in range(527)]
+    gen = torch.Generator().manual_seed(10)
+    n = max(SERVE_REQUESTS)
+    inputs = {False: torch.randn((n, 1024, 128), generator=gen),
+              True: 0.1 * torch.randn((n, CLIP_SAMPLES), generator=gen)}
+    out = {"bundles": {}}
+    depth = flagship_config().depth
+    eval_launches = _launches(selective_scan_dual_fwd=depth, causal_conv1d_fwd=depth)
+    failed = []
+    for dtype in ("bfloat16", "float32"):
+        model = AudioMamba(flagship_config(dtype=dtype), device="cuda", seed=0)
+        in_process = {False: make_eval_step(model), True: make_eval_step(wav_forward_fn(model))}
+        forms = ([(None, False), (None, True), ("int8", False), ("int8", True)]
+                 if dtype == "bfloat16" else [(None, False)])
+        floats = {}
+        for quant, frontend in forms:
+            name = f"{dtype}{'_int8' if quant else ''}{'_wav' if frontend else ''}"
+            t0 = time.perf_counter()
+            blob = export_bundle(model, audio_length=1024, melbins=128,
+                                 batch_sizes=SERVE_BATCH_SIZES, mean=AUDIOSET_MEAN,
+                                 std=AUDIOSET_STD, labels=labels, include_frontend=frontend,
+                                 sample_rate=SAMPLE_RATE,
+                                 wav_samples=CLIP_SAMPLES if frontend else None,
+                                 weight_quant=quant)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sm = load_bundle(blob)
+            torch.cuda.synchronize()
+            rec = {"phase": "serving_bundle", "bundle": name, "mb": len(blob) / 1e6,
+                   "export_s": export_s, "load_s": time.perf_counter() - t0}
+            del blob
+            x = inputs[frontend]
+            for b in SERVE_REQUESTS:
+                got = sm.predict(x[:b])
+                if tuple(got.shape) != (b, 527) or not bool(torch.isfinite(got.float()).all()):
+                    failed.append(f"{name}: predict at B={b} gave {tuple(got.shape)} or "
+                                  "non-finite logits")
+                if quant is None:
+                    floats[(frontend, b)] = got
+                    want = in_process[frontend](x[:b].cuda()).float().cpu()
+                    r = (compare(got.float().cpu(), want, *SERVE_TOL[dtype]) if dtype == "float32"
+                         else compare_scaled(got.cpu(), want, SERVE_TOL[dtype]))
+                else:
+                    r = _int8_vs_float(got, floats[(frontend, b)])
+                rec[f"b{b}"] = r
+                if not r["ok"]:
+                    failed.append(f"{name}: predict at B={b} {r}")
+            big = SERVE_BATCH_SIZES[-1]
+            torch.cuda.synchronize()
+            _reset_counters()
+            sm.predict(x[:big].cuda())
+            torch.cuda.synchronize()
+            rec["launches_b64"] = _read_counters()
+            if rec["launches_b64"] != eval_launches:
+                failed.append(f"{name}: a B={big} predict launched {rec['launches_b64']}")
+            for b in SERVE_TIMED if name in SERVE_TIMED_BUNDLES else ():
+                dev, host = x[:b].cuda(), x[:b].numpy()
+                rec[f"ms_b{b}"] = _in_turns({
+                    "in_process": lambda: in_process[frontend](dev),
+                    "predict_device_input": lambda: sm.predict(dev),
+                    "predict_host_input": lambda: sm.predict(host)})
+            emit(rec)
+            out["bundles"][name] = rec
+            if name == "bfloat16":
+                out["http"] = _check_http(sm, x[:2])
+            del sm
+        if dtype == "bfloat16":
+            q = quantize_weights_int8(model.state_dict())
+            out["dequantize_ms"] = cuda_ms(lambda: dequantize_params(q), 10)
+            emit({"phase": "serving_dequantize", "ms": out["dequantize_ms"],
+                  "int8_weights": sum(isinstance(v, dict) for v in q.values()),
+                  "int8_params": sum(v["int8"].numel() for v in q.values()
+                                     if isinstance(v, dict))})
+            del q
+        del model, in_process, floats
+    if failed or not out["http"]["ok"]:
+        raise RuntimeError(f"serving: {failed or out['http']}")
+    return out
+
+
+def _check_http(sm, x: torch.Tensor) -> dict:
+    """The HTTP front on 127.0.0.1 (an ephemeral port): /healthz, then
+    /predict with topk 5 against ``predict_scores``; the server is shut
+    down and its thread joined."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    from aum_tpu_torch.serving import make_http_server
+
+    srv = make_http_server(sm, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = _json.loads(r.read())
+        body = _json.dumps({"instances": x.tolist(), "topk": 5}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            reply = _json.loads(r.read())
+        request_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    want = sm.predict_scores(x).cpu()
+    scores = torch.tensor(reply["scores"])
+    r = compare(scores, want, 1e-6, 1e-5)
+    # Each row's top 5: the 5 largest scores (bf16 logits tie, so the order
+    # of equal scores is free), each under its own label.
+    index = {name: i for i, name in enumerate(sm.labels)}
+    top_ok = len(reply["topk"]) == len(want) and all(
+        len(row) == 5
+        and [t["score"] for t in row] == want[b].sort(descending=True).values[:5].tolist()
+        and all(want[b, index[t["label"]]].item() == t["score"] for t in row)
+        for b, row in enumerate(reply["topk"]))
+    out = {"phase": "serving_http", "healthz": health, "request_mb": len(body) / 1e6,
+           "request_ms": request_ms, "scores": r, "topk": reply["topk"], "topk_ok": top_ok,
+           "thread_alive": thread.is_alive(),
+           "ok": bool(health.get("ok") and health.get("batch_sizes") == list(SERVE_BATCH_SIZES)
+                      and r["ok"] and top_ok and not thread.is_alive())}
+    emit(out)
+    return out
+
+
 def phase_bench(device_info: dict) -> dict:
     from aum_tpu_torch.entry import flagship_config
     from aum_tpu_torch.models import AudioMamba
@@ -3013,6 +3506,9 @@ def main() -> int:
         epic = timed("epic", phase_epic)
         flex = timed("flex", phase_flex, device_info)
         lm = timed("lm", phase_lm)
+        porters = timed("porters", phase_porters)
+        ast = timed("ast", phase_ast)
+        serving = timed("serving", phase_serving)
         bench = timed("bench", phase_bench, device_info)
         timed("profile", phase_profile)
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
@@ -3182,6 +3678,20 @@ def main() -> int:
             "flex_val_batch": flex["recipe"]["val_batch_launches"][counter],
             "lm_prefill": lm["prefill_launches"][counter],
             "lm_decode_step": lm["decode_step_launches"][counter]})
+        # The porters' runs (run.main from reference checkpoints), the AST
+        # recipe (no kernel of ours) and the serving bundles' B=64 predicts.
+        bundles = serving["bundles"]
+        entry["launches_by_path"].update({
+            "porters_pretrained_train_step": porters["pretrained"]["step_launches"][counter],
+            "porters_pretrained_val_batch": porters["pretrained"]["val_batch_launches"][counter],
+            "porters_imagenet_bibi_train_step": porters["imagenet"]["step_launches"][counter],
+            "porters_imagenet_bibi_val_batch": porters["imagenet"]["val_batch_launches"][counter],
+            "porters_pth_eval_batch": porters["pth_eval"]["val_batch_launches"][counter],
+            "ast_train_step": ast["recipe"]["step_launches"][counter],
+            "ast_val_batch": ast["recipe"]["val_batch_launches"][counter],
+            "bundle_predict_b64": bundles["bfloat16"]["launches_b64"][counter],
+            "bundle_predict_wav_b64": bundles["bfloat16_wav"]["launches_b64"][counter],
+            "bundle_predict_int8_b64": bundles["bfloat16_int8"]["launches_b64"][counter]})
     single["launches_by_path"]["lm_prefill_with_state"] = (
         lm["prefill_launches"]["selective_scan_fwd_with_state"])
     # The three kernels of the flexible-patch recipe, timed at its longest

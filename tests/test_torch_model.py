@@ -176,6 +176,8 @@ def test_port_imports_no_jax():
         "import aum_tpu_torch.configs, aum_tpu_torch.logging_utils\n"
         "import aum_tpu_torch.train.metrics, aum_tpu_torch.train.checkpoints\n"
         "import aum_tpu_torch.train.profiling\n"
+        "import aum_tpu_torch.convert.torch_port, aum_tpu_torch.convert.ast_port\n"
+        "import aum_tpu_torch.models.ast\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'aum_tpu')]\n"
@@ -188,7 +190,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
     from aum_tpu_torch.entry import entry
     from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
+    from aum_tpu_torch.models.ast import ASTConfig, ASTModel
     from aum_tpu_torch.run import main as run_main
+    from aum_tpu_torch.serving import export_bundle, load_bundle
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -198,6 +202,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                     num_classes=3, bimamba_type="v1"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_main(["--recipe", "as20k/aum-base_scratch", "--exp-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ASTModel(ASTConfig(depth=1, embed_dim=32, num_heads=2, input_fdim=32, input_tdim=32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_bundle(export_bundle(AudioMamba(AudioMambaConfig(
+            depth=1, embed_dim=32, spectrogram_size=(32, 32), num_classes=3, bimamba_type="v1"),
+            device="cpu"), audio_length=32, melbins=32))
     assert not os.listdir(tmp_path)
 
 

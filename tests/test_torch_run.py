@@ -15,7 +15,11 @@
 - ``train_loop``'s optional artifacts: the predictions and a profiler trace;
 - ``run.main`` on SpeechCommands-like WAVs: ``train`` for 2 epochs, then
   ``eval``, ``eval_wa`` and ``eval_ensemble``, with their artifacts;
-- each option the port does not have raising ``NotImplementedError``.
+- ``run.main`` with ``model=ast``, each pretrained init (AST, AuM and
+  ImageNet ViM checkpoints through the porters) and ``--run-type eval
+  --ckpt x.pth``;
+- each option the port does not have (the parallel modes) raising
+  ``NotImplementedError``.
 
 torch is imported inside the tests, as in the other port test modules.
 """
@@ -325,23 +329,94 @@ def test_run_main_train_eval_wa_ensemble(spc_like_data, tmp_path, capsys):  # no
     assert os.path.exists(res / "stats_3.pickle") and not os.path.exists(res / "stats_1.pickle")
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--n-model", "2"], "8: parallel"),
-    (["--n-seq", "2"], "8: parallel"),
-    (["--n-pipe", "2"], "8: parallel"),
-    (["--multihost", "on"], "8: parallel"),
-    (["--set", "model=ast"], "6: porters and AST"),
-    (["--set", "aum_pretrain_path=x.pth"], "6: porters and AST"),
-    (["--run-type", "eval", "--ckpt", "model.pth"], "6: porters and AST"),
-], ids=["n_model", "n_seq", "n_pipe", "multihost", "ast", "pretrain", "pth"])
-def test_run_main_raises_on_unported_options(tmp_path, extra, item):
+@pytest.mark.parametrize("extra", [["--n-model", "2"], ["--n-seq", "2"], ["--n-pipe", "2"],
+                                   ["--multihost", "on"]],
+                         ids=["n_model", "n_seq", "n_pipe", "multihost"])
+def test_run_main_raises_on_unported_options(tmp_path, extra):
     from aum_tpu_torch.run import main
 
     argv = ["--recipe", "as20k/aum-base_scratch", "--exp-dir", str(tmp_path), "--device", "cpu",
             "--label-csv", "labels.csv"] + extra
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8: parallel"):
         main(argv)
     assert not os.listdir(tmp_path)
+
+
+def _reference_checkpoint(tmp_path, case, sets):
+    """A random reference checkpoint for ``case`` (a ``.pth`` path) and the
+    patch kernel the model must take from it."""
+    import torch
+
+    from aum_tpu_torch.configs import RECIPES
+    from aum_tpu_torch.convert import export_ast_state_dict, save_reference_checkpoint
+    from aum_tpu_torch.models import AudioMamba
+    from aum_tpu_torch.models.ast import ASTModel
+    from aum_tpu_torch.run import apply_overrides, ast_config
+
+    cfg = apply_overrides(RECIPES["speechcommands/aum-base_scratch"], sets)
+    path = str(tmp_path / f"{case}.pth")
+    if case == "ast":  # an AST audio checkpoint at the pretrain grid (8, 3)
+        pre = dataclasses.replace(ast_config(cfg), fstride=16, tstride=16, input_tdim=64)
+        sd = export_ast_state_dict(ASTModel(pre, device="cpu", seed=5))
+        torch.save({"module." + k: v for k, v in sd.items()}, path)
+        return path, sd["v.patch_embed.proj.weight"]
+    if case == "imagenet":  # a ViM on a 4 x 4 image grid, under "model"
+        from test_torch_porters import _vim_checkpoint
+
+        vim_path, vim = _vim_checkpoint(tmp_path, dict(cfg.model_config().__dict__), side=4)
+        return vim_path, torch.from_numpy(vim["patch_embed.proj.weight"]).mean(1, keepdim=True)
+    # An AuM: AudioSet's 1024 x 128 grid and 527 classes (pretrain), or this
+    # recipe's own (pth).
+    mcfg = cfg.model_config()
+    if case == "pretrain":
+        mcfg = dataclasses.replace(mcfg, spectrogram_size=(128, 1024), num_classes=527)
+    donor = AudioMamba(mcfg, device="cpu", seed=6)
+    save_reference_checkpoint(donor, path)
+    return path, donor.patch_embed.proj.weight.detach().clone()
+
+
+@pytest.mark.parametrize("case", ["ast", "pretrain", "imagenet", "pth"])
+def test_run_main_runs_ast_pretrained_inits_and_pth(spc_like_data, tmp_path, case):  # noqa: F811
+    """What the runner refused before the porters and AST were ported: one
+    train step (16 clips at B=16) and the validation of ``model=ast`` from
+    an AST audio checkpoint, of an AuM from an AudioSet AuM checkpoint
+    (grid (8, 64) -> (8, 8), head dropped) and of a Bi-Bi AuM from an
+    ImageNet ViM; and ``--run-type eval --ckpt x.pth``, whose predictions
+    must be those of the same weights drawn in-process."""
+    import torch
+
+    from aum_tpu_torch.configs import RECIPES
+    from aum_tpu_torch.run import apply_overrides, build_model, main
+
+    common = _spc_common(spc_like_data)
+    sets = ["depth=2", "n_class=4", "batch_size=16", "model_type=tiny", "dtype=float32"]
+    init = {"ast": ["model=ast", "fstride=10", "tstride=10", "ast_pretrain_input_tdim=64"],
+            "pretrain": [], "imagenet": ["aum_type=Bi-Bi"], "pth": []}[case]
+    path, kernel = _reference_checkpoint(tmp_path, case, sets + init)
+    init += {"ast": ["ast_pretrain_path=" + path], "pretrain": ["aum_pretrain_path=" + path],
+             "imagenet": ["imagenet_pretrain_path=" + path], "pth": []}[case]
+    argv = common + [a for s in ["batch_size=16"] + init for a in ("--set", s)]
+    if case == "pth":
+        exp = tmp_path / "ev"
+        metrics = main(argv + ["--data-eval", spc_like_data["eval"], "--exp-dir", str(exp),
+                               "--run-type", "eval", "--ckpt", path])
+        same = main(argv + ["--data-eval", spc_like_data["eval"], "--exp-dir", str(tmp_path / "s"),
+                            "--run-type", "eval", "--set", "seed=6"])
+        assert metrics == same and 0.0 <= metrics["acc"] <= 1.0
+        np.testing.assert_array_equal(np.loadtxt(exp / "predictions_eval.csv", delimiter=","),
+                                      np.loadtxt(tmp_path / "s" / "predictions_eval.csv",
+                                                 delimiter=","))
+        return
+    model = build_model(apply_overrides(RECIPES["speechcommands/aum-base_scratch"], sets + init),
+                        "cpu")
+    got = model.v.patch_embed.proj.weight if case == "ast" else model.patch_embed.proj.weight
+    assert torch.equal(got.detach(), kernel)
+    history = main(argv + ["--data-train", spc_like_data["train"], "--data-val",
+                           spc_like_data["valid"], "--exp-dir", str(tmp_path / "exp"),
+                           "--set", "n_epochs=1"])
+    assert [h["epoch"] for h in history] == [1]
+    assert np.isfinite(history[0]["train_loss"]) and np.isfinite(history[0]["loss"])
+    assert json.load(open(tmp_path / "exp" / "progress.json"))[0][:2] == [1, 1]
 
 
 def test_train_loop_raises_on_a_nonfinite_loss_unless_continue_inf():
