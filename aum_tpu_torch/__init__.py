@@ -32,8 +32,12 @@ names so each counterpart is easy to find:
                              DeiT and AST ``.pth`` -> state dicts, and
                              back), and the JAX package's parameter trees
                              -> this package's state dicts.
+- ``aum_tpu_torch.parallel``— the parallel modes: the mesh of ranks and the
+                             tensor-parallel layout, multi-process runs,
+                             the collectives, GPipe, the rank spawner and
+                             the per-rank checks.
 - ``aum_tpu_torch.entry``  — the flagship forward and train step (AuM-Base
-                             Fo-Bi, bf16).
+                             Fo-Bi, bf16); ``dryrun_multichip``.
 
 Nothing here imports JAX or ``aum_tpu``. Entry points run on CUDA unless the
 caller passes ``device="cpu"``; without a card and without that argument they

@@ -23,9 +23,11 @@ the order, ``record_index``, ``n_frames`` and every window are equal index
 for index (the JAX pipeline's with one worker, whose draws are then in
 record order too). The augmentation draws come from a per-epoch
 ``torch.Generator`` on the device, seeded from ``default_rng([seed,
-epoch])`` (the flexi pipeline ``[seed, epoch, 1]``). The port runs in one
-process: the JAX pipeline's share of the records for process i of n is the
-whole order here.
+epoch])`` (the flexi pipeline ``[seed, epoch, 1]``). Under data
+parallelism each rank takes ``order[data_rank::n_data]``, the JAX
+pipeline's share for process i of n taken by the rank's 'data' coordinate
+(the ranks of one 'model', 'seq' or 'pipe' group read the same records);
+``steps_per_epoch`` divides by ``n_data`` and a train epoch stops there.
 
 The dataset takes a list of records and any mapping ``video_id -> 1-D
 samples``: an in-memory dict of arrays, or an open ``h5py.File``.
@@ -271,13 +273,15 @@ class EpicBatchPipeline:
     seed: int = 0
     num_workers: int = 8
     device: Optional[str | torch.device] = None
+    n_data: int = 1
+    data_rank: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.featurize = make_epic_featurize(self.dataset.cfg, self.train)
 
     def steps_per_epoch(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.n_data
         if self.train:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -286,7 +290,8 @@ class EpicBatchPipeline:
         """The epoch's item order and the generator its windows draw from."""
         rng = np.random.default_rng(self.seed + epoch)
         n = len(self.dataset)
-        return (rng.permutation(n) if self.train else np.arange(n)), rng
+        order = rng.permutation(n) if self.train else np.arange(n)
+        return order[self.data_rank::self.n_data], rng
 
     def generator(self, epoch: int) -> torch.Generator:
         return epoch_generator(self.device, self.seed, epoch)
@@ -305,8 +310,9 @@ class EpicBatchPipeline:
         gen = self.generator(epoch)
         cfg = self.dataset.cfg
         bs = self.batch_size
+        last = self.steps_per_epoch() * bs if self.train else len(order)
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            for start in range(0, len(order), bs):
+            for start in range(0, last, bs):
                 idxs = order[start:start + bs]
                 if len(idxs) < bs and self.train:
                     break
@@ -334,6 +340,8 @@ class EpicFlexiBatchPipeline:
     num_workers: int = 4
     min_audio_length: int = 0
     device: Optional[str | torch.device] = None
+    n_data: int = 1
+    data_rank: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -376,6 +384,7 @@ class EpicFlexiBatchPipeline:
         n = len(self.dataset.records)
         order = np.random.default_rng(self.seed + epoch).permutation(n) if self.train \
             else np.arange(n)
+        order = order[self.data_rank::self.n_data]
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             return list(zip(order.tolist(), pool.map(self.fetch, order)))
 

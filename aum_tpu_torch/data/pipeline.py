@@ -15,6 +15,13 @@ Randomness: the epoch's order and the decode retries come from numpy
 generators seeded as in the JAX package, so the order is the same index for
 index; the featurizer draws from a per-epoch ``torch.Generator`` on the
 batch's device, seeded from ``np.random.default_rng([seed, epoch])``.
+
+Under data parallelism (``n_data`` > 1) each rank reads
+``order[data_rank::n_data]``, JAX's per-process slice taken by the rank's
+'data' coordinate, not its global rank: the ranks of one 'model', 'seq' or
+'pipe' group read the same batches. ``steps_per_epoch`` divides by
+``n_data``, and a train epoch stops there on every rank, so the ranks step
+together.
 """
 
 from __future__ import annotations
@@ -122,6 +129,8 @@ class BatchPipeline:
     drop_last: Optional[bool] = None
     use_native: bool = True
     device: Optional[str | torch.device] = None
+    n_data: int = 1
+    data_rank: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -139,7 +148,7 @@ class BatchPipeline:
             native_available()
 
     def steps_per_epoch(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.n_data
         if self._drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -148,10 +157,12 @@ class BatchPipeline:
         rng = np.random.default_rng(self.seed + epoch)
         n = len(self.dataset)
         if not self.train:
-            return np.arange(n)
-        if self.weights is not None:
-            return rng.choice(n, size=n, replace=True, p=self.weights / self.weights.sum())
-        return rng.permutation(n)
+            order = np.arange(n)
+        elif self.weights is not None:
+            order = rng.choice(n, size=n, replace=True, p=self.weights / self.weights.sum())
+        else:
+            order = rng.permutation(n)
+        return order[self.data_rank::self.n_data]
 
     def generator(self, epoch: int) -> torch.Generator:
         """The featurizer's generator for ``epoch``, on the device."""
@@ -193,8 +204,9 @@ class BatchPipeline:
         # decode cost (see audio/augment.py).
         use_partners = self.train and conf.mixup > 0
         prev = None
+        last = self.steps_per_epoch() * bs if self._drop_last else len(order)
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            for start in range(0, len(order), bs):
+            for start in range(0, last, bs):
                 idxs = order[start:start + bs]
                 if len(idxs) < bs and self._drop_last:
                     break

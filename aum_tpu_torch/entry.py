@@ -17,6 +17,12 @@
   middle cls token).
 
 All run on CUDA unless ``device`` is given, and raise without a card.
+
+- ``dryrun_multichip(n)``: the counterpart of ``__graft_entry__.
+  dryrun_multichip``: spawns ``n`` ranks over gloo, sharing the card
+  unless ``device`` names another device, and runs its legs with its
+  conditions on n (``parallel/checks.py::dryrun_leg``), then prints its
+  summary line.
 """
 
 from __future__ import annotations
@@ -101,3 +107,27 @@ def wav_entry(device: str | torch.device | None = None):
     # A speech-like level: 0.1 * N(0, 1) samples.
     wav = 0.1 * torch.randn((WAV_BATCH, CLIP_SAMPLES), generator=torch.Generator().manual_seed(0))
     return make_eval_step(wav_forward_fn(model)), (wav.to(device),)
+
+
+def dryrun_multichip(n: int, device: str | torch.device | None = None) -> dict:
+    """One train step of AuM on an n-rank data x model mesh, the
+    sequence-parallel scan against the oracle over n ranks and, for n a
+    multiple of 8, the data x seq x model and data x pipe steps (losses
+    equal to the 2D step's), each rank a process over gloo, all on the
+    CUDA card unless ``device`` names another device. Prints the summary
+    line and returns rank 0's results."""
+    from aum_tpu_torch.ops import _build
+    from aum_tpu_torch.parallel.launch import spawn
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        _build.build_all()  # the ranks only load the kernels
+    out = spawn("aum_tpu_torch.parallel.checks:dryrun_leg", n, {"n": n, "device": str(device)},
+                backend="gloo", device=device)[0]
+    print(f"dryrun_multichip({n}): mesh={out['mesh']}, loss={out['loss']:.4f}, "
+          f"seq-parallel scan exact over {{'seq': {n}}}"
+          + (f", data×seq×model train step loss={out['loss3']:.4f} (== 2D)"
+             if "loss3" in out else "")
+          + (f", data×pipe train step loss={out['loss_pp']:.4f} (== 2D)"
+             if "loss_pp" in out else ""))
+    return out

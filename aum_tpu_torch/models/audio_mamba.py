@@ -37,8 +37,17 @@ block, ``"split"`` only each mixer's pre-scan compute, and ``"auto"`` picks
 ``"split"`` when its memory estimate fits the device's budget
 (``resolve_remat_mode``), else ``"block"``.
 
-The JAX module's ``seq_axis`` / ``pipe_axis`` parallel modes have no
-counterpart yet.
+The parallel modes (``parallel/``): ``seq_axis`` and ``pipe_axis`` name
+the mesh axes of sequence and pipeline parallelism, as in the JAX module,
+and ``parallel/mesh.py::shard_params`` lays the model out on a mesh after
+its whole init (the mixers' d_inner over 'model', each mixer's scans split
+in length over 'seq', or the stage's layers under 'pipe'). Under 'pipe' the
+block stack runs GPipe-style (``parallel/pipeline.py``) over
+``pipe_microbatches`` microbatches (at most; the largest divisor of the
+batch); ``if_bidirectional`` pairs stay whole on a stage; pipe and seq
+cannot be combined, as in JAX. Under 'data' each rank runs its slice of the
+global batch and draws the drop-path and dropout masks of the whole global
+batch, keeping its rows, so the masks are those of one process.
 """
 
 from __future__ import annotations
@@ -62,6 +71,12 @@ from aum_tpu_torch.models.tokenization import (
     trunc_normal_02_,
 )
 from aum_tpu_torch.ops import fused_add_norm
+from aum_tpu_torch.parallel.pipeline import (
+    block_stage_fn,
+    block_stage_fn_dp,
+    microbatch_count,
+    pipeline_apply,
+)
 from aum_tpu_torch.utils import resolve_device
 
 
@@ -227,10 +242,17 @@ class AudioMamba(nn.Module):
     """AuM classifier."""
 
     def __init__(self, config: AudioMambaConfig,
-                 device: str | torch.device | None = None, seed: int = 0):
+                 device: str | torch.device | None = None, seed: int = 0,
+                 seq_axis: str | None = None, pipe_axis: str | None = None,
+                 pipe_microbatches: int = 4):
         super().__init__()
         device = resolve_device(device)
         cfg = config
+        if pipe_axis is not None and seq_axis is not None:
+            raise ValueError("pipe_axis and seq_axis cannot be combined")
+        self.seq_axis, self.pipe_axis = seq_axis, pipe_axis
+        self.pipe_microbatches = pipe_microbatches
+        self.mesh = None  # set by parallel/mesh.py::shard_params
         if cfg.if_bidirectional and cfg.depth % 2:
             raise ValueError(f"if_bidirectional pairs the layers: depth {cfg.depth} is odd")
         if cfg.remat_mode not in REMAT_MODES:
@@ -267,6 +289,35 @@ class AudioMamba(nn.Module):
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(device)
         self.eval()
+
+    def keep_layers(self, keep) -> None:
+        """Keep only the layers of indices ``keep`` (a pipe stage's), under
+        their one-card names (``layers.<i>``)."""
+        self.layers = nn.ModuleDict({str(i): self.layers[i] for i in keep})
+
+    def _layer_items(self):
+        """(index, layer) of the layers this rank holds."""
+        if isinstance(self.layers, nn.ModuleDict):
+            return [(int(k), v) for k, v in self.layers.items()]
+        return list(enumerate(self.layers))
+
+    def _draw_mask(self, shape, rate: float, generator: torch.Generator, device):
+        """``keep_mask`` of ``shape``; on a mesh with a 'data' axis the mask of
+        the whole global batch is drawn and this rank's rows kept."""
+        n = self.mesh.size("data") if self.mesh is not None else 1
+        if n == 1:
+            return keep_mask(shape, rate, generator, device)
+        b = shape[0]
+        mask, keep = keep_mask((b * n,) + tuple(shape[1:]), rate, generator, device)
+        r = self.mesh.coord("data")
+        return mask[r * b:(r + 1) * b], keep
+
+    def _given_mask(self, mask: torch.Tensor, rate: float, bsz: int, device):
+        """(mask, keep) from a caller's (B_global,) mask of one layer: this
+        rank's rows."""
+        r = self.mesh.coord("data") if self.mesh is not None else 0
+        keep = float(np.float32(1.0) - np.float32(rate))
+        return torch.as_tensor(mask)[r * bsz:(r + 1) * bsz].reshape(bsz, 1, 1).to(device), keep
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -322,12 +373,17 @@ class AudioMamba(nn.Module):
     def _pair(self, fwd, bwd, hidden, residual, drops, split_remat):
         """``if_bidirectional``'s layer pair: ``bwd`` runs on the reversed
         sequence, each layer dropping its own incoming hidden (the JAX
-        ``_BlockPair``; a per-sample mask commutes with the flip). No RoPE,
-        as in JAX."""
+        ``_BlockPair``; a per-sample mask commutes with the flip; ``drops``
+        None: neither drops). No RoPE, as in JAX."""
+        drops = drops if drops is not None else (None, None)
         h_f, r_f = self._block(fwd, hidden, residual, drops[0], split_remat, rope=False)
         h_b, r_b = self._block(bwd, hidden.flip(1), residual.flip(1), drops[1], split_remat,
                                rope=False)
         return h_f + h_b.flip(1), r_f + r_b.flip(1)
+
+    def _pipelined(self) -> bool:
+        return (self.pipe_axis is not None and self.mesh is not None
+                and self.mesh.size(self.pipe_axis) > 1)
 
     def remat_mode(self, batch: int, n_tokens: int) -> str:
         """The remat mode a grad-taking forward of (batch, n_tokens) runs."""
@@ -345,7 +401,8 @@ class AudioMamba(nn.Module):
                 if_random_token_rank: bool = False,
                 flip_sequence_prob: float = 0.0,
                 generator: torch.Generator | None = None,
-                token_draws: TokenDraws | None = None) -> torch.Tensor:
+                token_draws: TokenDraws | None = None,
+                drop_masks: tuple | None = None) -> torch.Tensor:
         """x: (B, T, F) log-mel -> logits (B, num_classes) in the compute dtype.
 
         ``patch_size`` / ``strides`` run the model at another patch size
@@ -355,7 +412,9 @@ class AudioMamba(nn.Module):
         (when their rates are not 0), with masks drawn from ``generator``.
         The random cls position, the token shuffle and the flip (with
         probability ``flip_sequence_prob``) take ``token_draws``, or draw
-        them from ``generator``. Eval callers run it under
+        them from ``generator``. ``drop_masks`` = (per-layer (depth,
+        B_global) bool, final (B_global,) bool) takes the drop-path masks
+        from the caller instead of drawing them. Eval callers run it under
         ``torch.inference_mode()``.
         """
         cfg = self.config
@@ -365,7 +424,8 @@ class AudioMamba(nn.Module):
         random_cls = (if_random_cls_token_position and cfg.if_cls_token
                       and not cfg.use_double_cls_token)
         stochastic = random_cls or if_random_token_rank or flip_sequence_prob > 0
-        if (use_dp or use_pos_drop or (stochastic and token_draws is None)) and generator is None:
+        if ((use_dp and drop_masks is None) or use_pos_drop
+                or (stochastic and token_draws is None)) and generator is None:
             raise ValueError("a drop rate or a stochastic token order needs a torch.Generator")
         run_grid = None
         if patch_size is not None or strides is not None:
@@ -385,7 +445,7 @@ class AudioMamba(nn.Module):
             x = self.pos_embed(x, token_position if dyn_position is None else dyn_position,
                                run_grid)
             if use_pos_drop:
-                x = _drop(x, *keep_mask(x.shape, cfg.drop_rate, generator, x.device))
+                x = _drop(x, *self._draw_mask(x.shape, cfg.drop_rate, generator, x.device))
         if cfg.transpose_token_sequence:
             # Before the shuffle and the flip, in the reference's order.
             x = _transpose_tokens(x, grid, token_position)
@@ -402,29 +462,49 @@ class AudioMamba(nn.Module):
         bsz = x.shape[0]
         drops = [None] * cfg.depth
         if use_dp:
-            drops = [keep_mask((bsz, 1, 1), r, generator, x.device)
-                     for r in drop_path_rates(cfg.drop_path_rate, cfg.depth)]
-            final_drop = keep_mask((bsz, 1, 1), cfg.drop_path_rate, generator, x.device)
+            rates = drop_path_rates(cfg.drop_path_rate, cfg.depth)
+            if drop_masks is not None:
+                drops = [self._given_mask(drop_masks[0][i], r, bsz, x.device)
+                         for i, r in enumerate(rates)]
+                final_drop = self._given_mask(drop_masks[1], cfg.drop_path_rate, bsz, x.device)
+            else:
+                drops = [self._draw_mask((bsz, 1, 1), r, generator, x.device) for r in rates]
+                final_drop = self._draw_mask((bsz, 1, 1), cfg.drop_path_rate, generator,
+                                             x.device)
         mode = self.remat_mode(bsz, x.shape[1]) if torch.is_grad_enabled() else "none"
 
         hidden = x
         residual = torch.zeros(x.shape, device=x.device,
                                dtype=torch.float32 if cfg.residual_in_fp32 else dtype)
-        # One step per layer, or per layer pair with if_bidirectional.
+        # One unit per layer, or per layer pair with if_bidirectional.
+        items = self._layer_items()
         if cfg.if_bidirectional:
             step = self._pair
-            units = [(self.layers[i], self.layers[i + 1], drops[i:i + 2])
-                     for i in range(0, cfg.depth, 2)]
+            units = [((items[j][1], items[j + 1][1]), drops[items[j][0]:items[j][0] + 2])
+                     for j in range(0, len(items), 2)]
         else:
             step = self._block
-            units = list(zip(self.layers, drops))
-        for unit in units:
+            units = [((layer,), drops[i]) for i, layer in items]
+
+        def run_unit(unit, hidden, residual, drop):
             if mode == "block":
-                hidden, residual = checkpoint(step, *unit[:-1], hidden, residual, unit[-1],
-                                              False, use_reentrant=False)
+                return checkpoint(step, *unit, hidden, residual, drop, False,
+                                  use_reentrant=False)
+            return step(*unit, hidden, residual, drop, mode == "split")
+
+        if self._pipelined():
+            mesh = self.mesh
+            mods = [u for u, _ in units]
+            if use_dp:
+                m = microbatch_count(bsz, self.pipe_microbatches)
+                stage_fn = block_stage_fn_dp(mods, run_unit, [d for _, d in units], m)
             else:
-                hidden, residual = step(*unit[:-1], hidden, residual, unit[-1],
-                                        mode == "split")
+                stage_fn = block_stage_fn(mods, run_unit)
+            hidden, residual = pipeline_apply(stage_fn, (hidden, residual), mesh.group("pipe"),
+                                              mesh.group_ranks["pipe"], self.pipe_microbatches)
+        else:
+            for unit, drop in units:
+                hidden, residual = run_unit(unit, hidden, residual, drop)
         if use_dp:
             hidden = _drop(hidden, *final_drop)
         hidden = fused_add_norm(hidden, self.norm_f.weight.to(dtype), self.norm_f.bias,

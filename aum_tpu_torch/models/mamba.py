@@ -42,10 +42,28 @@ v2 each branch its own); Fo-Fo never folds. With
 ``split_remat`` it runs under ``torch.utils.checkpoint`` and is recomputed in
 the backward, while the scan's saved tensors (its inputs and chunk-entry
 states) stay outside the checkpoint, as the JAX ``remat_mode="split"`` does.
+
+The parallel modes (``parallel/mesh.py::shard_params`` sets them): with
+``tp_group`` the mixer holds its rank's shard of d_inner (tensor
+parallelism, the JAX mixer's ``model_axis``), and three collectives per
+mixer make it whole: the input to in_proj is copied in (identity forward,
+the ranks' grads summed backward, as each rank's in_proj sees only its
+channels); x_proj's output ``x_dbl`` is summed over the ranks forward and
+its grad summed backward too, because its consumers (the rank's dt_proj
+columns, B and C in the rank's channels' scan) are per-rank; out_proj's
+output is summed forward and passed through backward. A wrong rule here
+(Megatron's two-operator recipe, identity backward at ``x_dbl``) shows in
+the grads against JAX. With ``seq_group`` (sequence parallelism, the JAX
+mixer's ``seq_axis``) each direction's scan goes through
+``ops/seq_parallel.py::sharded_scan`` and the dual kernel is off, as in JAX:
+a Fo-Bi mixer runs two single-direction scans with carried state. Under
+split remat the checkpointed ``pre_scan`` runs its all-reduce again in the
+backward; every rank recomputes in the same order (``use_reentrant=False``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -55,6 +73,8 @@ from torch.utils.checkpoint import checkpoint
 from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan, selective_scan_dual
 from aum_tpu_torch.ops.conv1d import WIDTH as D_CONV  # 4: the conv kernel is built for it
 from aum_tpu_torch.ops.selective_scan import fuse_dt_chosen
+from aum_tpu_torch.ops.seq_parallel import sharded_scan
+from aum_tpu_torch.parallel import collectives
 EXPAND = 2
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
 
@@ -109,6 +129,8 @@ class MambaMixer(nn.Module):
         self.dt_rank = math.ceil(d_model / 16)
         self.bimamba_type = bimamba_type
         self.n_layer = n_layer
+        self.tp_group = None  # set by parallel/mesh.py::shard_params
+        self.seq_group = None
         d_in = self.d_inner
 
         self.in_proj = _Weights((2 * d_in, d_model))
@@ -163,7 +185,9 @@ class MambaMixer(nn.Module):
         conv = getattr(self, f"conv1d{suffix}")
         xc = causal_conv1d(xs, conv.weight[:, 0].to(dtype), conv.bias.to(dtype),
                            activation="silu", reverse=reverse_conv)
-        x_dbl = xc @ getattr(self, f"x_proj{suffix}").weight.to(dtype).t()
+        x_dbl = collectives.reduce_both(
+            xc @ getattr(self, f"x_proj{suffix}").weight.to(dtype).t(), self.tp_group,
+            tag="tp_x_dbl")
         r, n = self.dt_rank, self.d_state
         w_dt = getattr(self, f"dt_proj{suffix}").weight.to(dtype).t()
         bm, cm = x_dbl[..., r:r + n], x_dbl[..., r + n:]
@@ -177,8 +201,9 @@ class MambaMixer(nn.Module):
         v1/v2 also of the reverse one and the scan's ``dt_fold`` (None unless
         AUM_SCAN_FUSE_DT=1), as a triple."""
         dtype = x.dtype
-        d_in = self.d_inner
-        fold = self.bimamba_type != "none" and fuse_dt_chosen()
+        d_in = self.in_proj.weight.shape[0] // 2  # this rank's channels under TP
+        fold = self.bimamba_type != "none" and self.seq_group is None and fuse_dt_chosen()
+        x = collectives.copy_to_group(x, self.tp_group, tag="tp_input")
         xz = x @ self.in_proj.weight.to(dtype).t()
         xs, z = xz[..., :d_in], xz[..., d_in:]
         u, delta, bm, cm, pair = self._branch(xs, "", reverse_conv=False, fold=fold)
@@ -206,14 +231,22 @@ class MambaMixer(nn.Module):
             args = checkpoint(self.pre_scan, x, use_reentrant=False)
         else:
             args = self.pre_scan(x)
-        if self.bimamba_type == "none":
-            y = selective_scan(*args, delta_softplus=True)
+        if self.seq_group is not None:
+            scan = functools.partial(sharded_scan, group=self.seq_group)
         else:
-            y_f, y_b = selective_scan_dual(*args)
+            scan = functools.partial(selective_scan, delta_softplus=True)
+        if self.bimamba_type == "none":
+            y = scan(*args)
+        else:
+            if self.seq_group is not None:
+                y_f, y_b = scan(*args[0]), scan(*args[1], reverse=True)
+            else:
+                y_f, y_b = selective_scan_dual(*args)
             y = y_f + y_b  # in the compute dtype, as XLA sums it
             if self.bimamba_type == "v2" and self.if_devide_out:
                 y = y / 2
-        out = y @ self.out_proj.weight.to(dtype).t()
+        out = collectives.reduce_from_group(y @ self.out_proj.weight.to(dtype).t(),
+                                            self.tp_group, tag="tp_out")
         if self.init_layer_scale is not None:
             out = out * self.gamma.to(dtype)
         return out

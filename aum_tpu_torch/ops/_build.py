@@ -52,6 +52,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_source_hash()}.so"
 
 
+# Set in a spawned rank (``parallel/launch.py``): the parent built every
+# library before the spawn, so a missing one raises instead of starting a
+# build that would race the other ranks' in BUILD_DIR.
+PREBUILT_ONLY = False
+
+
 def build_all() -> dict[str, Path]:
     """Compile every kernel library that is not built yet, all in parallel.
 
@@ -61,6 +67,9 @@ def build_all() -> dict[str, Path]:
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if not todo:
         return paths
+    if PREBUILT_ONLY:
+        raise RuntimeError(f"kernel libraries {sorted(todo)} are not built: a spawned rank only "
+                           "loads them, so build them (ops._build.build_all) before the spawn")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}

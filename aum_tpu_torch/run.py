@@ -33,11 +33,21 @@ its grid inferred at ``aum_pretrain_fstride``/``tstride``) or, for AST,
 ``--run-type eval --ckpt x.pth`` evaluates a reference AuM checkpoint.
 
 It runs on the card unless ``--device`` names another device, and raises
-without one. The parallel modes (``--n-model``, ``--n-seq``, ``--n-pipe``,
-``--multihost``) are not ported yet and raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item. ``--set flexible_patch_sizes=8,12,16`` trains
-each step at a patch size drawn from those (``train_loop``), and validates
-at the recipe's.
+without one. ``--set flexible_patch_sizes=8,12,16`` trains each step at a
+patch size drawn from those (``train_loop``), and validates at the recipe's.
+
+The parallel modes, as in JAX: one process per rank, e.g. ``torchrun
+--nproc-per-node 4 -m aum_tpu_torch.run ... --n-model 2 --n-seq 2``.
+``--multihost`` ("auto" by default) starts ``torch.distributed`` from
+torchrun's environment or ``--coordinator-address`` (with
+``--num-processes`` and ``--process-id``); the mesh is data x pipe x seq x
+model with n_data = world / (n_model · n_seq · n_pipe): ``--n-model``
+shards the mixers' d_inner (tensor parallelism), ``--n-seq`` splits each
+scan's length (sequence parallelism), ``--n-pipe`` pipelines the block
+stack over ``--pipe-microbatches`` (GPipe); seq and pipe cannot be
+combined. NCCL runs with a card per rank, gloo on the CPU; ranks that
+share a card name ``--dist-backend gloo``. Each rank reads its 'data'
+slice of every split; only rank 0 writes files and prints the results.
 """
 
 from __future__ import annotations
@@ -74,15 +84,24 @@ def parse_args(argv=None):
     p.add_argument("--ckpt", help="checkpoint directory: eval reads its best, "
                                   "eval_wa/eval_ensemble its epochs, train resumes; "
                                   "or a reference AuM .pth for eval")
-    p.add_argument("--n-seq", type=int, default=1, help="not ported yet")
-    p.add_argument("--n-pipe", type=int, default=1, help="not ported yet")
-    p.add_argument("--pipe-microbatches", type=int, default=4, help="not ported yet")
-    p.add_argument("--n-model", type=int, default=1, help="not ported yet")
-    p.add_argument("--multihost", default="off", choices=["auto", "on", "off"],
-                   help="not ported yet: only 'off'")
-    p.add_argument("--coordinator-address", help="not ported yet")
-    p.add_argument("--num-processes", type=int, help="not ported yet")
-    p.add_argument("--process-id", type=int, help="not ported yet")
+    p.add_argument("--n-seq", type=int, default=1,
+                   help="sequence-parallel axis size: each mixer's scans split in length")
+    p.add_argument("--n-pipe", type=int, default=1,
+                   help="pipeline-parallel axis size: the block stack runs GPipe-style "
+                        "over this many stages (not with --n-seq)")
+    p.add_argument("--pipe-microbatches", type=int, default=4,
+                   help="GPipe microbatches per step (at most; a divisor of the batch)")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="model-axis size: the mixers' d_inner sharded (tensor parallelism)")
+    p.add_argument("--multihost", default="auto", choices=["auto", "on", "off"],
+                   help="start torch.distributed: 'auto' under torchrun or with "
+                        "--coordinator-address, 'on' always, 'off' never")
+    p.add_argument("--coordinator-address", help="host:port of rank 0 (without torchrun)")
+    p.add_argument("--num-processes", type=int)
+    p.add_argument("--process-id", type=int)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                   help="default: nccl on the card, gloo on the CPU; ranks that share a "
+                        "card need gloo")
     p.add_argument("--epic-yaml", help="EPIC config yaml (needs the yaml package)")
     p.add_argument("--epic-hdf5", help="EPIC-KITCHENS audio hdf5")
     p.add_argument("--epic-annotations-train")
@@ -122,25 +141,31 @@ def apply_overrides(cfg, overrides):
     return dataclasses.replace(cfg, **kv)
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for an option the port does not have."""
-    if (args.n_model != 1 or args.n_seq != 1 or args.n_pipe != 1 or args.pipe_microbatches != 4
-            or args.multihost != "off" or args.coordinator_address or args.num_processes
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "--n-model/--n-seq/--n-pipe/--multihost (the parallel modes) is not ported yet "
-            "(ROADMAP.md queue 1 item 8: parallel)")
+def setup_mesh(args, device):
+    """Start ``torch.distributed`` as ``--multihost`` says and build the
+    mesh: (mesh, this rank's device)."""
+    from aum_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+    from aum_tpu_torch.parallel.multihost import rank_device
+
+    if args.n_seq > 1 and args.n_pipe > 1:
+        raise ValueError("--n-seq and --n-pipe cannot be combined")
+    maybe_initialize_distributed(args.multihost, args.coordinator_address, args.num_processes,
+                                 args.process_id, backend=args.dist_backend, device=device)
+    device = rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return make_mesh(n_model=args.n_model, n_seq=args.n_seq, n_pipe=args.n_pipe), device
 
 
-def build_pipelines(cfg, args, device):
+def build_pipelines(cfg, args, device, mesh=None):
     from aum_tpu_torch.data import AudioJsonDataset, BatchPipeline, balanced_sample_weights
 
     if cfg.dataset == "epic_sounds":
-        return _build_epic_pipelines(cfg, args, device)
+        return _build_epic_pipelines(cfg, args, device, mesh)
     if not args.label_csv:
         raise ValueError("--label-csv is required for this dataset")
     train_pipe = val_pipe = eval_pipe = None
-    kw = dict(seed=cfg.seed, num_workers=args.num_workers, device=device)
+    kw = dict(seed=cfg.seed, num_workers=args.num_workers, device=device, **_data_slice(mesh))
     if args.data_train:
         ds = AudioJsonDataset(args.data_train, cfg.audio_conf(train=True), args.label_csv)
         weights = balanced_sample_weights(ds) if cfg.bal else None
@@ -166,11 +191,19 @@ def epic_audio_config(cfg, yaml_path: str | None = None):
             else EpicAudioConfig(**kw))
 
 
-def _build_epic_pipelines(cfg, args, device):
+def _data_slice(mesh) -> dict:
+    """The pipelines' share of the data for this rank's 'data' coordinate."""
+    if mesh is None:
+        return {}
+    return {"n_data": mesh.size("data"), "data_rank": mesh.coord("data")}
+
+
+def _build_epic_pipelines(cfg, args, device, mesh=None):
     from aum_tpu_torch.data.epic import EpicBatchPipeline, EpicSoundsDataset
 
     ecfg = epic_audio_config(cfg, args.epic_yaml)
-    pipe_kw = dict(seed=cfg.seed, num_workers=args.num_workers, device=device)
+    pipe_kw = dict(seed=cfg.seed, num_workers=args.num_workers, device=device,
+                   **_data_slice(mesh))
     pipes = []
     for ann, split, train, bs in ((args.epic_annotations_train, "train", True, cfg.batch_size),
                                   (args.epic_annotations_val, "val", False, cfg.batch_size * 2),
@@ -182,21 +215,22 @@ def _build_epic_pipelines(cfg, args, device):
     return tuple(pipes)
 
 
-def evaluate_views(eval_step, pipe, main_metric: str):
+def evaluate_views(eval_step, pipe, main_metric: str, mesh=None):
     """EPIC's test protocol: each record's NUM_ENSEMBLE_VIEWS sigmoid scores
-    (and targets) averaged before scoring. Returns (metrics, scores, stats);
-    the loss is not computed (nan)."""
+    (and targets) averaged before scoring (on a mesh, gathered over 'data'
+    first). Returns (metrics, scores, stats); the loss is not computed (nan)."""
     from aum_tpu_torch.data.pipeline import Prefetcher
+    from aum_tpu_torch.parallel.multihost import to_host_global
     from aum_tpu_torch.train import average_ensemble_views, calculate_stats, d_prime, sigmoid_np
 
     outs, tgts, recs = [], [], []
     for batch in Prefetcher(pipe.batches()):
-        outs.append(sigmoid_np(eval_step(batch["x"]).float().cpu().numpy()))
-        tgts.append(batch["y"].float().cpu().numpy())
-        recs.append(batch["record_index"])
-    rec = np.concatenate(recs)
-    _, scores = average_ensemble_views(np.concatenate(outs), rec)
-    _, targets = average_ensemble_views(np.concatenate(tgts), rec)
+        outs.append(eval_step(batch["x"]).float())
+        tgts.append(batch["y"].float())
+        recs.append(torch.as_tensor(batch["record_index"], device=outs[-1].device))
+    rec = to_host_global(torch.cat(recs), mesh)
+    _, scores = average_ensemble_views(sigmoid_np(to_host_global(torch.cat(outs), mesh)), rec)
+    _, targets = average_ensemble_views(to_host_global(torch.cat(tgts), mesh), rec)
     stats = calculate_stats(scores, targets, full_curves=True)
     auc = float(np.nanmean([st["auc"] for st in stats]))
     metrics = {"mAP": float(np.nanmean([st["AP"] for st in stats])), "AUC": auc,
@@ -219,10 +253,11 @@ def ast_config(cfg):
                      depth=cfg.depth if cfg.depth is not None else 12, dtype=cfg.dtype)
 
 
-def build_model(cfg, device):
+def build_model(cfg, device, mesh=None, args=None):
     """The recipe's model, weights drawn from the recipe's seed, then any
     pretrained init ported over them (keys the checkpoint lacks keep their
-    init)."""
+    init); on a ``mesh``, laid out on it after that whole init, with the
+    sequence- and pipeline-parallel axes that ``args`` ask for."""
     from aum_tpu_torch.convert import (
         load_torch_checkpoint,
         merge_with_init,
@@ -234,6 +269,9 @@ def build_model(cfg, device):
     from aum_tpu_torch.models.ast import ASTModel
 
     if cfg.model == "ast":
+        if mesh is not None and mesh.world // mesh.size("data") > 1:
+            raise ValueError("model=ast runs data-parallel only: --n-model, --n-seq and "
+                             "--n-pipe shard AudioMamba's blocks")
         if cfg.aum_drop_path:
             # The reference AST never enables stochastic depth or dropout
             # (timm's rates default to 0): refuse rather than silently train
@@ -254,7 +292,13 @@ def build_model(cfg, device):
         return model
 
     mcfg = cfg.model_config()
-    model = AudioMamba(mcfg, device=device, seed=cfg.seed)
+    axes = {}
+    if args is not None:
+        axes = {"seq_axis": "seq" if args.n_seq > 1 else None,
+                "pipe_axis": "pipe" if args.n_pipe > 1 else None,
+                "pipe_microbatches": args.pipe_microbatches}
+    model = AudioMamba(mcfg, device=device, seed=cfg.seed, **axes)
+    ported = None
     if cfg.imagenet_pretrain_path:
         sd = load_torch_checkpoint(cfg.imagenet_pretrain_path, cfg.imagenet_pretrain_modelkey)
         ported = port_vim_imagenet_state_dict(sd, mcfg)
@@ -262,9 +306,12 @@ def build_model(cfg, device):
         ported = port_aum_state_dict(load_torch_checkpoint(cfg.aum_pretrain_path), mcfg,
                                      pretrain_fstride=cfg.aum_pretrain_fstride,
                                      pretrain_tstride=cfg.aum_pretrain_tstride)
-    else:
-        return model
-    model.load_state_dict(merge_with_init(ported, model.state_dict()))
+    if ported is not None:
+        model.load_state_dict(merge_with_init(ported, model.state_dict()))
+    if mesh is not None:
+        from aum_tpu_torch.parallel import shard_params
+
+        shard_params(model, mesh)
     return model
 
 
@@ -273,13 +320,14 @@ def load_checkpoint(model, cfg, ckpt: str) -> None:
     porter (keys it lacks keep the model's values), else the best state of
     a checkpoint directory that a train run wrote."""
     from aum_tpu_torch.convert import load_torch_checkpoint, merge_with_init, port_aum_state_dict
+    from aum_tpu_torch.parallel import gather_state_dict, load_full_state_dict
     from aum_tpu_torch.train import Checkpointer
 
     if ckpt.endswith(".pth"):
         ported = port_aum_state_dict(load_torch_checkpoint(ckpt), cfg.model_config())
-        model.load_state_dict(merge_with_init(ported, model.state_dict()))
+        load_full_state_dict(model, merge_with_init(ported, gather_state_dict(model)))
     else:
-        model.load_state_dict(Checkpointer(ckpt).model_state("best"))
+        load_full_state_dict(model, Checkpointer(ckpt).model_state("best"))
 
 
 def _write_eval_artifacts(exp_dir, metrics, scores, stats) -> None:
@@ -309,18 +357,20 @@ def main(argv=None, pipelines=None):
         loop,
         make_optimizer,
     )
+    from aum_tpu_torch.parallel import load_full_state_dict
     from aum_tpu_torch.utils import resolve_device
 
     args = parse_args(argv)
     cfg = apply_overrides(RECIPES[args.recipe], args.set)
-    check_ported(args)
-    device = resolve_device(args.device)
-    os.makedirs(args.exp_dir, exist_ok=True)
-    with open(os.path.join(args.exp_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    mesh, device = setup_mesh(args, resolve_device(args.device))
+    writer = mesh.rank == 0
+    if writer:
+        os.makedirs(args.exp_dir, exist_ok=True)
+        with open(os.path.join(args.exp_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2)
 
-    train_pipe, val_pipe, eval_pipe = pipelines or build_pipelines(cfg, args, device)
-    model = build_model(cfg, device)
+    train_pipe, val_pipe, eval_pipe = pipelines or build_pipelines(cfg, args, device, mesh)
+    model = build_model(cfg, device, mesh, args)
     # The steps, the eval and the loop are read from ``train.loop`` at call
     # time, where ``train_loop`` reads them too: wrapping that module's
     # names instruments every run type (chip_smoke.py's recipe probes).
@@ -345,14 +395,15 @@ def main(argv=None, pipelines=None):
                 raise FileNotFoundError(f"no epoch checkpoints in [{lo}, {hi}]")
         state_dicts = [ckptr.model_state(f"epoch_{e}") for e in epochs]
         if args.run_type == "eval_wa":
-            model.load_state_dict(average_params(state_dicts))
+            load_full_state_dict(model, average_params(state_dicts))
             metrics, _, _ = loop.evaluate(eval_step, pipe.batches(), cfg.loss, cfg.metrics,
-                                          nan2num=cfg.nan2num)
-            print(json.dumps({"n_models": len(state_dicts), **metrics}, default=float))
+                                          nan2num=cfg.nan2num, mesh=mesh)
+            if writer:
+                print(json.dumps({"n_models": len(state_dicts), **metrics}, default=float))
             return metrics
         results = loop.evaluate_ensemble(eval_step, model, state_dicts, pipe.batches,
                                          cfg.loss, cfg.metrics, nan2num=cfg.nan2num)
-        for r in results:
+        for r in results if writer else ():
             print(json.dumps(r, default=float))
         return results
 
@@ -363,13 +414,14 @@ def main(argv=None, pipelines=None):
         if args.ckpt:
             load_checkpoint(model, cfg, args.ckpt)
         if cfg.dataset == "epic_sounds" and eval_pipe is not None:
-            metrics, scores, stats = evaluate_views(eval_step, eval_pipe, cfg.metrics)
+            metrics, scores, stats = evaluate_views(eval_step, eval_pipe, cfg.metrics, mesh)
         else:
             metrics, scores, _, stats = loop.evaluate(
                 eval_step, pipe.batches(), cfg.loss, cfg.metrics, nan2num=cfg.nan2num,
-                return_stats=True, full_curves=True)
-        print(json.dumps(metrics, default=float))
-        _write_eval_artifacts(args.exp_dir, metrics, scores, stats)
+                return_stats=True, full_curves=True, mesh=mesh)
+        if writer:
+            print(json.dumps(metrics, default=float))
+            _write_eval_artifacts(args.exp_dir, metrics, scores, stats)
         return metrics
 
     if train_pipe is None or val_pipe is None:
@@ -378,31 +430,35 @@ def main(argv=None, pipelines=None):
     state = init_train_state(model, make_optimizer(model.parameters(), hp))
     start_epoch = 1
     if args.ckpt:  # resume from the newest epoch checkpoint (or best)
-        rckptr = Checkpointer(args.ckpt)
+        rckptr = Checkpointer(args.ckpt, mesh)
         epochs = rckptr.available_epochs()
         state = rckptr.restore(f"epoch_{epochs[-1]}" if epochs else "best", state)
         start_epoch = epochs[-1] + 1 if epochs else 1
-    ckptr = Checkpointer(os.path.join(args.exp_dir, "models"))
+    ckptr = Checkpointer(os.path.join(args.exp_dir, "models"), mesh)
     state, history, best = loop.train_loop(
         state, hp, spe,
         train_batches=train_pipe.batches,
         eval_batches=val_pipe.batches,
         n_epochs=cfg.n_epochs, loss_type=cfg.loss, main_metric=cfg.metrics,
         augment=AugmentConfig(),  # the pipeline augments, on the device
-        nan2num=cfg.nan2num, continue_inf=cfg.continue_inf, exp_dir=args.exp_dir,
-        checkpointer=ckptr, accum_steps=cfg.accum_steps, profile_dir=args.profile_dir,
+        nan2num=cfg.nan2num, continue_inf=cfg.continue_inf,
+        exp_dir=args.exp_dir if writer else None, checkpointer=ckptr,
+        accum_steps=cfg.accum_steps, profile_dir=args.profile_dir if writer else None,
+        print_fn=print if writer else (lambda *a, **k: None),
         flexible_patch_sizes=cfg.flexible_patch_sizes, start_epoch=start_epoch,
-        generator=torch.Generator().manual_seed(cfg.seed + 2))
-    print(f"best epoch {best['epoch']}: {cfg.metrics}={best['main']:.4f}")
+        generator=torch.Generator().manual_seed(cfg.seed + 2), mesh=mesh)
+    if writer:
+        print(f"best epoch {best['epoch']}: {cfg.metrics}={best['main']:.4f}")
 
     # SpeechCommands: the best checkpoint on the validation and test splits.
     if cfg.dataset == "speechcommands" and eval_pipe is not None:
-        model.load_state_dict(ckptr.model_state("best"))
+        load_full_state_dict(model, ckptr.model_state("best"))
         for split, pipe in [("valid", val_pipe), ("eval", eval_pipe)]:
             m, _, _ = loop.evaluate(eval_step, pipe.batches(), cfg.loss, cfg.metrics,
-                                    nan2num=cfg.nan2num)
-            print(f"---------------evaluate on the {split} set---------------\n"
-                  f"Accuracy: {m['acc']:.6f}\nAUC: {m['AUC']:.6f}")
+                                    nan2num=cfg.nan2num, mesh=mesh)
+            if writer:
+                print(f"---------------evaluate on the {split} set---------------\n"
+                      f"Accuracy: {m['acc']:.6f}\nAUC: {m['AUC']:.6f}")
     return history
 
 

@@ -1,6 +1,6 @@
 """Serving: the served forward, bundles, int8 weights and an HTTP front.
 
-Counterpart of ``aum_tpu/serving.py`` on one device.
+Counterpart of ``aum_tpu/serving.py``.
 
 - ``forward_fn``: x -> logits. With the frontend x is a (B, S) waveform and
   the forward follows the reference data loader: per-clip mean subtraction,
@@ -36,8 +36,19 @@ Counterpart of ``aum_tpu/serving.py`` on one device.
   ...``, the counterparts of ``scripts/export_serving.py`` and
   ``scripts/serve_http.py``.
 
-Multi-device serving (``mesh``, ``model_axis``) is not ported yet: ROADMAP.md
-queue 1 item 8.
+Multi-device serving, one process per rank (``parallel/``): ``export_bundle(
+mesh=, model_axis=)`` records ``n_devices``, ``mesh_shape`` and
+the tensor-parallel ``model_axis`` in the manifest, as the JAX bundle does
+(the params stay in the one-card layout; a model already laid out on a mesh
+is gathered first, a collective of its ranks); every exported batch size
+must divide over the data axis, and int8 together with ``model_axis``
+raises, as in JAX. ``load_bundle`` under a process group of ``n_devices``
+ranks re-applies the layout: the mixers' d_inner sharded over 'model', the
+weights replicated over 'data'. ``predict`` is then a collective of every
+rank: rank 0's request is broadcast, padded to an exported size, split over
+'data', run, and the logits gathered back to every rank. ``serve`` runs the
+HTTP server on rank 0 while the other ranks follow its broadcasts
+(``ServingModel.follow``) until it stops (``stop_followers``).
 """
 
 from __future__ import annotations
@@ -71,7 +82,6 @@ _INT8_KEY = re.compile(
     r"head\.weight|layers\.\d+\.mixer\.(in_proj|x_proj|x_proj_b|dt_proj|dt_proj_b|out_proj)"
     r"\.weight")
 _QUANT_KEYS = ("int8", "scale")
-_NOT_PORTED = "multi-device serving is not ported yet (ROADMAP.md queue 1 item 8: parallel)"
 
 
 def frontend_fn(*, audio_length: int, melbins: int, mean: float, std: float,
@@ -159,7 +169,7 @@ def _model_kind(model) -> str:
 
 
 def _build_model(spec: Dict[str, Any], device: torch.device) -> torch.nn.Module:
-    """The manifest's model, with init weights, on ``device``."""
+    """The manifest's model, with init weights, on ``device`` (whole)."""
     from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
     from aum_tpu_torch.models.ast import ASTConfig, ASTModel
 
@@ -193,16 +203,39 @@ def export_bundle(
     default: the model's own) as a serving bundle (zip bytes). Served inputs
     are (B, audio_length, melbins) log-mels, or with ``include_frontend``
     (B, wav_samples) waveforms at ``sample_rate``. ``weight_quant="int8"``
-    stores the matmul weights as int8 (``quantize_weights_int8``)."""
-    if mesh is not None or model_axis is not None:
-        raise NotImplementedError(_NOT_PORTED)
+    stores the matmul weights as int8 (``quantize_weights_int8``).
+
+    ``mesh`` (``parallel.make_mesh``'s) serves the bundle over that many
+    ranks: the batch split over its 'data' axis and, with ``model_axis``
+    ("model", the mesh's tensor-parallel axis), the mixers' d_inner over
+    it when that axis is larger than 1; the manifest records the
+    layout and ``load_bundle`` re-applies it. A model laid out on a mesh is
+    gathered (call it on every rank)."""
     if include_frontend and wav_samples is None:
         raise ValueError("include_frontend=True requires wav_samples")
     if weight_quant not in (None, "int8"):
         raise ValueError(f"unknown weight_quant {weight_quant!r}")
+    if model_axis not in (None, "model"):
+        raise ValueError(f"model_axis must be None or 'model' (the mesh's tensor-parallel "
+                         f"axis), not {model_axis!r}")
+    tp = bool(mesh is not None and model_axis is not None and mesh.size(model_axis) > 1)
+    if weight_quant == "int8" and tp:
+        raise ValueError("weight_quant is not supported together with model_axis (TP): the "
+                         "TP layout is defined on the float state dict")
+    if mesh is not None:
+        for bsz in batch_sizes:
+            if int(bsz) % mesh.size("data"):
+                raise ValueError(f"batch size {bsz} not divisible by mesh axis "
+                                 f"'data' = {mesh.size('data')}")
     kind = _model_kind(model)
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    params = model.state_dict() if params is None else params
+    if getattr(model, "mesh", None) is not None:
+        from aum_tpu_torch.parallel import gather_state_dict
+
+        whole = gather_state_dict(model)
+    else:
+        whole = model.state_dict()
+    want = {k: tuple(v.shape) for k, v in whole.items()}
+    params = whole if params is None else params
     got = {k: tuple(v.shape) for k, v in params.items()}
     if got != want:
         raise ValueError("params do not fit the model: " + (
@@ -222,10 +255,13 @@ def export_bundle(
         "wav_samples": wav_samples,
         "platforms": None,  # no lowered graph: the forward is rebuilt at load
         "labels": list(labels) if labels is not None else None,
-        "n_devices": 1,
-        "data_axis": None,
-        "mesh_shape": None,
-        "model_axis": None,
+        "n_devices": mesh.world if mesh is not None else 1,
+        "data_axis": "data" if mesh is not None else None,
+        # The mesh's axes in order -> size, and the TP axis, so that
+        # load_bundle rebuilds the mesh and re-applies the layout.
+        "mesh_shape": ({a: mesh.size(a) for a in mesh.axis_names}
+                       if mesh is not None else None),
+        "model_axis": model_axis if tp else None,
         "weight_quant": weight_quant,
         "model": {"kind": kind, "config": dataclasses.asdict(model.config)},
     }
@@ -243,8 +279,12 @@ def export_bundle(
 
 
 def save_bundle(path: str, *args, **kwargs) -> None:
-    with open(path, "wb") as f:
-        f.write(export_bundle(*args, **kwargs))
+    """``export_bundle`` written to ``path`` (on a mesh, by rank 0 alone)."""
+    blob = export_bundle(*args, **kwargs)
+    mesh = kwargs.get("mesh")
+    if mesh is None or mesh.rank == 0:
+        with open(path, "wb") as f:
+            f.write(blob)
 
 
 @dataclasses.dataclass
@@ -253,12 +293,16 @@ class ServingModel:
 
     ``predict(x)`` pads the request batch up to the smallest exported size
     that fits (oversized requests run in chunks of the largest size) and
-    returns the logits of exactly the requested rows, on ``device``.
+    returns the logits of exactly the requested rows, on ``device``. With a
+    ``mesh`` (a multi-device bundle) it is a collective of every rank:
+    rank 0's ``x`` is the request (the others may pass None), and every
+    rank returns the logits.
     """
 
     manifest: Dict[str, Any]
     forward: Callable = dataclasses.field(repr=False)
     device: torch.device
+    mesh: Any = None
 
     @property
     def labels(self) -> Optional[List[str]]:
@@ -275,8 +319,58 @@ class ServingModel:
         return ((m["wav_samples"],) if m["include_frontend"]
                 else (m["audio_length"], m["melbins"]))
 
+    def _collective(self) -> bool:
+        return self.mesh is not None and self.mesh.distributed
+
+    def _broadcast_request(self, x, op: int = 1):
+        """Rank 0's (op, request) to every rank; op 0 stops the followers."""
+        from aum_tpu_torch.parallel import collectives
+
+        group = torch.distributed.group.WORLD
+        head = torch.zeros(2, dtype=torch.int64, device=self.device)
+        if self.mesh.rank == 0:
+            head[0], head[1] = op, (0 if x is None else x.shape[0])
+        collectives.broadcast(head, 0, group, tag="serve_request")
+        op, b = int(head[0]), int(head[1])
+        if op == 0:
+            return None
+        if self.mesh.rank != 0:
+            x = torch.empty((b,) + self.input_shape, dtype=torch.float32, device=self.device)
+        return collectives.broadcast(x.contiguous(), 0, group, tag="serve_request")
+
+    def _run_split(self, x: torch.Tensor) -> torch.Tensor:
+        """An exported-size batch split over 'data', run, gathered back."""
+        from aum_tpu_torch.parallel import collectives
+
+        n, r = self.mesh.size("data"), self.mesh.coord("data")
+        part = x.shape[0] // n
+        with torch.inference_mode():
+            out = self.forward(x[r * part:(r + 1) * part])
+        return collectives.all_gather(out, self.mesh.group("data"), tag="serve_gather")
+
     def predict(self, x) -> torch.Tensor:
+        if self._collective():
+            if self.mesh.rank == 0:
+                x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+            x = self._broadcast_request(x)
+            return self._predict_rows(x)
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        return self._predict_rows(x)
+
+    def follow(self) -> None:
+        """A rank other than 0 of a multi-device bundle: run every request
+        rank 0 broadcasts, until it stops the followers."""
+        while True:
+            x = self._broadcast_request(None)
+            if x is None:
+                return
+            self._predict_rows(x)
+
+    def stop_followers(self) -> None:
+        if self._collective() and self.mesh.rank == 0:
+            self._broadcast_request(None, op=0)
+
+    def _predict_rows(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape[1:]) != self.input_shape:
             raise ValueError(f"a request row has shape {tuple(x.shape[1:])}; this bundle "
                              f"takes {self.input_shape}")
@@ -287,11 +381,14 @@ class ServingModel:
             pad = fit[0] - b
             if pad:
                 x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-            with torch.inference_mode():
-                out = self.forward(x)
+            if self._collective():
+                out = self._run_split(x)
+            else:
+                with torch.inference_mode():
+                    out = self.forward(x)
             return out[:b] if pad else out
         big = sizes[-1]
-        return torch.cat([self.predict(x[i:i + big]) for i in range(0, b, big)])
+        return torch.cat([self._predict_rows(x[i:i + big]) for i in range(0, b, big)])
 
     def predict_scores(self, x) -> torch.Tensor:
         """Sigmoid scores (the reference notebook's readout)."""
@@ -364,9 +461,28 @@ def make_http_server(sm: ServingModel, host: str = "127.0.0.1", port: int = 8000
     return ThreadingHTTPServer((host, port), Handler)
 
 
+def _bundle_mesh(manifest: Dict[str, Any]):
+    """The mesh a multi-device bundle runs on, from its manifest: this
+    process group must have ``n_devices`` ranks."""
+    import torch.distributed as dist
+
+    from aum_tpu_torch.parallel import make_mesh
+
+    n = int(manifest.get("n_devices") or 1)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise RuntimeError(f"bundle exported for {n} devices; this process group has {world} "
+                           "rank(s)")
+    shape = manifest.get("mesh_shape") or {"data": n}
+    return make_mesh(n_data=int(shape.get("data", 1)), n_model=int(shape.get("model", 1)),
+                     n_seq=int(shape.get("seq", 1)), n_pipe=int(shape.get("pipe", 1)))
+
+
 def load_bundle(src, device: str | torch.device | None = None) -> ServingModel:
     """Load a bundle from a path or bytes and rebuild its forward on
-    ``device`` (default: the CUDA card; raises without one)."""
+    ``device`` (default: the CUDA card; raises without one). A
+    multi-device bundle loads on every rank of a process group of its
+    ``n_devices`` ranks, with its recorded layout."""
     device = resolve_device(device)
     if isinstance(src, (bytes, bytearray)):
         data = bytes(src)
@@ -392,6 +508,13 @@ def load_bundle(src, device: str | torch.device | None = None) -> ServingModel:
                          f"{result.unexpected_keys}")
     for k in quant:  # the forward takes these from the int8 copies
         model.get_parameter(k).data = torch.empty(0, device=device)
+    mesh = None
+    if int(manifest.get("n_devices") or 1) > 1:
+        mesh = _bundle_mesh(manifest)
+        if manifest.get("model_axis"):
+            from aum_tpu_torch.parallel import shard_params
+
+            shard_params(model, mesh)
 
     def model_fn(x: torch.Tensor) -> torch.Tensor:
         if not quant:
@@ -402,7 +525,7 @@ def load_bundle(src, device: str | torch.device | None = None) -> ServingModel:
                      audio_length=manifest["audio_length"], melbins=manifest["melbins"],
                      mean=manifest["mean"], std=manifest["std"],
                      sample_rate=manifest["sample_rate"])
-    return ServingModel(manifest=manifest, forward=fwd, device=device)
+    return ServingModel(manifest=manifest, forward=fwd, device=device, mesh=mesh)
 
 
 def main(argv=None) -> None:
@@ -423,8 +546,12 @@ def main(argv=None) -> None:
     ex.add_argument("--clip-secs", type=float, default=10.0)
     ex.add_argument("--sample-rate", type=int, default=16000)
     ex.add_argument("--weight-quant", choices=["int8"])
-    ex.add_argument("--n-data", type=int, default=0, help="not ported yet")
-    ex.add_argument("--n-model", type=int, default=1, help="not ported yet")
+    ex.add_argument("--n-data", type=int, default=0,
+                    help="multi-device bundle: data-axis size (0: one device)")
+    ex.add_argument("--n-model", type=int, default=1,
+                    help="tensor-parallel bundle: model-axis size")
+    ex.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    help="default: nccl on the card, gloo on the CPU")
     ex.add_argument("--set", action="append", default=[])
     ex.add_argument("--device", help="torch device (default: the CUDA card)")
     sv = sub.add_parser("serve", help="serve a bundle over HTTP")
@@ -432,24 +559,41 @@ def main(argv=None) -> None:
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8000)
     sv.add_argument("--device", help="torch device (default: the CUDA card)")
+    sv.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    help="default: nccl on the card, gloo on the CPU")
     args = p.parse_args(argv)
 
+    from aum_tpu_torch.parallel import maybe_initialize_distributed
+    from aum_tpu_torch.parallel.multihost import rank_device
+
+    device = resolve_device(args.device)
+    if maybe_initialize_distributed("auto", backend=args.dist_backend, device=device):
+        device = rank_device(device)
     if args.command == "serve":
-        sm = load_bundle(args.bundle, args.device)
+        sm = load_bundle(args.bundle, device)
+        if sm.mesh is not None and sm.mesh.rank != 0:
+            sm.follow()
+            return
         print(f"serving {args.bundle} on {args.host}:{args.port} (batch sizes "
               f"{sm.batch_sizes}, frontend={'wav' if sm.manifest['include_frontend'] else 'fbank'})",
               flush=True)
-        make_http_server(sm, args.host, args.port).serve_forever()
+        try:
+            make_http_server(sm, args.host, args.port).serve_forever()
+        finally:
+            sm.stop_followers()
         return
 
     from aum_tpu_torch.configs import RECIPES
     from aum_tpu_torch.data.datasets import make_name_dict
     from aum_tpu_torch.run import apply_overrides, build_model, load_checkpoint
 
+    mesh = None
     if args.n_data or args.n_model > 1:
-        raise NotImplementedError(_NOT_PORTED)
+        from aum_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(n_data=args.n_data or None, n_model=max(args.n_model, 1))
     cfg = apply_overrides(RECIPES[args.recipe], args.set)
-    model = build_model(cfg, resolve_device(args.device))
+    model = build_model(cfg, device)
     if args.ckpt:
         load_checkpoint(model, cfg, args.ckpt)
     else:
@@ -464,10 +608,12 @@ def main(argv=None) -> None:
                 include_frontend=args.include_frontend, sample_rate=args.sample_rate,
                 wav_samples=(int(args.clip_secs * args.sample_rate) if args.include_frontend
                              else None),
+                mesh=mesh, model_axis="model" if args.n_model > 1 else None,
                 weight_quant=args.weight_quant,
                 extra_meta={"recipe": args.recipe, "variant": cfg.model_type,
                             "aum_type": cfg.aum_type})
-    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)")
+    if mesh is None or mesh.rank == 0:
+        print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)")
 
 
 if __name__ == "__main__":

@@ -29,6 +29,18 @@ too: per epoch, train, validate on the sigmoided scores, keep the best and
 the latest checkpoint, and write ``result.csv``, ``progress.json``,
 ``stats_<epoch>.pickle`` and optionally the predictions under the
 experiment directory.
+
+On a mesh (``parallel/mesh.py``; ``mesh=`` of ``make_train_step``,
+``evaluate`` and ``train_loop``), as the JAX step on its mesh: each rank
+takes its slice of the global batch, draws the augmentation of the whole
+global batch and keeps its rows; the grads are averaged over the 'data'
+group (every rank's local batch has the same size), in one all-reduce; the
+loss is the global mean, so the non-finite skip reads the same value on
+every rank and they skip together. ``evaluate`` gathers the logits and
+targets over 'data' (``parallel/multihost.py::to_host_global``), so the
+metrics see the whole set; its loss is the mean over every rank's batches.
+``init_train_state(..., mesh)`` lays the model out on the mesh after its
+whole init (``shard_params``).
 """
 
 from __future__ import annotations
@@ -77,9 +89,44 @@ def reset_loss_accum(state: TrainState) -> TrainState:
     return dataclasses.replace(state, loss_sum=0.0, nonfinite_count=0)
 
 
-def init_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer
-                     ) -> TrainState:
+def init_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     mesh=None) -> TrainState:
+    """The state of ``model`` and ``optimizer``; with ``mesh``, the model is
+    first laid out on it (its whole init sliced, ``shard_params``) and the
+    optimizer rebuilt with its defaults over the sliced parameters."""
+    if mesh is not None and getattr(model, "mesh", None) is not mesh:
+        from aum_tpu_torch.parallel.mesh import shard_params
+
+        shard_params(model, mesh)
+        optimizer = type(optimizer)(model.parameters(), **optimizer.defaults)
     return TrainState(model=model, optimizer=optimizer)
+
+
+def _rows(tree, r: int, b: int):
+    """Rows [r·b, (r+1)·b) of every tensor in a nest of dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return tree[r * b:(r + 1) * b]
+    if isinstance(tree, dict):
+        return {k: _rows(v, r, b) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rows(v, r, b) for v in tree)
+    return tree
+
+
+def average_grads(params, group, n: int) -> None:
+    """Average the grads of ``params`` over ``group`` (``n`` ranks) in one
+    all-reduce of their flat concatenation, per dtype."""
+    from aum_tpu_torch.parallel import collectives
+
+    by_dtype = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p)
+    for ps in by_dtype.values():
+        flat = torch.cat([p.grad.reshape(-1) for p in ps])
+        collectives.all_reduce(flat, group, tag="dp_grads").div_(n)
+        for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+            p.grad.copy_(g.view_as(p.grad))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +167,7 @@ def make_train_step(hp: TrainHyperParams, steps_per_epoch: int,
                     nan2num: bool = False, accum_steps: int = 1,
                     generator: torch.Generator | None = None,
                     aug_generator: torch.Generator | None = None,
-                    patch_size=None, strides=None) -> Callable:
+                    patch_size=None, strides=None, mesh=None) -> Callable:
     """(state, batch) -> (state, loss) for batch {'x': (B, T, F), 'y': (B, C)}.
 
     ``loss`` is the step's mean loss, a 0-d fp32 tensor on the batch's
@@ -128,6 +175,7 @@ def make_train_step(hp: TrainHyperParams, steps_per_epoch: int,
     ``aug_generator`` (on the batch's device) the augmentation, which needs
     it. ``patch_size`` runs the model at that patch size, with ``strides``
     (the patch size unless given): the flexible-patch step of one size.
+    On ``mesh`` the batch is this rank's slice and ``loss`` the global mean.
     """
     if (augment.freqm or augment.timem or augment.noise) and aug_generator is None:
         raise ValueError("an augmenting train step needs aug_generator")
@@ -137,11 +185,18 @@ def make_train_step(hp: TrainHyperParams, steps_per_epoch: int,
         model_kwargs = {"patch_size": patch_size,
                         "strides": strides if strides is not None else patch_size}
 
+    n_data = mesh.size("data") if mesh is not None else 1
+    data_group = mesh.group("data") if mesh is not None else None
+
     def step_fn(state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:
         model, opt = state.model, state.optimizer
         x, y = batch["x"], batch["y"]
-        x = apply_augment(x, draw_augment(aug_generator, tuple(x.shape), augment.freqm,
-                                          augment.timem, augment.noise))
+        b = x.shape[0]
+        draws = draw_augment(aug_generator, (b * n_data,) + tuple(x.shape[1:]), augment.freqm,
+                             augment.timem, augment.noise)
+        if n_data > 1:
+            draws = _rows(draws, mesh.coord("data"), b)
+        x = apply_augment(x, draws)
         if x.shape[0] % accum_steps:
             raise ValueError(f"batch {x.shape[0]} not divisible by accum_steps={accum_steps}")
         opt.zero_grad(set_to_none=True)
@@ -153,6 +208,11 @@ def make_train_step(hp: TrainHyperParams, steps_per_epoch: int,
             (micro / accum_steps).backward()
             loss = loss + micro.detach()
         loss = loss / accum_steps
+        if data_group is not None:
+            from aum_tpu_torch.parallel import collectives
+
+            average_grads(model.parameters(), data_group, n_data)
+            loss = collectives.all_reduce(loss, data_group, tag="dp_loss") / n_data
         value = loss.item()
         finite = value == value and abs(value) != float("inf")
         if finite:
@@ -202,9 +262,11 @@ def evaluate(
     nan2num: bool = False,
     return_stats: bool = False,
     full_curves: bool = False,
+    mesh=None,
 ):
     """Run eval over ``batches`` ({'x', 'y'} dicts) with ``eval_step`` (x ->
-    logits), as the reference's ``validate_acc`` does.
+    logits), as the reference's ``validate_acc`` does. On ``mesh``, this
+    rank's batches, gathered over 'data' at the end.
 
     The scores are the sigmoided logits, and, as in the reference, the val
     loss is taken on the *sigmoided* scores too. With ``nan2num``,
@@ -213,18 +275,33 @@ def evaluate(
     (``full_curves`` adds the PR and ROC curves).
     """
     from aum_tpu_torch.data.pipeline import Prefetcher
+    from aum_tpu_torch.parallel import collectives
+    from aum_tpu_torch.parallel.multihost import to_host_global
 
-    outs, tgts, losses = [], [], []
+    # This rank's logits and targets stay on the device and are gathered
+    # over 'data' at the end (ranks may hold different numbers of batches);
+    # the loss is the mean of every rank's batch losses.
+    group = mesh.group("data") if mesh is not None else None
+    logits, tgts, losses = [], [], []
     for batch in Prefetcher(iter(batches)):
-        logits = eval_step(batch["x"]).float().cpu().numpy()
-        if nan2num:
-            logits = np.nan_to_num(logits)
-        scores = sigmoid_np(logits)
-        outs.append(scores)
-        tgts.append(batch["y"].float().cpu().numpy())
-        losses.append(_np_loss(loss_type, scores, tgts[-1]))
-    scores = np.concatenate(outs, axis=0)
-    targets = np.concatenate(tgts, axis=0)
+        out = eval_step(batch["x"]).float()
+        logits.append(out)
+        tgts.append(batch["y"].float())
+        scores = sigmoid_np(np.nan_to_num(out.cpu().numpy()) if nan2num else out.cpu().numpy())
+        losses.append(_np_loss(loss_type, scores, tgts[-1].cpu().numpy()))
+    device = tgts[0].device if tgts else torch.device("cpu")
+    total = collectives.all_reduce(torch.tensor([sum(losses), len(losses)], dtype=torch.float64,
+                                                device=device), group, tag="eval_loss")
+    scores = to_host_global(torch.cat(logits), mesh)
+    if nan2num:
+        scores = np.nan_to_num(scores)
+    targets = to_host_global(torch.cat(tgts), mesh)
+    loss = float(total[0] / total[1]) if float(total[1]) else float("nan")
+    return _eval_metrics(sigmoid_np(scores), targets, loss, main_metric, return_stats,
+                         full_curves)
+
+
+def _eval_metrics(scores, targets, loss: float, main_metric, return_stats, full_curves):
     stats = calculate_stats(scores, targets, full_curves=full_curves)
     m_ap = float(np.nanmean(np.array([s["AP"] for s in stats], dtype=np.float64)))
     m_auc = float(np.nanmean(np.array([s["auc"] for s in stats], dtype=np.float64)))
@@ -233,7 +310,7 @@ def evaluate(
         "AUC": m_auc,
         "acc": stats[0]["acc"],
         "d_prime": d_prime(m_auc) if 0 < m_auc < 1 else float("nan"),
-        "loss": float(np.mean(losses)) if losses else float("nan"),
+        "loss": loss,
         "main": None,
     }
     metrics["main"] = metrics["acc" if main_metric == "acc" else "mAP"]
@@ -266,6 +343,7 @@ def train_loop(
     start_epoch: int = 1,
     generator: torch.Generator | None = None,
     aug_generator: torch.Generator | None = None,
+    mesh=None,
 ):
     """Epoch loop: train, validate, track the best epoch, checkpoint.
 
@@ -282,7 +360,10 @@ def train_loop(
     steps ``profile_steps`` of epoch 1 are traced (``train/profiling.py``).
     With ``flexible_patch_sizes`` each train step runs at a size drawn from
     them by ``np.random.default_rng(FLEX_SEED)`` (``flexible_patch_schedule``),
-    as in JAX; the validation runs at the model's own patch size.
+    as in JAX; the validation runs at the model's own patch size. On
+    ``mesh`` the steps and the validation run on it (``make_train_step``,
+    ``evaluate``); the caller gives ``exp_dir`` and ``print_fn`` to the
+    rank that writes, and the checkpointer gathers on every rank.
     """
     from aum_tpu_torch.data.pipeline import Prefetcher
     from aum_tpu_torch.train.profiling import trace
@@ -290,7 +371,8 @@ def train_loop(
     if flexible_patch_sizes:
         # One step per size; each step's size is drawn as JAX draws it.
         steps = {ps: make_train_step(hp, steps_per_epoch, loss_type, augment, nan2num,
-                                     accum_steps, generator, aug_generator, patch_size=ps)
+                                     accum_steps, generator, aug_generator, patch_size=ps,
+                                     mesh=mesh)
                  for ps in flexible_patch_sizes}
         flex_rng = np.random.default_rng(FLEX_SEED)
 
@@ -299,7 +381,7 @@ def train_loop(
             return steps[ps](state, batch)
     else:
         step_fn = make_train_step(hp, steps_per_epoch, loss_type, augment, nan2num,
-                                  accum_steps, generator, aug_generator)
+                                  accum_steps, generator, aug_generator, mesh=mesh)
     eval_fn = make_eval_step(state.model)
     history = []
     progress = []
@@ -313,7 +395,7 @@ def train_loop(
                 if profile_dir is not None and epoch == 1 and i == profile_steps[0]:
                     prof.enter_context(trace(profile_dir))
                 state, loss = step_fn(state, batch)
-                n_clips += int(batch["x"].shape[0])
+                n_clips += int(batch["x"].shape[0]) * (mesh.size("data") if mesh else 1)
                 n_steps += 1
                 if state.nonfinite_count and not continue_inf:
                     raise RuntimeError(
@@ -330,7 +412,7 @@ def train_loop(
         epoch_loss = state.loss_sum / n_finite if n_finite else float("nan")
         metrics, scores, targets, epoch_stats = evaluate(
             eval_fn, eval_batches(), loss_type, main_metric, nan2num=nan2num,
-            return_stats=True, full_curves=True)
+            return_stats=True, full_curves=True, mesh=mesh)
         metrics["epoch"] = epoch
         metrics["train_loss"] = epoch_loss if n_steps else None
         metrics["clips_per_sec"] = n_clips / train_secs if train_secs > 0 else 0.0
@@ -379,14 +461,17 @@ def evaluate_ensemble(
     nan2num: bool = False,
 ):
     """Cumulative prediction ensemble (the reference's ``validate_ensemble``):
-    load each state dict into ``model`` in turn (``eval_step`` runs it),
-    average the sigmoid scores of the first k and score that ensemble."""
+    load each (one-card) state dict into ``model`` in turn (``eval_step``
+    runs it; sliced for this rank on a mesh), average the sigmoid scores of
+    the first k and score that ensemble."""
     cum = None
     results = []
+    from aum_tpu_torch.parallel.mesh import load_full_state_dict
+
     for k, sd in enumerate(state_dicts, start=1):
-        model.load_state_dict(sd)
+        load_full_state_dict(model, sd)
         _, scores, targets = evaluate(eval_step, batches_fn(), loss_type, main_metric,
-                                      nan2num=nan2num)
+                                      nan2num=nan2num, mesh=getattr(model, "mesh", None))
         cum = scores if cum is None else cum + scores
         stats = calculate_stats(cum / k, targets)
         ap = np.nanmean([s["AP"] for s in stats])

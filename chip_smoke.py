@@ -1227,32 +1227,9 @@ def phase_wav() -> dict:
 
 def _counters() -> dict:
     """Every launch counter: name -> (holder, attribute)."""
-    from aum_tpu_torch.ops import (
-        causal_conv1d,
-        selective_scan,
-        selective_scan_bwd,
-        selective_scan_dual,
-    )
+    from aum_tpu_torch.parallel.checks import launch_counters
 
-    return {"selective_scan_dual_fwd": (selective_scan_dual, "launches"),
-            "selective_scan_dual_fwd_save_states": (selective_scan_dual,
-                                                    "save_states_launches"),
-            "selective_scan_dual_direct_fwd": (selective_scan_dual, "direct_launches"),
-            "selective_scan_dual_direct_fwd_save_states": (selective_scan_dual,
-                                                           "direct_save_states_launches"),
-            "selective_scan_dual_fdt_fwd": (selective_scan_dual, "fdt_launches"),
-            "selective_scan_dual_stage_fwd": (selective_scan_dual, "stage_launches"),
-            "selective_scan_dual_stage_fwd_save_states": (selective_scan_dual,
-                                                          "stage_save_states_launches"),
-            "selective_scan_fwd": (selective_scan, "launches"),
-            "selective_scan_fwd_save_states": (selective_scan, "save_states_launches"),
-            "selective_scan_fwd_with_state": (selective_scan, "with_state_launches"),
-            "selective_scan_bwd": (selective_scan_bwd, "launches"),
-            "selective_scan_bwd_with_state": (selective_scan_bwd, "with_state_launches"),
-            "selective_scan_bwd_fused": (selective_scan_bwd, "fused_launches"),
-            "selective_scan_bwd_xminus": (selective_scan_bwd, "xminus_launches"),
-            "selective_scan_bwd_bf16_partials": (selective_scan_bwd, "bf16_partials_launches"),
-            "causal_conv1d_fwd": (causal_conv1d, "launches")}
+    return launch_counters()
 
 
 def _reset_counters() -> None:
@@ -2446,8 +2423,8 @@ def _build_probe(records: dict, expected: dict):
 
     saved = run.build_model
 
-    def build_model(cfg, device):
-        model = saved(cfg, device)
+    def build_model(cfg, device, *args, **kwargs):
+        model = saved(cfg, device, *args, **kwargs)
         sd = model.state_dict()
         records.update({
             "ported_keys": len(expected),
@@ -2873,6 +2850,287 @@ def _check_http(sm, x: torch.Tensor) -> dict:
                       and r["ok"] and top_ok and not thread.is_alive())}
     emit(out)
     return out
+
+
+# --- the parallel modes ------------------------------------------------------------
+
+# Ranks of the parallel phase: every rank a process on the one card, over
+# gloo (NCCL refuses two ranks on one card); the NCCL leg is one rank.
+PARALLEL_WORLD = 4
+PARALLEL_SERVE_WORLD = 2
+PARALLEL_FP32_LAYOUTS = {"dp_tp": {"n_data": 2, "n_model": 2},
+                         "dp_sp": {"n_data": 2, "n_seq": 2},
+                         "dp_pp": {"n_data": 2, "n_pipe": 2, "pipe_microbatches": 2}}
+PARALLEL_BF16_LAYOUTS = {"dp_tp": {"n_data": 2, "n_model": 2},
+                         "dp_sp": {"n_data": 2, "n_seq": 2},
+                         "pp4": {"n_pipe": 4, "pipe_microbatches": 4}}
+PARALLEL_FP32_BATCH = 4
+PARALLEL_DROP_RATE = 0.1  # the pipe layout's fp32 check runs with drop path
+PARALLEL_LOGITS_DEPTH = 24  # the TP=2 fp32 forward
+PARALLEL_RUN_SPLITS = {"train": 24, "val": 24}  # 2 steps at B=12 (n_data 1), one val batch
+PARALLEL_SERVE_BATCH = 8
+
+
+def _expected_parallel_launches(layout: dict, depth: int, m: int = 1) -> dict:
+    """One bf16 train step's launches on one rank (Fo-Bi, split remat): the
+    dual scan and K2 on both directions per layer, the conv four times, or
+    under 'seq' two single-direction scans with carried state per
+    direction, both differentiated by K2's with_state form; a pipe stage
+    runs its depth/P layers once per microbatch."""
+    layers = depth // layout.get("n_pipe", 1) * m
+    if layout.get("n_seq", 1) > 1:
+        scans = 4 * layers
+        return _launches(selective_scan_fwd=scans, selective_scan_fwd_save_states=scans,
+                         selective_scan_fwd_with_state=scans, selective_scan_bwd=scans,
+                         selective_scan_bwd_with_state=scans, causal_conv1d_fwd=4 * layers)
+    return _launches(selective_scan_dual_fwd=layers, selective_scan_dual_fwd_save_states=layers,
+                     selective_scan_bwd=layers, causal_conv1d_fwd=4 * layers)
+
+
+def _parallel_config(aum_type: str = "Fo-Bi", **overrides) -> dict:
+    import dataclasses
+
+    from aum_tpu_torch.entry import flagship_config
+
+    return dataclasses.asdict(flagship_config(aum_type, **overrides))
+
+
+def _fp32_references(x, y, hp: dict) -> dict:
+    """Each fp32 leg (``_fp32_legs``) in this process on the card: the
+    one-process run that the parallel run is held to, and the initial
+    parameters of the stepped ones."""
+    from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
+    from aum_tpu_torch.parallel.checks import train_leg
+
+    refs = {}
+    for name, (cfg_kw, _) in _fp32_legs().items():
+        if name == "tp_logits_d24":
+            refs[name] = train_leg({}, cfg_kw, 0, x, y, hp, steps=0, device="cuda", grads=False)
+            continue
+        refs[name] = train_leg({}, cfg_kw, 0, x, y, hp, steps=1, device="cuda", logits=False)
+        refs[name]["before"] = {k: v.detach().float() for k, v in AudioMamba(
+            AudioMambaConfig(**cfg_kw), device="cpu", seed=0).state_dict().items()}
+    return refs
+
+
+def _fp32_parallel_checks(par: dict, refs: dict) -> dict:
+    """Each fp32 layout's step (4 ranks) against the same step in one
+    process on the card: the loss within TRAIN_FP32_TOL's 1e-4 relative,
+    every parameter's grad (the mixers' and the replicated leaves': patch
+    and position embeddings, cls token, final norm, head) within 1e-3 of
+    its max-abs, every parameter's update within 1e-2 of the one-process
+    update; the TP=2 depth-24 logits within 2e-3 + 2e-3·|ref|."""
+    import numpy as np
+
+    out = {}
+    for name, (cfg_kw, _) in _fp32_legs().items():
+        ref, got = refs[name], par[name]
+        if name == "tp_logits_d24":
+            want = torch.from_numpy(ref["logits"])
+            err = (torch.from_numpy(got["logits"]) - want).abs()
+            out[name] = {"max_abs_err": err.max().item(), "max_ref": want.abs().max().item(),
+                         "ok": bool((err <= 2e-3 + 2e-3 * want.abs()).all())}
+            continue
+        keys = sorted(ref["grads"])
+        if set(got["grads"]) != set(keys) or set(got["params"]) != set(keys):
+            raise RuntimeError(f"{name}: the gathered parameters differ from one process's")
+        grads = {k: compare_scaled(torch.from_numpy(got["grads"][k]),
+                                   torch.from_numpy(ref["grads"][k]), TRAIN_FP32_TOL["grad"])
+                 for k in keys}
+        updates = {}
+        for k in keys:
+            a, r = torch.from_numpy(got["params"][k]), torch.from_numpy(ref["params"][k])
+            err, moved = (a - r).norm().item(), (r - ref["before"][k]).norm().item()
+            updates[k] = {"err_norm": err, "update_norm": moved,
+                          "ok": moved > 0 and err <= TRAIN_FP32_TOL["update"] * moved}
+        loss_ok = abs(got["losses"][0] - ref["losses"][0]) <= TRAIN_FP32_TOL["loss_rtol"] * abs(
+            ref["losses"][0])
+        ok = (loss_ok and np.isfinite(got["losses"][0]) and all(g["ok"] for g in grads.values())
+              and all(u["ok"] for u in updates.values()))
+        worst_grad = max(keys, key=lambda k: grads[k]["scaled_err"])
+        worst_update = max(keys, key=lambda k: updates[k]["err_norm"]
+                           / max(updates[k]["update_norm"], 1e-30))
+        out[name] = {"loss": got["losses"][0], "loss_one_process": ref["losses"][0],
+                     "params_compared": len(keys),
+                     "worst_grad": grads[worst_grad]["scaled_err"], "worst_grad_param": worst_grad,
+                     "worst_update": updates[worst_update]["err_norm"]
+                     / max(updates[worst_update]["update_norm"], 1e-30),
+                     "worst_update_param": worst_update,
+                     "failed": sorted(k for k in keys
+                                      if not (grads[k]["ok"] and updates[k]["ok"])),
+                     "ok": ok}
+    return out
+
+
+def _fp32_legs() -> dict:
+    """name -> (config, layout) of the fp32 exactness legs: depth 2 Fo-Bi
+    under each layout (the pipe one with drop path), Bi-Bi under TP and
+    SP, and the TP=2 forward at depth 24."""
+    d2 = dict(dtype="float32", depth=2, remat=True, remat_mode="split")
+    legs = {f"{name}_fobi": (_parallel_config(**d2, **(
+        {"drop_path_rate": PARALLEL_DROP_RATE} if "n_pipe" in layout else {})), layout)
+        for name, layout in PARALLEL_FP32_LAYOUTS.items()}
+    for name in ("dp_tp", "dp_sp"):
+        legs[f"{name}_bibi"] = (_parallel_config("Bi-Bi", **d2), PARALLEL_FP32_LAYOUTS[name])
+    legs["tp_logits_d24"] = (_parallel_config(dtype="float32", depth=PARALLEL_LOGITS_DEPTH),
+                             PARALLEL_FP32_LAYOUTS["dp_tp"])
+    return legs
+
+
+def phase_parallel() -> dict:
+    """The parallel modes on the one card, every rank a process over gloo:
+    one spawn of 4 ranks runs (1) the fp32 exactness legs (``_fp32_legs``)
+    against this process; (2) one bf16 step each of AuM-Base Fo-Bi at full
+    width and depth (global B = 12, split remat) under data 2 x model 2,
+    data 2 x seq 2 and pipe 4, with each rank's launches (held to
+    ``_expected_parallel_launches``: under 'seq' no dual forward, the
+    single forward and K2 in their with_state forms), peak memory, the
+    bytes of each collective and the step's seconds (ranks time-sliced on
+    one card: not a scaling number); (3) ``run.main`` on as20k from WAV
+    files under --n-model 2 --n-seq 2, 2 steps and a val batch, whose
+    checkpoint restores into one process bit-equal to the gathered
+    parameters (checked on rank 0). Then 2 ranks serve a DP=2 and a TP=2
+    bundle (``predict`` at B=8 against the one-card bundle, ``SERVE_TOL``)
+    while a one-rank NCCL group runs the data x model step code; last,
+    ``entry.dryrun_multichip(4)`` at its defaults, on the card."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from aum_tpu_torch.entry import dryrun_multichip
+    from aum_tpu_torch.models import AudioMamba, AudioMambaConfig
+    from aum_tpu_torch.parallel.checks import train_leg
+    from aum_tpu_torch.parallel.launch import start
+    from aum_tpu_torch.serving import export_bundle, load_bundle
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(13)
+    x32 = torch.randn((PARALLEL_FP32_BATCH, 1024, 128), generator=g).numpy()
+    y32 = torch.nn.functional.one_hot(torch.arange(PARALLEL_FP32_BATCH) % 527, 527).float().numpy()
+    from aum_tpu_torch.entry import TRAIN_BATCH, TRAIN_HP
+
+    hp = {"lr": TRAIN_HP.lr, "weight_decay": TRAIN_HP.weight_decay, "warmup": False}
+    xb = torch.randn((TRAIN_BATCH, 1024, 128), generator=g).numpy()
+    yb = torch.nn.functional.one_hot(torch.arange(TRAIN_BATCH) % 527, 527).float().numpy()
+    legs = []
+    for name, (cfg_kw, layout) in _fp32_legs().items():
+        logits_only = name == "tp_logits_d24"
+        legs.append((name, "train_leg", dict(layout=layout, config=cfg_kw, seed=0, x=x32, y=y32,
+                                             hp=hp, steps=0 if logits_only else 1,
+                                             logits=logits_only, grads=not logits_only,
+                                             device="cuda")))
+    bf16 = _parallel_config(remat=True, remat_mode="split")
+    for name, layout in PARALLEL_BF16_LAYOUTS.items():
+        legs.append((f"bf16_{name}", "train_leg", dict(layout=layout, config=bf16, seed=0, x=xb,
+                                                       y=yb, hp=hp, steps=1, logits=False,
+                                                       grads=False, params=False, timed_steps=1,
+                                                       device="cuda")))
+    with tempfile.TemporaryDirectory() as tmp:
+        files = _write_recipe_data(tmp, "as20k/aum-base_scratch", 527, seed=7,
+                                   splits=PARALLEL_RUN_SPLITS)
+        exp_dir = os.path.join(tmp, "exp")
+        argv = ["--recipe", "as20k/aum-base_scratch", "--exp-dir", exp_dir, "--set",
+                "n_epochs=1", "--data-train", files["train"], "--data-val", files["val"],
+                "--label-csv", files["csv"], "--n-model", "2", "--n-seq", "2",
+                "--dist-backend", "gloo", "--num-workers", "2"]
+        legs.append(("runner", "run_leg", dict(
+            argv=argv, checkpoint=os.path.join(exp_dir, "models", "epoch_1"))))
+        ranks = start("aum_tpu_torch.parallel.checks:suite_leg", PARALLEL_WORLD, {"legs": legs},
+                      backend="gloo", device="cuda:0", timeout=900)
+        # The one-process references run while the ranks start and run.
+        refs = _fp32_references(x32, y32, hp)
+        cfg_kw, _ = _fp32_legs()["dp_tp_fobi"]
+        nccl_ref = train_leg({}, cfg_kw, 0, x32, y32, hp, steps=1, device="cuda", logits=False)
+        par = ranks.join()[0]
+        seconds = {"suite": time.perf_counter() - t0, "legs": par.pop("leg_seconds")}
+        runner = par.pop("runner")
+        runner_equal = runner["checkpoint_equal"]
+    fp32 = _fp32_parallel_checks(par, refs)
+    emit({"phase": "parallel_fp32", "world": PARALLEL_WORLD, "backend": "gloo",
+          "batch": PARALLEL_FP32_BATCH, "checks": fp32})
+    bf16_out = {}
+    for name, layout in PARALLEL_BF16_LAYOUTS.items():
+        got = par[f"bf16_{name}"]
+        launches = got["step_counts"][0]["launches"]
+        m = layout.get("pipe_microbatches", 4) if layout.get("n_pipe", 1) > 1 else 1
+        expected = _expected_parallel_launches(layout, bf16["depth"], m)
+        bf16_out[name] = {"layout": layout, "losses": got["losses"],
+                          "launches_per_rank": launches,
+                          "expected": {k: v for k, v in expected.items() if v},
+                          "launches_ok": launches == expected,
+                          "bytes_per_step": got["step_counts"][0]["bytes"],
+                          "peak_mem_bytes": got.get("peak_bytes"),
+                          "step_seconds_time_sliced": got["step_seconds"][0]}
+    emit({"phase": "parallel_bf16", "world": PARALLEL_WORLD, "global_batch": TRAIN_BATCH,
+          "note": "4 ranks time-sliced on one card over gloo: not a scaling number",
+          "steps": bf16_out})
+    emit({"phase": "parallel_runner", "argv": argv[4:], "history": runner["result"],
+          "launches_per_run": runner["counts"]["launches"], "bytes": runner["counts"]["bytes"],
+          "seconds": runner["seconds"], "saves_per_rank": runner["saves_per_rank"],
+          "checkpoint_keys": runner["checkpoint_keys"],
+          "checkpoint_restore_bit_equal": runner_equal})
+
+    # Serving on 2 ranks (a DP=2 and a TP=2 bundle against the one-card one)
+    # and a one-rank NCCL group running the data x model step code (the
+    # fp32 Fo-Bi depth-2 leg), side by side.
+    t1 = time.perf_counter()
+    cfg_serve = _parallel_config()
+    xs = torch.randn((PARALLEL_SERVE_BATCH, 1024, 128), generator=g).numpy()
+    serve_ranks = start("aum_tpu_torch.parallel.checks:serve_leg", PARALLEL_SERVE_WORLD,
+                        dict(config=cfg_serve, seed=0, x=xs, batch_sizes=(PARALLEL_SERVE_BATCH,),
+                             device="cuda:0"), backend="gloo", device="cuda:0", timeout=600)
+    nccl_rank = start("aum_tpu_torch.parallel.checks:train_leg", 1,
+                      dict(layout={"n_data": 1, "n_model": 1}, config=cfg_kw, seed=0, x=x32,
+                           y=y32, hp=hp, steps=1, logits=False, device="cuda:0"),
+                      backend="nccl", device="cuda:0", timeout=600)
+    one = AudioMamba(AudioMambaConfig(**cfg_serve), device="cuda", seed=0)
+    want = load_bundle(export_bundle(one, audio_length=1024, melbins=128,
+                                     batch_sizes=(PARALLEL_SERVE_BATCH,)), "cuda").predict(xs)
+    want = want.float().cpu()
+    del one
+    served = serve_ranks.join()[0]
+    serve = []
+    for s in served:
+        err = (torch.from_numpy(s["logits"]) - want).abs().max().item()
+        scale = want.abs().max().item()
+        serve.append({**s["manifest"], "max_abs_err": err, "max_ref": scale,
+                      "tol": SERVE_TOL["bfloat16"], "launches": s["counts"]["launches"],
+                      "bytes": s["counts"]["bytes"],
+                      "ok": err <= SERVE_TOL["bfloat16"] * scale})
+    emit({"phase": "parallel_serving", "batch": PARALLEL_SERVE_BATCH, "bundles": serve})
+
+    nccl = nccl_rank.join()[0]
+    seconds["serving_and_nccl"] = time.perf_counter() - t1
+    nccl_ok = (abs(nccl["losses"][0] - nccl_ref["losses"][0])
+               <= TRAIN_FP32_TOL["loss_rtol"] * abs(nccl_ref["losses"][0])
+               and nccl["grad_counts"]["bytes"].get("tp_x_dbl", 0) > 0
+               and nccl["grad_counts"]["bytes"].get("dp_grads", 0) > 0)
+    emit({"phase": "parallel_nccl", "world": 1, "loss": nccl["losses"][0],
+          "loss_one_process": nccl_ref["losses"][0], "bytes": nccl["grad_counts"]["bytes"],
+          "ok": nccl_ok})
+
+    # The dry-run entry point at its defaults: 4 ranks sharing the card.
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        dry = dryrun_multichip(PARALLEL_WORLD)
+    seconds["dryrun"] = time.perf_counter() - t2
+    dry_ok = (dry["device"].startswith("cuda") and np.isfinite(dry["loss"])
+              and dry["launches"]["selective_scan_fwd_with_state"] > 0
+              and dry["launches"]["causal_conv1d_fwd"] > 0)
+    emit({"phase": "parallel_dryrun", "summary": printed.getvalue().strip(),
+          "device": dry["device"], "launches": {k: v for k, v in dry["launches"].items() if v},
+          "seconds": seconds["dryrun"], "ok": dry_ok})
+    seconds["phase"] = time.perf_counter() - t0
+    ok = (all(c["ok"] for c in fp32.values())
+          and all(b["launches_ok"] and all(np.isfinite(b["losses"])) for b in bf16_out.values())
+          and runner_equal and all(np.isfinite(h["train_loss"]) for h in runner["result"])
+          and all(s["ok"] for s in serve) and nccl_ok and dry_ok)
+    emit({"phase": "parallel", "seconds": seconds["phase"], "by_part": seconds, "ok": ok})
+    if not ok:
+        raise RuntimeError("parallel phase: a layout disagrees with one process, launched other "
+                           "kernels than expected, or a leg failed (see the lines above)")
+    return {"bf16": bf16_out, "runner": runner["counts"]["launches"]}
 
 
 def phase_bench(device_info: dict) -> dict:
@@ -3509,6 +3767,7 @@ def main() -> int:
         porters = timed("porters", phase_porters)
         ast = timed("ast", phase_ast)
         serving = timed("serving", phase_serving)
+        parallel = timed("parallel", phase_parallel)
         bench = timed("bench", phase_bench, device_info)
         timed("profile", phase_profile)
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
@@ -3605,13 +3864,18 @@ def main() -> int:
         "selective_scan_bwd", bwd["source"], bwd["replaces"],
         fofo_launches["selective_scan_bwd"], worst["selective_scan_bwd"],
         bench["scan_bwd_one_direction"])
-    # Its with_state form, which no entry path runs yet (the LM prefill and
-    # sequence parallelism); the chained-segment kernel check runs it through
-    # selective_scan under autograd.
+    # Its with_state form, on its entry path: sequence parallelism's train
+    # step (one rank's launches; the chained-segment kernel check also runs
+    # it through selective_scan under autograd).
+    sp_step = parallel["bf16"]["dp_sp"]["launches_per_rank"]
     bwd["with_state"] = _kernel_entry(
         "selective_scan_bwd", bwd["source"], "aum_tpu/ops/selective_scan.py:392 (with_state)",
-        train_launches["selective_scan_bwd_with_state"],
+        sp_step["selective_scan_bwd_with_state"],
         worst["selective_scan_bwd_with_state"], bench["scan_bwd_with_state"])
+    bwd["with_state"]["launches_by_path"] = {
+        "train": train_launches["selective_scan_bwd_with_state"],
+        "parallel_dp_sp_train_step": sp_step["selective_scan_bwd_with_state"],
+        "parallel_runner_tp_sp_run": parallel["runner"]["selective_scan_bwd_with_state"]}
     # AUM_SCAN_BWD_FUSED=1: train_entry() (both directions per launch) and
     # the Fo-Fo train check (one direction) run the fused kernel.
     fused = _kernel_entry(
@@ -3694,6 +3958,22 @@ def main() -> int:
             "bundle_predict_int8_b64": bundles["bfloat16_int8"]["launches_b64"][counter]})
     single["launches_by_path"]["lm_prefill_with_state"] = (
         lm["prefill_launches"]["selective_scan_fwd_with_state"])
+    single["with_state"]["launches_by_path"] = {
+        "lm_prefill": lm["prefill_launches"]["selective_scan_fwd_with_state"],
+        "parallel_dp_sp_train_step": sp_step["selective_scan_fwd_with_state"],
+        "parallel_runner_tp_sp_run": parallel["runner"]["selective_scan_fwd_with_state"]}
+    # The parallel modes: one rank's launches in one bf16 train step of each
+    # layout, and in the runner's whole run (2 steps and a val batch).
+    for entry, counter in ((scan, "selective_scan_dual_fwd"),
+                           (direct, "selective_scan_dual_direct_fwd"),
+                           (fdt, "selective_scan_dual_fdt_fwd"),
+                           (stage, "selective_scan_dual_stage_fwd"),
+                           (single, "selective_scan_fwd"), (bwd, "selective_scan_bwd"),
+                           (fused, "selective_scan_bwd_fused"), (conv, "causal_conv1d_fwd")):
+        for name, step in parallel["bf16"].items():
+            entry["launches_by_path"][f"parallel_{name}_train_step"] = (
+                step["launches_per_rank"][counter])
+        entry["launches_by_path"]["parallel_runner_tp_sp_run"] = parallel["runner"][counter]
     # The three kernels of the flexible-patch recipe, timed at its longest
     # and shortest token counts.
     for entry, key in ((scan["save_states"], "scan_save"), (bwd, "scan_bwd"), (conv, "conv")):

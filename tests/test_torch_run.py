@@ -332,12 +332,19 @@ def test_run_main_train_eval_wa_ensemble(spc_like_data, tmp_path, capsys):  # no
 @pytest.mark.parametrize("extra", [["--n-model", "2"], ["--n-seq", "2"], ["--n-pipe", "2"],
                                    ["--multihost", "on"]],
                          ids=["n_model", "n_seq", "n_pipe", "multihost"])
-def test_run_main_raises_on_unported_options(tmp_path, extra):
+def test_run_main_raises_on_unported_options(tmp_path, monkeypatch, extra):
+    """The parallel options are ported: in one process without a rendezvous
+    each raises before anything is written. A mesh axis of 2 does not cover
+    the world of one process (the mesh's ValueError, as JAX's ``make_mesh``
+    asserts); ``--multihost on`` finds no torchrun environment to start
+    from. ``tests/test_torch_parallel.py`` runs them on several ranks."""
     from aum_tpu_torch.run import main
 
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     argv = ["--recipe", "as20k/aum-base_scratch", "--exp-dir", str(tmp_path), "--device", "cpu",
             "--label-csv", "labels.csv"] + extra
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8: parallel"):
+    match = "MASTER_ADDR" if extra[0] == "--multihost" else "does not cover the world of 1"
+    with pytest.raises(ValueError, match=match):
         main(argv)
     assert not os.listdir(tmp_path)
 

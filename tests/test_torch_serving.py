@@ -15,7 +15,8 @@ compile); the port's bundles take the same weights through
 Also ``predict_scores`` (a sigmoid), the HTTP server on 127.0.0.1 (port 0),
 an AST bundle (nothing quantized, as in JAX), ``python -m
 aum_tpu_torch.serving export`` from a reference ``.pth``, the request-shape
-check, and the multi-device arguments refused (queue 1 item 8). torch is
+check, and the multi-device arguments in one process (a one-rank mesh is
+recorded; a larger one cannot be built). torch is
 imported inside the tests, as in the other port test modules.
 """
 
@@ -235,14 +236,27 @@ def test_serving_main_exports_a_pth_and_serve_rejects_parallel(tmp_path, capsys)
         want = donor(torch.from_numpy(x)).numpy()
     got = sm.predict(x).numpy()
     assert np.max(np.abs(got - want)) < 0.35 * max(1.0, np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+    # A tensor-parallel export needs a model axis of 2: one process has no such mesh.
+    with pytest.raises(ValueError, match="does not cover the world of 1"):
         main(argv[:-2] + ["--n-model", "2"])
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"model_axis": "model"}],
+@pytest.mark.parametrize("kw", [{"mesh": True}, {"model_axis": "model"}],
                          ids=["mesh", "model_axis"])
 def test_multi_device_export_names_item_8(tiny, kw):
-    from aum_tpu_torch.serving import export_bundle
+    """Multi-device export is ported (``tests/test_torch_parallel.py`` serves
+    on two ranks). In one process: the one-rank mesh is recorded; a mesh of
+    2 model ranks cannot be built (the mesh's ValueError, as JAX's
+    ``make_mesh``); ``model_axis`` without a mesh axis larger than 1 is no
+    tensor parallelism, as in JAX, so int8 is allowed with it."""
+    from aum_tpu_torch.parallel import make_mesh
+    from aum_tpu_torch.serving import export_bundle, load_bundle
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        export_bundle(tiny[1], audio_length=64, melbins=32, **kw)
+    if "mesh" in kw:
+        kw = {"mesh": make_mesh()}
+        with pytest.raises(ValueError, match="does not cover the world of 1"):
+            make_mesh(n_model=2)
+    blob = export_bundle(tiny[1], audio_length=64, melbins=32, weight_quant="int8", **kw)
+    m = load_bundle(blob, device="cpu").manifest
+    assert m["n_devices"] == 1 and m["model_axis"] is None
+    assert m["mesh_shape"] == ({"data": 1, "model": 1} if "mesh" in kw else None)
