@@ -4,7 +4,20 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// AUM_SCAN_GATED=0 builds a scan library's ungated form (ops/_build.py
+// names it "<source>_sliced"): every kernel of the source as it is, but a
+// forward writes the fp32 partial sum_n C_t[n] x_t[n] of its states with no
+// D u and no SiLU(z) gate, and a backward writes fp32 du and ddelta
+// partials with no D terms and no dz (scan_combine.cu sums the partials of
+// a scan's slices of 16 states and applies D and the gate). The default
+// build (1) is the gated form, unchanged.
+#ifndef AUM_SCAN_GATED
+#define AUM_SCAN_GATED 1
+#endif
+
 namespace aum {
+
+constexpr bool kGated = AUM_SCAN_GATED != 0;
 
 template <typename T>
 __device__ __forceinline__ float to_float(T v);

@@ -2,7 +2,8 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel aum_tpu/ops/conv1d.py:_conv_kernel. Weights are
-// (D, K), K = 4 (the mixer's width, the only one built), with tap k
+// (D, K), any width K from 1 to kMaxK = 8 (a template: each K is its own
+// instantiation; the mixers' 4 is as it was), with tap k
 // multiplying x[t - (K-1) + k] (causal); reverse = 1 is the anti-causal form
 // out[t] = sum_i x[t + i] * w[K-1-i], i.e. flip -> causal conv -> flip.
 // Out-of-range inputs are zeros (the halo). The taps and the bias are read
@@ -21,6 +22,9 @@
 // as the rest of the kernel on an H100, which the SFU's two instructions
 // do not.
 //
+// The bytes do not grow with K (the K-1 halo rows of a tile are read again,
+// (K-1) / kTileL of a read), the operations do (2K per element).
+//
 // Design: a thread owns kVec = 8 neighbouring channels over a tile of kTileL
 // steps (grid = (ceil(D / (8 kThreads)), ceil(L / kTileL), batch)). It
 // slides a K-row window of its 8 channels through registers (fp32), with the
@@ -31,6 +35,9 @@
 // bytes a thread) issued together before any of them is used, so each
 // thread keeps several loads in flight; 16 warps per SM (a 128-register
 // cap) cover the memory's latency without staging through shared memory.
+// Above K = 4 the taps and the window (2K - 1 rows of 8 fp32 values) take
+// more registers than that cap leaves, so those widths run 8 warps per SM
+// with a cap of 255.
 // Where x's base, its row or batch stride, or D (not a multiple of 8) breaks
 // 16-byte alignment, the same kernel, in its scalar form, reads and writes
 // the 8 channels value by value.
@@ -51,10 +58,12 @@ struct ConvArgs {
 namespace {
 
 constexpr int kThreads = 64;
-constexpr int kMinBlocks = 8;  // 16 warps per SM: at most 128 registers a thread
+// 16 warps per SM (at most 128 registers a thread) up to K = 4, 8 above.
+template <int K>
+constexpr int kMinBlocks = K <= 4 ? 8 : 4;
 constexpr int kVec = 8;        // channels per thread
 constexpr int kTileL = 32;     // steps per tile
-constexpr int K = 4;           // the model's conv width; the only one built
+constexpr int kMaxK = 8;       // the widest conv built
 
 // Rows loaded together: 128 bytes a thread.
 template <typename T>
@@ -159,9 +168,9 @@ __device__ __forceinline__ float param(const void* p, int dtype, long long i) {
 }
 
 // kVector: every row of x and out is read and written as 16-byte vectors
-// (the host checked the alignment); else value by value.
-template <typename T, bool kReverse, bool kVector>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// (the host checked the alignment); else value by value. K: the width.
+template <typename T, bool kReverse, bool kVector, int K = 4>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
 conv1d_fwd_kernel(const ConvArgs a, int seqlen, int dim, int silu) {
   const int c0 = (blockIdx.x * kThreads + threadIdx.x) * kVec;
   if (c0 >= dim) return;
@@ -188,7 +197,7 @@ conv1d_fwd_kernel(const ConvArgs a, int seqlen, int dim, int silu) {
   // (anti-causal: the tile walked backwards); win[i] holds processed step
   // p - (K-1) + i before step p, zeros outside the sequence.
   auto step_of = [&](int p) { return kReverse ? t0 + n - 1 - p : t0 + p; };
-  float win[K - 1][kVec];
+  float win[K > 1 ? K - 1 : 1][kVec];
 #pragma unroll
   for (int i = 0; i < K - 1; ++i) {
     const int t = step_of(i - (K - 1));
@@ -218,6 +227,8 @@ conv1d_fwd_kernel(const ConvArgs a, int seqlen, int dim, int silu) {
             acc = cur[c] * w[K - 1][c];
 #pragma unroll
             for (int k = K - 2; k >= 0; --k) acc += win[k][c] * w[k][c];
+          } else if constexpr (K == 1) {
+            acc = cur[c] * w[0][c];
           } else {
             acc = win[0][c] * w[0][c];
 #pragma unroll
@@ -228,28 +239,30 @@ conv1d_fwd_kernel(const ConvArgs a, int seqlen, int dim, int silu) {
           y[c] = silu ? aum::silu_fast(acc) : acc;
         }
         store_row(out + static_cast<long long>(step_of(g0 + j)) * dim, y, nc, kVector);
+        if constexpr (K > 1) {
 #pragma unroll
-        for (int c = 0; c < kVec; ++c) {
+          for (int c = 0; c < kVec; ++c) {
 #pragma unroll
-          for (int i = 0; i + 1 < K - 1; ++i) win[i][c] = win[i + 1][c];
-          win[K - 2][c] = cur[c];
+            for (int i = 0; i + 1 < K - 1; ++i) win[i][c] = win[i + 1][c];
+            win[K - 2][c] = cur[c];
+          }
         }
       }
     }
   }
 }
 
-template <typename T, bool kReverse>
+template <typename T, bool kReverse, int K>
 void launch_dir(const ConvArgs& a, bool vector, dim3 grid, int seqlen, int dim, int silu,
                 cudaStream_t s) {
   if (vector) {
-    conv1d_fwd_kernel<T, kReverse, true><<<grid, kThreads, 0, s>>>(a, seqlen, dim, silu);
+    conv1d_fwd_kernel<T, kReverse, true, K><<<grid, kThreads, 0, s>>>(a, seqlen, dim, silu);
   } else {
-    conv1d_fwd_kernel<T, kReverse, false><<<grid, kThreads, 0, s>>>(a, seqlen, dim, silu);
+    conv1d_fwd_kernel<T, kReverse, false, K><<<grid, kThreads, 0, s>>>(a, seqlen, dim, silu);
   }
 }
 
-template <typename T>
+template <typename T, int K>
 int launch(const ConvArgs& a, int batch, int seqlen, int dim, int reverse, int silu,
            cudaStream_t s) {
   const long long per16 = 16 / sizeof(T);  // elements per 16 bytes
@@ -259,11 +272,22 @@ int launch(const ConvArgs& a, int batch, int seqlen, int dim, int reverse, int s
   const dim3 grid((threads_per_row + kThreads - 1) / kThreads, (seqlen + kTileL - 1) / kTileL,
                   batch);
   if (reverse) {
-    launch_dir<T, true>(a, vector, grid, seqlen, dim, silu, s);
+    launch_dir<T, true, K>(a, vector, grid, seqlen, dim, silu, s);
   } else {
-    launch_dir<T, false>(a, vector, grid, seqlen, dim, silu, s);
+    launch_dir<T, false, K>(a, vector, grid, seqlen, dim, silu, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of width `width` (1 .. kMaxK).
+template <typename T, int K = kMaxK>
+int launch_width(const ConvArgs& a, int width, int batch, int seqlen, int dim, int reverse,
+                 int silu, cudaStream_t s) {
+  if (width == K) return launch<T, K>(a, batch, seqlen, dim, reverse, silu, s);
+  if constexpr (K > 1) {
+    return launch_width<T, K - 1>(a, width, batch, seqlen, dim, reverse, silu, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -274,6 +298,7 @@ extern "C" {
 // per tile (the edges the card checks are sized from).
 int aum_conv_channels_per_thread() { return kVec; }
 int aum_conv_tile_steps() { return kTileL; }
+int aum_conv_max_width() { return kMaxK; }
 
 // The resources of the i-th kernel instantiation (aum_kernel_resources in
 // common.cuh: info[0..5]) and its name; 0 on success, a CUDA error, or -1
@@ -293,23 +318,32 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_KERNEL(conv1d_fwd_kernel<float, true, true>)
   AUM_KERNEL(conv1d_fwd_kernel<float, false, false>)
   AUM_KERNEL(conv1d_fwd_kernel<float, true, false>)
+  // The other widths, causal, vectorised (the rows above are width 4's).
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, true, 1>)
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, true, 2>)
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, true, 3>)
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, true, 5>)
+  AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, true, 8>)
+  AUM_KERNEL(conv1d_fwd_kernel<float, false, true, 8>)
 #undef AUM_KERNEL
   return -1;
 }
 
-// dtype: 0 = fp32, 1 = bf16 (x and out); width must be 4; the args' w_dtype
-// and b_dtype 0 or 1. Returns cudaGetLastError() after the launch (0 on
-// success); a refused launch never runs.
+// dtype: 0 = fp32, 1 = bf16 (x and out); width 1 .. kMaxK; the args'
+// w_dtype and b_dtype 0 or 1. Returns cudaGetLastError() after the launch (0
+// on success); a refused launch never runs.
 int aum_causal_conv1d_fwd(const ConvArgs* args, int batch, int seqlen, int dim,
                           int width, int reverse, int silu, int dtype,
                           void* stream) {
-  if (batch < 1 || seqlen < 1 || dim < 1 || width != K || args->w_dtype < 0 ||
+  if (batch < 1 || seqlen < 1 || dim < 1 || width < 1 || width > kMaxK || args->w_dtype < 0 ||
       args->w_dtype > 1 || args->b_dtype < 0 || args->b_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(*args, batch, seqlen, dim, reverse, silu, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(*args, batch, seqlen, dim, reverse, silu, s);
+  if (dtype == 0) return launch_width<float>(*args, width, batch, seqlen, dim, reverse, silu, s);
+  if (dtype == 1) {
+    return launch_width<__nv_bfloat16>(*args, width, batch, seqlen, dim, reverse, silu, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

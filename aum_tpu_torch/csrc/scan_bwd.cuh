@@ -3,6 +3,18 @@
 // adjoint steps, and the warp-level sums. selective_scan_bwd.cu recomputes
 // a chunk's states on two levels; selective_scan_bwd_fused.cu once. See each
 // source for its design.
+//
+// Both sources also build ungated (AUM_SCAN_GATED=0, common.cuh), the
+// backward of one slice of 16 states of a scan with N > 16 (or without z or
+// D; selective_scan.cu says how a scan is sliced). A slice's kernel reads
+// the same streams (z null: no gate, gy = g) and A, B, C, xb of its own
+// states, forms gy = g silu(z) itself, and writes fp32 partials of du (the
+// lam B dt term alone: D's term is the combine's) and ddelta (through the
+// softplus factor, which is linear in ddt), with z its partial y_t (the sum
+// over its states, in the dz slot), its dA rows, its dB/dC columns
+// (disjoint per slice) and in the with_state form the grad of its states of
+// x0; no dz, dD or dbias, which need the whole y or the summed ddelta
+// (scan_combine.cu's backward forms them).
 #pragma once
 
 #include "common.cuh"
@@ -18,10 +30,12 @@ struct ScanBwdDir {
   const float* A;      // (D, N) fp32, contiguous
   const float* Dskip;  // (D,) fp32
   const void* g;       // cotangent of out
+                       // (z may be null in the ungated build: no gate)
   const float* xb;     // (batch, ceil(L / kChunk), N, D) fp32 entry states
-  void* du;            // (batch, L, D), contiguous, stream dtype
-  void* ddelta;        // (batch, L, D), contiguous, stream dtype
-  void* dz;            // (batch, L, D), contiguous, stream dtype
+  void* du;            // (batch, L, D), contiguous, stream dtype (fp32 partials ungated)
+  void* ddelta;        // (batch, L, D), contiguous, stream dtype (fp32 partials ungated)
+  void* dz;            // (batch, L, D), contiguous, stream dtype (ungated: fp32 y partials
+                       // with z; null without)
   float* dA_part;      // (batch, N, D)
   float* dD_part;      // (batch, D)
   float* dbias_part;   // (batch, D)
@@ -140,11 +154,13 @@ struct OwnSteps {
 // The TPU kernel's two modes differ only in where dBu = (dt u) B is formed
 // (staged in the chunk's prologue, or again in its epilogue): the same fp32
 // products, so one form serves both.
+// gate: whether gy = g silu(z) or (the ungated build without z) gy = g;
+// the gated build always gates.
 template <bool kXminus = false, typename Row, typename Prev>
 __device__ __forceinline__ float adjoint_from(
     int j, const float (&a)[kNL], Prev xprev, Row bt, Row ct, const float (&A)[kNL],
     float (&lam)[kNL], float (&dA)[kNL], float& dD, OwnSteps& own, float dtv, float uv,
-    float zv, float gv, float dskip, int lane) {
+    float zv, float gv, float dskip, int lane, bool gate = true) {
   const float dtu = dtv * uv;
   float xt[kNL];
   float y = 0.0f;
@@ -153,7 +169,7 @@ __device__ __forceinline__ float adjoint_from(
     xt[k] = a[k] * xprev[k] + dtu * bt[k];
     y += ct[k] * xt[k];
   }
-  const float gy = gv * zv * aum::sigmoid_fast(zv);
+  const float gy = aum::kGated || gate ? gv * zv * aum::sigmoid_fast(zv) : gv;
   dD += gy * uv;
 
   float v[2 * kNL];
@@ -199,22 +215,24 @@ template <bool kXminus = false, typename Row>
 __device__ __forceinline__ float adjoint_step(
     int j, const float* xprev, int xstride, Row bt, Row ct,
     const float (&A)[kNL], float (&lam)[kNL], float (&dA)[kNL], float& dD, OwnSteps& own,
-    float dtv, float uv, float zv, float gv, float dskip, int lane) {
+    float dtv, float uv, float zv, float gv, float dskip, int lane, bool gate = true) {
   const float dtl = dtv * kLog2e;
   float a[kNL];
 #pragma unroll
   for (int k = 0; k < kNL; ++k) a[k] = aum::exp2_sfu(dtl * A[k]);
   return adjoint_from<kXminus>(j, a, Strided{xprev, xstride}, bt, ct, A, lam, dA, dD, own,
-                               dtv, uv, zv, gv, dskip, lane);
+                               dtv, uv, zv, gv, dskip, lane, gate);
 }
 
 // This lane's share of a sub-chunk's du, ddelta and dz (its steps j = r *
 // kGroup + q, j < slen, at processed index i0 + j), and their ddelta in
 // dbias. streams(j, dt, u, z, g) gives step j's per-step streams.
 // kSoftplus: dt came through the softplus (ddelta = ddt (1 - exp(-dt))).
-template <typename T, bool kSoftplus, typename StepStreams>
+// The ungated build (Out = float) writes the fp32 du and ddelta partials
+// alone (see the top of this file).
+template <typename T, bool kSoftplus, typename StepStreams, typename Out>
 __device__ __forceinline__ void write_own(
-    const OwnSteps& own, StepStreams streams, T* du, T* ddelta, T* dz, int i0, int slen,
+    const OwnSteps& own, StepStreams streams, Out* du, Out* ddelta, Out* dz, int i0, int slen,
     int seqlen, bool reverse, int dim, float dskip, bool active, int q, float& dbias) {
 #pragma unroll
   for (int r = 0; r < kOwn; ++r) {
@@ -228,11 +246,17 @@ __device__ __forceinline__ void write_own(
     // sigmoid(delta + bias) = 1 - exp(-dt), in the plain version's form
     const float dd = kSoftplus ? own.ddt[r] * (1.0f - aum::exp2_sfu(-dtv * kLog2e))
                                : own.ddt[r];
-    dbias += dd;
     const long long o = static_cast<long long>(t) * dim;
-    du[o] = aum::from_float<T>(gy * dskip + own.gdtu[r] * dtv);
-    ddelta[o] = aum::from_float<T>(dd);
-    dz[o] = aum::from_float<T>(gv * own.yd[r] * (sig * (1.0f + zv * (1.0f - sig))));
+    if constexpr (aum::kGated) {
+      dbias += dd;
+      du[o] = aum::from_float<T>(gy * dskip + own.gdtu[r] * dtv);
+      ddelta[o] = aum::from_float<T>(dd);
+      dz[o] = aum::from_float<T>(gv * own.yd[r] * (sig * (1.0f + zv * (1.0f - sig))));
+    } else {
+      du[o] = own.gdtu[r] * dtv;
+      ddelta[o] = dd;
+      if (dz != nullptr) dz[o] = own.yd[r];  // y_t of the slice (no D term ungated)
+    }
   }
 }
 

@@ -98,7 +98,30 @@
 // the default kernel's time on an H100 at the Fo-Bi bench shapes, the walk
 // itself as fast as the default's: each tile's loads, products and softplus
 // came on top. Hence the operands in shared memory, read as ldmatrix
-// fragments, and the SFU softplus.
+// fragments, and the SFU softplus. Any dt rank up to kMaxRank (400) runs:
+// the product loops over the rank in mma k-steps of 16 (zeros past it), and
+// the W slice and the dtr ring are sized by the rank (dynamic shared
+// memory, opted into above 48 KB), up to the 227 KB a block can hold in
+// bf16. In fp32 the W slice and the ring together pass that at rank 209, and
+// a lane reads only its own channel's W row: from there on (kWGlobal) W
+// stays in global memory, each lane reading its row through L1, and only
+// the ring is staged.
+//
+// State sizes above 16 (any N, as the TPU kernels pad N to a multiple of 8
+// and sum over it): the recurrence is independent per state, so the
+// wrapper runs N as slices of kMaxN states (the last one ragged, masked as
+// N < 16 is), each a launch of the same kernel from this source built
+// ungated (AUM_SCAN_GATED=0, common.cuh: the library "selective_scan_sliced")
+// on its own columns of B and C, its rows of A and its own saved and
+// carried states. The ungated build writes the fp32 partial y_t = sum_n
+// C_t[n] x_t[n] of its slice to an fp32 out and reads neither z nor D;
+// scan_combine.cu sums the slices' partials in fp32, adds D u, applies the
+// gate and rounds once, as the TPU kernel sums over its padded N in fp32 and
+// casts once. Slices were chosen over several 16-state groups on one chain
+// (lanes summing y by shuffles): they keep every walk, its registers and
+// the backward's 4-lane layout as they are, and the gated build, which
+// every N <= 16 takes, is this source unchanged. A scan without z (or D)
+// takes the ungated build at any N, and the combine skips the gate.
 
 #include <cstdint>
 #include <type_traits>
@@ -115,8 +138,8 @@ struct ScanDir {
   const void* B;
   const void* C;
   const float* A;      // (D, N) fp32, contiguous
-  const float* Dskip;  // (D,) fp32
-  void* out;           // (batch, L, D), contiguous, u's dtype
+  const float* Dskip;  // (D,) fp32; unread (may be null) in the ungated build, as is z
+  void* out;           // (batch, L, D), contiguous, u's dtype (fp32 partials ungated)
   float* xb;           // (batch, ceil(L / kChunk), N, D) fp32, or null
   const float* x0;     // (batch, N, D) fp32 starting state, or null (zero)
   float* xfin;         // (batch, N, D) fp32 final state, or null
@@ -154,7 +177,7 @@ constexpr float kLog2eBf16 = 1.4453125f;  // log2 e rounded to bf16 (the stage f
 constexpr int kWarpSize = 32;
 constexpr int kWarps = kThreads / kWarpSize;
 constexpr int kDtRows = 16;    // steps per dt tile of the fuse_dt form: one mma's rows
-constexpr int kMaxRank = 64;   // the fuse_dt form's largest dt rank
+constexpr int kMaxRank = 400;  // the fuse_dt form's largest dt rank (shared memory, bf16)
 // The fuse_dt form's ring of staged dtr rows: two windows of kChunk steps;
 // processed step i sits in slot (i - kDtrLead) mod kDtrSlots, so that the
 // window staged at the start of chunk c (steps c + kChunk + kDtrLead on)
@@ -221,10 +244,28 @@ constexpr int kFdtStaticSmem =
     (2 * kChunk * kMaxN + kWarps * kDtRows * (kWarpSize + 1) + kThreads) * sizeof(float);
 // The most shared memory (static and dynamic) a block takes without opting in.
 constexpr int kDefaultSmem = 48 * 1024;
+// The most a block can hold on an H100 (227 KB), opted in.
+constexpr int kMaxSmem = 232448;
+// Whether the fp32 form keeps W in global memory at `rank` (the W slice
+// and the ring would not fit in a block's shared memory together).
+constexpr bool fold_w_global(int rank, bool fp32) {
+  return fp32 && kFdtStaticSmem + fold_dyn_smem<float>(rank) > kMaxSmem;
+}
+// The fuse_dt kernel's shared memory in all (static and dynamic) at `rank`.
+constexpr int fold_smem(int rank, bool fp32) {
+  return kFdtStaticSmem +
+         (!fp32 ? fold_dyn_smem<__nv_bfloat16>(rank)
+                : fold_w_global(rank, fp32) ? kDtrSlots * fold_dtr_stride<float>(rank) * 4
+                                            : fold_dyn_smem<float>(rank));
+}
+static_assert(fold_smem(kMaxRank, false) <= kMaxSmem && fold_smem(kMaxRank, true) <= kMaxSmem,
+              "both forms take every rank up to kMaxRank");
+static_assert(fold_smem(kMaxRank + 16, false) > kMaxSmem, "kMaxRank is the largest bf16 rank");
 
 // The fuse_dt form's shared operands: the block's W slice (kThreads channel
 // rows of rank values), the dtr ring, the block's biases and each warp's dt
-// tile (+1: fewer bank conflicts).
+// tile (+1: fewer bank conflicts). With W in global memory (kWGlobal,
+// fp32), W is the calling thread's own channel's row of it and w_stride 0.
 template <typename T>
 struct Fold {
   T* W;
@@ -383,15 +424,18 @@ struct SubStreams {
 // last channel stage and compute on channel 0 but write nothing. kDirect
 // reads B/C from global memory at every step instead (s_B and s_C unused,
 // no barriers). kFdt (the fuse_dt form) reads dt from the warp's tile
-// fold->dt[warp], formed every kDtRows steps from fold's staged operands;
-// kStage rounds to bf16 where the stage form does.
+// fold->dt[warp], formed every kDtRows steps from fold's staged operands
+// (kWGlobal: W read from global memory, not staged); kStage rounds to bf16
+// where the stage form does. The ungated build (aum::kGated false) writes
+// the fp32 partial y_t and reads neither z nor D.
 template <typename T, bool kSave, bool kState, bool kDirect, bool kFdt = false,
-          bool kStage = false>
+          bool kStage = false, bool kWGlobal = false>
 __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int seqlen,
                                           int dim, int dstate, float (*s_B)[kMaxN],
                                           float (*s_C)[kMaxN],
                                           const Fold<T>* fold = nullptr) {
   static_assert(!kStage || !kFdt, "the stage form is off in the fuse_dt form");
+  using Out = std::conditional_t<aum::kGated, T, float>;
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int d = blockIdx.x * kThreads + tid;
@@ -403,7 +447,7 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
   const T* z = static_cast<const T*>(p.z) + b * p.z_sb + dc;
   const T* Bm = static_cast<const T*>(p.B) + b * p.B_sb;
   const T* Cm = static_cast<const T*>(p.C) + b * p.C_sb;
-  T* out = static_cast<T*>(p.out) + static_cast<long long>(b) * seqlen * dim + dc;
+  Out* out = static_cast<Out*>(p.out) + static_cast<long long>(b) * seqlen * dim + dc;
   const long long state_row = static_cast<long long>(b) * dstate * dim + dc;  // [b, 0, d]
 
   // a[n] = A[d, n] log2 e, so that the decay is one multiply and one exp2
@@ -416,7 +460,7 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
     a[n] = has_n ? p.A[static_cast<long long>(d) * dstate + n] * (kStage ? 1.0f : kLog2e) : 0.0f;
     x[n] = (kState && has_n) ? p.x0[state_row + static_cast<long long>(n) * dim] : 0.0f;
   }
-  const float dskip = p.Dskip[dc];
+  const float dskip = aum::kGated ? p.Dskip[dc] : 0.0f;
 
   auto step_of = [&](int i) { return reverse ? seqlen - 1 - i : i; };
   // Element steps between consecutive processed steps (negative reversed).
@@ -445,7 +489,7 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
         s.dt[j] = in ? aum::to_float(pd[j * dt_step]) : 0.0f;
       }
       s.u[j] = in ? aum::to_float(pu[j * u_step]) : 0.0f;
-      s.z[j] = in ? aum::to_float(pz[j * z_step]) : 0.0f;
+      s.z[j] = aum::kGated && in ? aum::to_float(pz[j * z_step]) : 0.0f;
     }
   };
   // The direct kernel reads B_t/C_t in 16-byte vectors where every row is
@@ -472,10 +516,12 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
     const int rank = p.rank;
     const T* wt = static_cast<const T*>(p.Wt);
     const int d0 = blockIdx.x * kThreads;
-    stage_rows<T>(
-        [&](int r) { return wt + static_cast<long long>(min(d0 + r, dim - 1)) * p.Wt_sd; },
-        [&](int r) { return fold->W + r * fold->w_stride; }, kThreads, rank,
-        sizeof(T) == 2 && whole_rows16<T>(p.Wt, rank, p.Wt_sd, 0));
+    if constexpr (!kWGlobal) {
+      stage_rows<T>(
+          [&](int r) { return wt + static_cast<long long>(min(d0 + r, dim - 1)) * p.Wt_sd; },
+          [&](int r) { return fold->W + r * fold->w_stride; }, kThreads, rank,
+          sizeof(T) == 2 && whole_rows16<T>(p.Wt, rank, p.Wt_sd, 0));
+    }
     if constexpr (sizeof(T) == 2) {
       const int pad = (rank + 15) / 16 * 16 - rank;
       for (int idx = tid; idx < (kThreads + kDtrSlots) * pad; idx += kThreads) {
@@ -570,8 +616,12 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
           y = fmaf(ct[n], x[n], y);
         }
         if (active) {
-          out[static_cast<long long>(step_of(i0 + j)) * dim] =
-              aum::from_float<T>(fmaf(dskip, cur.u[j], y) * aum::silu_fast(cur.z[j]));
+          if constexpr (aum::kGated) {
+            out[static_cast<long long>(step_of(i0 + j)) * dim] =
+                aum::from_float<T>(fmaf(dskip, cur.u[j], y) * aum::silu_fast(cur.z[j]));
+          } else {
+            out[static_cast<long long>(step_of(i0 + j)) * dim] = y;
+          }
         }
       }
     }
@@ -598,8 +648,8 @@ scan_dual_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim, 
 
 // The fuse_dt form (eval): dt formed from dtr, Wt and bias in the kernel;
 // fold_dyn_smem<T>(rank) bytes of dynamic shared memory (the larger of the
-// two directions' ranks).
-template <typename T>
+// two directions' ranks), or with kWGlobal (fp32) the ring's alone.
+template <typename T, bool kWGlobal = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocksWide)
 scan_dual_fdt_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim,
                          int dstate) {
@@ -611,19 +661,28 @@ scan_dual_fdt_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int d
   const bool reverse = blockIdx.z == 1;
   const ScanDir& p = reverse ? rev : fwd;
   T* w = reinterpret_cast<T*>(s_fold);
-  const Fold<T> fold = {w, w + kThreads * fold_w_stride<T>(p.rank), s_bias, s_dt,
-                        fold_w_stride<T>(p.rank), fold_dtr_stride<T>(p.rank)};
-  scan_walk<T, false, false, false, true>(p, reverse, seqlen, dim, dstate, s_B, s_C, &fold);
+  if constexpr (kWGlobal) {
+    const int row = min(static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x),
+                        dim - 1);
+    T* w_row = const_cast<T*>(static_cast<const T*>(p.Wt)) + static_cast<long long>(row) * p.Wt_sd;
+    const Fold<T> fold = {w_row, w, s_bias, s_dt, 0, fold_dtr_stride<T>(p.rank)};
+    scan_walk<T, false, false, false, true, false, true>(p, reverse, seqlen, dim, dstate, s_B,
+                                                         s_C, &fold);
+  } else {
+    const Fold<T> fold = {w, w + kThreads * fold_w_stride<T>(p.rank), s_bias, s_dt,
+                          fold_w_stride<T>(p.rank), fold_dtr_stride<T>(p.rank)};
+    scan_walk<T, false, false, false, true>(p, reverse, seqlen, dim, dstate, s_B, s_C, &fold);
+  }
 }
 
 // The fuse_dt kernel's dynamic shared memory at `rank`, with the kernel
 // allowed to take it (above 48 KB in all it has to opt in).
-template <typename T>
+template <typename T, bool kWGlobal = false>
 int fdt_smem(int rank) {
-  const int bytes = fold_dyn_smem<T>(rank);
+  const int bytes = fold_smem(rank, sizeof(T) == 4) - kFdtStaticSmem;
   if (kFdtStaticSmem + bytes > kDefaultSmem) {
-    cudaFuncSetAttribute(scan_dual_fdt_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
+    cudaFuncSetAttribute(scan_dual_fdt_fwd_kernel<T, kWGlobal>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
   return bytes;
 }
@@ -674,7 +733,17 @@ void launch_dual(const ScanDir& fwd, const ScanDir& rev, DualKind kind, int batc
   const bool save = fwd.xb != nullptr;
   const bool direct = kind == DualKind::kDirect;
   if (kind == DualKind::kFdt) {
-    const int smem = fdt_smem<T>(fwd.rank > rev.rank ? fwd.rank : rev.rank);
+    const int rank = fwd.rank > rev.rank ? fwd.rank : rev.rank;
+    if constexpr (sizeof(T) == 4) {
+      if (fold_w_global(rank, true)) {
+        // Both directions' W rows from global memory, the ring sized by the larger rank.
+        const int smem = fdt_smem<T, true>(rank);
+        scan_dual_fdt_fwd_kernel<T, true><<<grid, kThreads, smem, s>>>(fwd, rev, seqlen, dim,
+                                                                       dstate);
+        return;
+      }
+    }
+    const int smem = fdt_smem<T>(rank);
     scan_dual_fdt_fwd_kernel<T><<<grid, kThreads, smem, s>>>(fwd, rev, seqlen, dim, dstate);
   } else if (kind == DualKind::kStage) {
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
@@ -785,17 +854,22 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_KERNEL(scan_dual_stage_fwd_kernel<false>)
   AUM_KERNEL(scan_dual_stage_fwd_kernel<true>)
 #undef AUM_KERNEL
-  // The fuse_dt form at AuM-Base's dt rank and at the largest.
-#define AUM_FDT_KERNEL(T, rank)                                                      \
+  // The fuse_dt form at AuM-Base's dt rank, at 64, at a width-4096 model's
+  // 256 (fp32 there: W in global memory) and at the largest.
+#define AUM_FDT_KERNEL(T, rank, ...)                                                 \
   if (i == n++) {                                                                    \
-    *name = "scan_dual_fdt_fwd_kernel<" #T "> rank " #rank;                          \
-    return aum_kernel_resources(scan_dual_fdt_fwd_kernel<T>, kThreads, fdt_smem<T>(rank), \
-                                info);                                               \
+    *name = "scan_dual_fdt_fwd_kernel<" #T #__VA_ARGS__ "> rank " #rank;             \
+    return aum_kernel_resources(scan_dual_fdt_fwd_kernel<T __VA_ARGS__>, kThreads,   \
+                                fdt_smem<T __VA_ARGS__>(rank), info);                \
   }
   AUM_FDT_KERNEL(__nv_bfloat16, 48)
   AUM_FDT_KERNEL(__nv_bfloat16, 64)
   AUM_FDT_KERNEL(float, 48)
   AUM_FDT_KERNEL(float, 64)
+  AUM_FDT_KERNEL(__nv_bfloat16, 256)
+  AUM_FDT_KERNEL(__nv_bfloat16, 400)
+  AUM_FDT_KERNEL(float, 256, , true)
+  AUM_FDT_KERNEL(float, 400, , true)
 #undef AUM_FDT_KERNEL
   return -1;
 }
@@ -804,10 +878,7 @@ int aum_kernel_info(int i, int* info, const char** name) {
 // (static and dynamic, bytes) at `rank` for dtype 0 (fp32) or 1 (bf16):
 // the wrapper checks both at load.
 int aum_scan_fdt_max_rank() { return kMaxRank; }
-int aum_scan_fdt_smem_bytes(int rank, int dtype) {
-  return kFdtStaticSmem +
-         (dtype == 1 ? fold_dyn_smem<__nv_bfloat16>(rank) : fold_dyn_smem<float>(rank));
-}
+int aum_scan_fdt_smem_bytes(int rank, int dtype) { return fold_smem(rank, dtype == 0); }
 
 // dtype: 0 = fp32 streams, 1 = bf16 streams. Both directions save states
 // (xb set in both) or neither does; neither carries a state in or out.
@@ -827,7 +898,7 @@ int aum_selective_scan_dual_direct_fwd(const ScanDir* fwd, const ScanDir* rev,
 }
 
 // The fuse_dt form (eval only: no saved states); dt unused, dtr, Wt, bias
-// and rank (1 .. 64) set in both directions.
+// and rank (1 .. 400) set in both directions.
 int aum_selective_scan_dual_fdt_fwd(const ScanDir* fwd, const ScanDir* rev,
                                     int batch, int seqlen, int dim, int dstate,
                                     int dtype, void* stream) {

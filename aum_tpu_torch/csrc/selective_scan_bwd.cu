@@ -81,6 +81,10 @@
 // recompute walks and the adjoint): measured on an H100, keeping the
 // level-2 states in registers instead (28 KB per block) costs more in
 // registers and spills than it saves, at 3, 4 or 5 blocks per SM.
+//
+// Built ungated (AUM_SCAN_GATED=0: the library "selective_scan_bwd_sliced")
+// it is the backward of one slice of 16 states (scan_bwd.cuh says what
+// that form reads and writes), every form above included.
 
 #include <cstdint>
 #include <type_traits>
@@ -111,6 +115,7 @@ template <typename T, bool kState, bool kSoftplus, bool kXminus = false, bool kB
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dstate) {
   using Part = std::conditional_t<kBf16Part, __nv_bfloat16, float>;
+  using Out = std::conditional_t<aum::kGated, T, float>;
   __shared__ __align__(16) float s_B[kChunk][kMaxN];
   __shared__ __align__(16) float s_C[kChunk][kMaxN];
   // Entry states of sub-chunks 1 .. kNSub-1 (sub-chunk 0 starts from xb).
@@ -139,9 +144,9 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   const T* Bm = static_cast<const T*>(p.B) + b * p.B_sb;
   const T* Cm = static_cast<const T*>(p.C) + b * p.C_sb;
   const long long row = static_cast<long long>(b) * seqlen * dim + dc;
-  T* du = static_cast<T*>(p.du) + row;
-  T* ddelta = static_cast<T*>(p.ddelta) + row;
-  T* dz = static_cast<T*>(p.dz) + row;
+  Out* du = static_cast<Out*>(p.du) + row;
+  Out* ddelta = static_cast<Out*>(p.ddelta) + row;
+  Out* dz = aum::kGated || p.dz != nullptr ? static_cast<Out*>(p.dz) + row : nullptr;
   Part* dbc = static_cast<Part*>(p.dbc_part) +
               (static_cast<long long>(blockIdx.x) * batch + b) * seqlen * kRow;
   const int n_chunks = (seqlen + kChunk - 1) / kChunk;
@@ -158,8 +163,10 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
     lam[k] = (kState && has_n[k]) ? p.gfin[state_row + static_cast<long long>(k) * dim] : 0.0f;
     dA[k] = 0.0f;
   }
-  const float dskip = active ? p.Dskip[d] : 0.0f;
+  const float dskip = aum::kGated && active ? p.Dskip[d] : 0.0f;
   float dD = 0.0f, dbias = 0.0f;
+  // The ungated build without z: no gate, and the z stream staged from g.
+  const bool gate = aum::kGated || p.z != nullptr;
 
   auto step_of = [&](int i) { return reverse ? seqlen - 1 - i : i; };
   // The block's streams of the sub-chunk at processed index i0 (zeros past
@@ -167,11 +174,13 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
   // be stored into s_st once its readers are done.
   const int chb = warp * kChanPerWarp + ch;  // this lane's channel in the block
   const int d0 = blockIdx.x * kChanPerBlock;
-  const T* st_base[kStreams] = {static_cast<const T*>(p.dt) + b * p.dt_sb + d0,
-                                static_cast<const T*>(p.u) + b * p.u_sb + d0,
-                                static_cast<const T*>(p.z) + b * p.z_sb + d0,
-                                static_cast<const T*>(p.g) + b * p.g_sb + d0};
-  const long long st_sl[kStreams] = {p.dt_sl, p.u_sl, p.z_sl, p.g_sl};
+  const T* st_base[kStreams] = {
+      static_cast<const T*>(p.dt) + b * p.dt_sb + d0,
+      static_cast<const T*>(p.u) + b * p.u_sb + d0,
+      gate ? static_cast<const T*>(p.z) + b * p.z_sb + d0
+           : static_cast<const T*>(p.g) + b * p.g_sb + d0,
+      static_cast<const T*>(p.g) + b * p.g_sb + d0};
+  const long long st_sl[kStreams] = {p.dt_sl, p.u_sl, gate ? p.z_sl : p.g_sl, p.g_sl};
   auto load_stage = [&](T (&v)[kStagePer], int i0) {
 #pragma unroll
     for (int r = 0; r < kStagePer; ++r) {
@@ -267,7 +276,7 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
         if (j >= slen) continue;
         s_dbc[j][warp][row_pos] = adjoint_step<kXminus>(
             j, &s_x[j][0][tid], kThreads, &s_B[i0 + j][n0], &s_C[i0 + j][n0], A, lam, dA, dD,
-            own, st(0, j), st(1, j), st(2, j), st(3, j), dskip, lane);
+            own, st(0, j), st(1, j), st(2, j), st(3, j), dskip, lane, gate);
       }
       auto streams = [&](int j, float& dtv, float& uv, float& zv, float& gv) {
         dtv = st(0, j);
@@ -302,7 +311,7 @@ scan_bwd_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dsta
       if (kState) p.dx0[state_row + static_cast<long long>(k) * dim] = lam[k];
     }
   }
-  if (active && q == 0) {
+  if (aum::kGated && active && q == 0) {
     p.dD_part[static_cast<long long>(b) * dim + d] = dD;
     p.dbias_part[static_cast<long long>(b) * dim + d] = dbias;
   }

@@ -95,6 +95,10 @@
 // 1 the walk without the adjoint's arithmetic, 2 the adjoint without the
 // walk, 3 every per-step stream (dt, u, z, g) loaded lane by lane from
 // global memory at the start of each sub-chunk instead of staged.
+//
+// Built ungated (AUM_SCAN_GATED=0: the library
+// "selective_scan_bwd_fused_sliced") it is the backward of one slice of 16
+// states, as scan_bwd.cuh says.
 
 #include <climits>
 #include <cstdint>
@@ -219,6 +223,7 @@ template <typename T, bool kSoftplus, bool kBf16Part = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, int dstate) {
   using Part = std::conditional_t<kBf16Part, __nv_bfloat16, float>;
+  using Out = std::conditional_t<aum::kGated, T, float>;
   extern __shared__ float4 smem_raw[];
   Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_raw);
 
@@ -239,9 +244,9 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
   const int row_pos = row_position(ch, n0);
 
   const long long row = static_cast<long long>(b) * seqlen * dim + dc;
-  T* du = static_cast<T*>(p.du) + row;
-  T* ddelta = static_cast<T*>(p.ddelta) + row;
-  T* dz = static_cast<T*>(p.dz) + row;
+  Out* du = static_cast<Out*>(p.du) + row;
+  Out* ddelta = static_cast<Out*>(p.ddelta) + row;
+  Out* dz = aum::kGated || p.dz != nullptr ? static_cast<Out*>(p.dz) + row : nullptr;
   Part* dbc = static_cast<Part*>(p.dbc_part) +
               (static_cast<long long>(blockIdx.x) * batch + b) * seqlen * kRow;
   const int n_chunks = (seqlen + kChunk - 1) / kChunk;
@@ -257,8 +262,10 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
     lam[k] = 0.0f;  // a_{t+1} lam_{t+1}: zero beyond the last processed step
     dA[k] = 0.0f;
   }
-  const float dskip = active ? p.Dskip[d] : 0.0f;
+  const float dskip = aum::kGated && active ? p.Dskip[d] : 0.0f;
   float dD = 0.0f, dbias = 0.0f;
+  // The ungated build without z: no gate, and the z rows staged from g.
+  const bool gate = aum::kGated || p.z != nullptr;
 
   // The live sub-chunks in order: the walk of the last chunk (pair
   // n_chunks), then pairs n_chunks - 1 .. 1 whole (the walk of a full
@@ -305,7 +312,10 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
       switch (source_of(min(pass + m * kPasses, kGroups - 1))) {
         case 0: mine[m] = source<T>(p.dt, b * p.dt_sb + d0, p.dt_sl, dvalid); break;
         case 1: mine[m] = source<T>(p.u, b * p.u_sb + d0, p.u_sl, dvalid); break;
-        case 2: mine[m] = source<T>(p.z, b * p.z_sb + d0, p.z_sl, dvalid); break;
+        case 2:
+          mine[m] = gate ? source<T>(p.z, b * p.z_sb + d0, p.z_sl, dvalid)
+                         : source<T>(p.g, b * p.g_sb + d0, p.g_sl, dvalid);
+          break;
         case 3: mine[m] = source<T>(p.g, b * p.g_sb + d0, p.g_sl, dvalid); break;
         case 4: mine[m] = source<T>(p.B, b * p.B_sb, p.B_sl, dstate); break;
         default: mine[m] = source<T>(p.C, b * p.C_sb, p.C_sl, dstate); break;
@@ -469,7 +479,7 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
             const float v = adjoint_from(j, ha[j - jb], hx[j - jb], row4(&st[kAB][j][n0]),
                                          row4(&st[kAC][j][n0]), A, lam, dA, dD, own,
                                          sval(kAdt, j), sval(kAu, j), sval(kAz, j),
-                                         sval(kAg, j), dskip, lane);
+                                         sval(kAg, j), dskip, lane, gate);
             sm.dbc[buf][j][warp][row_pos] = v;
           }
           if constexpr (kWalk) {
@@ -511,7 +521,7 @@ scan_bwd_fused_kernel(const ScanBwdArgs args, int batch, int seqlen, int dim, in
   for (int k = 0; k < kNL; ++k) {
     if (has_n[k]) p.dA_part[(static_cast<long long>(b) * dstate + n0 + k) * dim + d] = dA[k];
   }
-  if (active && q == 0) {
+  if (aum::kGated && active && q == 0) {
     p.dD_part[static_cast<long long>(b) * dim + d] = dD;
     p.dbias_part[static_cast<long long>(b) * dim + d] = dbias;
   }

@@ -34,10 +34,10 @@ Counterpart of ``aum_tpu/models/lm.py`` (the reference's
   ``convert.lm_state_dict_from_jax`` back. ``from_pretrained_hf`` reads a
   local HF-format directory (``config.json`` + ``pytorch_model.bin``).
 
-On a CUDA device the kernels bound the config: d_state at most
-``MAX_D_STATE`` (16) and d_conv exactly the conv kernel's ``WIDTH`` (4);
-``check_kernel_limits`` raises at construction outside them. On the CPU the
-plain path takes any config. ``MambaLMConfig.use_kernel`` is read from the
+On a CUDA device the kernels take any d_state (the scan kernels run it in
+slices of 16 states) and d_conv from 1 to the conv kernel's ``MAX_WIDTH``
+(8), the one cap left; ``check_kernel_limits`` raises at construction past
+it. On the CPU the plain path takes any config. ``MambaLMConfig.use_kernel`` is read from the
 JAX package's ``config.json`` files and has no effect here: the device
 decides.
 """
@@ -62,8 +62,7 @@ from aum_tpu_torch.ops import (
     selective_scan,
     selective_state_update,
 )
-from aum_tpu_torch.ops.conv1d import WIDTH
-from aum_tpu_torch.ops.selective_scan import MAX_D_STATE
+from aum_tpu_torch.ops.conv1d import MAX_WIDTH
 from aum_tpu_torch.utils import resolve_device
 
 
@@ -103,15 +102,12 @@ class MambaLMConfig:
 
 def check_kernel_limits(cfg: MambaLMConfig, device: torch.device) -> None:
     """Raise ``ValueError`` on a CUDA device for a config the kernels do not
-    take: d_state above ``MAX_D_STATE`` or d_conv other than ``WIDTH``."""
+    take: d_conv past the conv kernel's ``MAX_WIDTH`` (every d_state runs)."""
     if torch.device(device).type != "cuda":
         return
-    if cfg.d_state > MAX_D_STATE:
-        raise ValueError(f"d_state={cfg.d_state}: the scan kernels take d_state <= "
-                         f"{MAX_D_STATE} (ops/selective_scan.py::MAX_D_STATE); run on the CPU")
-    if cfg.d_conv != WIDTH:
-        raise ValueError(f"d_conv={cfg.d_conv}: the conv kernel takes width {WIDTH} only "
-                         "(ops/conv1d.py::WIDTH); run on the CPU")
+    if not 1 <= cfg.d_conv <= MAX_WIDTH:
+        raise ValueError(f"d_conv={cfg.d_conv}: the conv kernel takes widths 1..{MAX_WIDTH} "
+                         "(ops/conv1d.py::MAX_WIDTH); run on the CPU")
 
 
 class _Backbone(nn.Module):

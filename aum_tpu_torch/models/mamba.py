@@ -22,8 +22,9 @@ they are only summed). ``"none"``
 no ``A_b_log``. The mixer's shape and init constants (conv width 4, expand
 2, dt rank ceil(d_model / 16), dt in [1e-3, 1e-1] floored at 1e-4, conv
 bias) are the reference defaults; only an LM config changes the conv width
-and the expansion (``d_conv``, ``expand``), and the conv kernel takes width
-4 only.
+and the expansion (``d_conv``, ``expand``). ``d_conv`` and ``d_state`` go
+to the kernels as given: the conv kernel takes widths 1 to 8
+(``ops/conv1d.py::MAX_WIDTH``), the scan kernels any d_state.
 
 ``init_layer_scale`` adds the reference's LayerScale: a ``gamma`` (d_model,)
 initialised to that value, multiplying the out_proj output. The block's
@@ -71,10 +72,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan, selective_scan_dual
-from aum_tpu_torch.ops.conv1d import WIDTH as D_CONV  # 4: the conv kernel is built for it
 from aum_tpu_torch.ops.selective_scan import fuse_dt_chosen
 from aum_tpu_torch.ops.seq_parallel import sharded_scan
 from aum_tpu_torch.parallel import collectives
+D_CONV = 4
 EXPAND = 2
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
 

@@ -1,8 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds). All missing
-libraries are compiled at once, one nvcc process per source, at first use.
+interface (no PyTorch headers, so a build takes seconds), and each of the
+three scan sources also a second one, ``<name>_sliced``, built ungated
+(``-DAUM_SCAN_GATED=0``, ``csrc/common.cuh``): the kernels of a scan with
+more than 16 states or without z or D. All missing libraries are compiled
+at once, one nvcc process per library, at first use.
 They land in ``build/aum_tpu_torch/`` at the root of the checkout, named by a
 hash of every file in ``csrc/`` and of the flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
@@ -23,7 +26,11 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aum_tpu_torch"
-SOURCES = ("selective_scan", "selective_scan_bwd", "selective_scan_bwd_fused", "conv1d")
+SOURCES = ("selective_scan", "selective_scan_bwd", "selective_scan_bwd_fused", "conv1d",
+           "scan_combine")
+# Every library: name -> (its source in csrc/, nvcc's extra flags).
+LIBRARIES = {**{name: (name, ()) for name in SOURCES},
+             **{f"{name}_sliced": (name, ("-DAUM_SCAN_GATED=0",)) for name in SOURCES[:3]}}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,7 +70,7 @@ def build_all() -> dict[str, Path]:
 
     Raises RuntimeError with nvcc's output if any build fails.
     """
-    paths = {name: library_path(name) for name in SOURCES}
+    paths = {name: library_path(name) for name in LIBRARIES}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -75,7 +82,8 @@ def build_all() -> dict[str, Path]:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        source, flags = LIBRARIES[name]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC_DIR / f"{source}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []

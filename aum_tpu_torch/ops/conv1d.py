@@ -3,8 +3,9 @@ CUDA kernel + plain form.
 
 Counterpart of ``aum_tpu/ops/conv1d.py::causal_conv1d``. The CUDA kernel
 (``csrc/conv1d.cu``) replaces the TPU kernel
-``aum_tpu/ops/conv1d.py:_conv_kernel``; the source says what bounds it on the
-card (bytes) and what its design does about that.
+``aum_tpu/ops/conv1d.py:_conv_kernel`` at every width from 1 to ``MAX_WIDTH``
+(8; one instantiation each); the source says what bounds it on the card
+(bytes) and what its design does about that.
 
 Semantics: weight (D, K), tap k multiplies ``x[t - (K-1) + k]``; zero halo;
 ``reverse=True`` is the anti-causal form with mirrored taps (flip -> causal
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 
 from aum_tpu_torch.ops import _build
 
-WIDTH = 4  # the kernel's one width (the mixer's D_CONV); the plain form takes any
+MAX_WIDTH = 8  # kMaxK: the kernel takes widths 1 .. 8 (the plain form any)
 
 
 def causal_conv1d_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -90,7 +91,8 @@ def _lib() -> ctypes.CDLL:
     lib.aum_conv_error_string.argtypes = [ctypes.c_int]
     lib.aum_conv_error_string.restype = ctypes.c_char_p
     for fn_name, value in (("aum_conv_channels_per_thread", CHANNELS_PER_THREAD),
-                           ("aum_conv_tile_steps", TILE_STEPS)):
+                           ("aum_conv_tile_steps", TILE_STEPS),
+                           ("aum_conv_max_width", MAX_WIDTH)):
         _build.check_constant(lib, fn_name, value)
     return lib
 
@@ -103,9 +105,10 @@ def causal_conv1d_cuda(x: torch.Tensor, weight: torch.Tensor,
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the conv kernel takes float32 or bfloat16, not {x.dtype}")
     bsz, seqlen, d = x.shape
-    if tuple(weight.shape) != (d, WIDTH):
-        raise ValueError(f"weight {tuple(weight.shape)} must be (D={d}, K={WIDTH}); "
-                         "the kernel is built for the mixer's width only")
+    width = weight.shape[-1]
+    if weight.dim() != 2 or weight.shape[0] != d or not 1 <= width <= MAX_WIDTH:
+        raise ValueError(f"weight {tuple(weight.shape)} must be (D={d}, K) with K in "
+                         f"1..{MAX_WIDTH}, the widths the kernel is built for")
     if bias is not None and tuple(bias.shape) != (d,):
         raise ValueError(f"bias {tuple(bias.shape)} must be ({d},)")
     if x.stride(-1) != 1:
@@ -123,7 +126,7 @@ def causal_conv1d_cuda(x: torch.Tensor, weight: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = lib.aum_causal_conv1d_fwd(
-            ctypes.byref(args), bsz, seqlen, d, WIDTH, int(reverse),
+            ctypes.byref(args), bsz, seqlen, d, width, int(reverse),
             int(activation == "silu"), _DTYPE_CODES[x.dtype], stream)
     _build.check_status(status, lib.aum_conv_error_string, "causal_conv1d kernel launch")
     causal_conv1d.launches += 1

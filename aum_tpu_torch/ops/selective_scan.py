@@ -34,6 +34,18 @@ with its custom VJP (``_make_dual_scan``, ``_dual_bwd_impl``), and
 The sources say what bounds each kernel on the card and what its design does
 about that.
 
+Every kernel takes any d_state, as the JAX op pads N and sums over it: a
+launch takes at most ``SLICE_STATES`` (16) states, so above that (and for a
+scan without z: the gated kernels always apply the gate) the wrappers run each
+kernel's ungated build (the ``*_sliced`` libraries, ``csrc/common.cuh``)
+once per slice of 16 states (``state_slices``; the last one ragged), each
+on its own rows of A, columns of B and C and saved or carried states, and
+``csrc/scan_combine.cu`` sums the slices' fp32 partials, adds D u and
+applies the gate, rounding once (``scan_combine_cuda``); its backward twin
+(``scan_combine_bwd_cuda``) sums the backward slices' du and ddelta
+partials and forms dz, dD and dbias from the whole pre-gate y. D None is
+the zero vector. The fuse_dt form takes dt ranks up to ``MAX_DT_RANK``.
+
 The ``_prep`` contract of the JAX op is kept: ``dt = softplus(delta + bias)``
 is computed outside the kernels in fp32 and cast to delta's dtype, and the
 kernels stream that rounded dt. The backward chain-rules ddelta from dt
@@ -65,7 +77,10 @@ kernel's), ``.fdt_launches`` (the fuse_dt form's), ``.stage_launches`` and
 ``.with_state_launches``; ``selective_scan_bwd.launches`` (K2),
 ``.with_state_launches`` and ``.xminus_launches`` (those of its with_state
 and x-minus forms), ``.fused_launches``, ``.bf16_partials_launches`` (K2 or
-fused launches with bf16 partials).
+fused launches with bf16 partials). A sliced scan counts one launch of its
+form per slice, and each op's ``.sliced_launches`` counts those launches
+again; ``scan_combine_cuda.launches`` and ``scan_combine_bwd_cuda.launches``
+count the combine's.
 """
 
 from __future__ import annotations
@@ -81,7 +96,7 @@ import torch
 from aum_tpu_torch.ops import _build
 from aum_tpu_torch.ops.scan_ref import selective_scan_ref
 
-MAX_D_STATE = 16
+SLICE_STATES = 16  # kMaxN of the scan kernels: the states one launch takes
 STATE_CHUNK = 64  # kChunk of both kernels: the interval of the saved states
 BWD_BLOCK_CHANNELS = 32  # channels per block of K2: one dB/dC partial row each
 BWD_FUSED_BLOCK_CHANNELS = 16  # the same for the fused backward
@@ -186,21 +201,72 @@ def _scan_bf16_stage_plain(u, dt, A, B, C, D, z, reverse: bool, save_every: int 
             states.append(x.transpose(1, 2))
         x = torch.exp2(scale[:, t, :, None] * A[None]) * x + dtu[:, t, :, None] * Bv[:, t, None, :]
         ys[t] = torch.einsum("bdn,bn->bd", x, Cv[:, t])
-    y = (torch.stack(ys, dim=1) + u.float() * D.float()) * torch.nn.functional.silu(z.float())
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + u.float() * D.float()
+    if z is not None:
+        y = y * torch.nn.functional.silu(z.float())
     return (y.to(u.dtype), torch.stack(states, dim=1)) if save_every else y.to(u.dtype)
+
+
+def state_slices(n: int) -> list[tuple[int, int]]:
+    """The kernels' slices of ``n`` states: [n0, n1) of SLICE_STATES each,
+    the last one ragged."""
+    return [(n0, min(n0 + SLICE_STATES, n)) for n0 in range(0, n, SLICE_STATES)]
+
+
+def sliced_form(n: int, z: torch.Tensor | None) -> bool:
+    """Whether the kernels run a scan of ``n`` states as ungated slices and a
+    combine: above SLICE_STATES states, or without z (the ungated kernels
+    apply no gate)."""
+    return n > SLICE_STATES or z is None
+
+
+def scan_combine_plain(parts: torch.Tensor, u: torch.Tensor, D: torch.Tensor | None,
+                       z: torch.Tensor | None) -> torch.Tensor:
+    """The combine kernel's function in plain PyTorch: the (S, B, L, D) fp32
+    partials summed, plus D u, times silu(z) (none without z), cast once to
+    u's dtype."""
+    y = parts.sum(dim=0)
+    if D is not None:
+        y = y + u.float() * D.float()
+    if z is not None:
+        y = y * torch.nn.functional.silu(z.float())
+    return y.to(u.dtype)
+
+
+def scan_combine_bwd_plain(du_parts, dd_parts, y_parts, g, z, u, D):
+    """The combine's backward in plain PyTorch: from the slices' fp32 du,
+    ddelta and (with z) y partials, (du, ddelta, dz, dD, dbias): gy = g
+    silu(z), y = sum y_s + D u, du = sum du_s + D gy, ddelta = sum
+    ddelta_s, dz = g y dsilu(z); dD and dbias fp32 sums over (B, L) (dD
+    None without D, dz None without z)."""
+    gf = g.float()
+    gy = gf if z is None else gf * torch.nn.functional.silu(z.float())
+    Df = torch.zeros(u.shape[-1], device=u.device) if D is None else D.float()
+    dz = None
+    if z is not None:
+        y = y_parts.sum(dim=0) + u.float() * Df
+        sig = torch.sigmoid(z.float())
+        dz = (gf * y * (sig * (1.0 + z.float() * (1.0 - sig)))).to(z.dtype)
+    dd = dd_parts.sum(dim=0)
+    du = du_parts.sum(dim=0) + gy * Df
+    dD = None if D is None else (gy * u.float()).sum(dim=(0, 1))
+    return du.to(u.dtype), dd.to(u.dtype), dz, dD, dd.sum(dim=(0, 1))
 
 
 def selective_scan_dual_plain(fwd: tuple, rev: tuple, save_states: bool = False,
                               bf16_stage: bool = False):
     """The dual forward kernels' function in plain PyTorch (the staged and the
-    direct kernel compute the same): the oracle per direction, or with
-    ``bf16_stage`` the stage form's roundings (bf16 streams).
+    direct kernel compute the same, and so do their sliced forms with the
+    combine): the oracle per direction, or with ``bf16_stage`` the stage
+    form's roundings (bf16 streams).
 
     fwd / rev: (u, dt, A, B, C, D, z) with dt already activated, as
-    ``selective_scan_dual_cuda`` takes them. Returns (y_fwd, y_rev), and with
-    ``save_states`` also (xb_fwd, xb_rev), each (B, ceil(L / STATE_CHUNK), N,
-    D) fp32. The oracle uses exp where the kernel uses exp2 with log2 e
-    folded in: the two differ by fp32 rounding.
+    ``selective_scan_dual_cuda`` takes them (D or z may be None). Returns
+    (y_fwd, y_rev), and with ``save_states`` also (xb_fwd, xb_rev), each (B,
+    ceil(L / STATE_CHUNK), N, D) fp32. The oracle uses exp where the kernel
+    uses exp2 with log2 e folded in: the two differ by fp32 rounding.
     """
     every = STATE_CHUNK if save_states else 0
     if bf16_stage:
@@ -232,12 +298,13 @@ def selective_scan_dual_fdt_plain(fwd: tuple, rev: tuple):
 def selective_scan_plain(args: tuple, reverse: bool, save_states: bool = False,
                          initial_state: torch.Tensor | None = None,
                          return_final_state: bool = False):
-    """The single-direction forward kernel's function in plain PyTorch.
+    """The single-direction forward kernel's function in plain PyTorch (its
+    sliced form with the combine computes the same).
 
     args: (u, dt, A, B, C, D, z) with dt already activated, as
-    ``selective_scan_cuda`` takes them; initial_state: (B, D, N) or None.
-    Returns out, and after it, where asked for, xb (B, ceil(L /
-    STATE_CHUNK), N, D) fp32 and the final state (B, D, N) fp32.
+    ``selective_scan_cuda`` takes them (D or z may be None); initial_state:
+    (B, D, N) or None. Returns out, and after it, where asked for, xb (B,
+    ceil(L / STATE_CHUNK), N, D) fp32 and the final state (B, D, N) fp32.
     """
     return selective_scan_ref(*args[:6], z=args[6], reverse=reverse,
                               save_every=STATE_CHUNK if save_states else 0,
@@ -246,10 +313,12 @@ def selective_scan_plain(args: tuple, reverse: bool, save_states: bool = False,
 
 
 def _oracle_grads(u, dt, A, B, C, D, z, reverse, g, state=None):
-    """The fp32 grads of the oracle's (u, dt, A, B, C, D, z), then of x0
-    where ``state`` = (x0, gfin) is given (the with_state form)."""
+    """The fp32 grads of the oracle's (u, dt, A, B, C, D, z) (None for a
+    None D or z), then of x0 where ``state`` = (x0, gfin) is given (the
+    with_state form)."""
     with torch.enable_grad():
-        leaves = [t.detach().float().requires_grad_() for t in (u, dt, A, B, C, D, z)]
+        leaves = [None if t is None else t.detach().float().requires_grad_()
+                  for t in (u, dt, A, B, C, D, z)]
         if state is None:
             outs = (selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse),)
             cots = (g.float(),)
@@ -258,22 +327,25 @@ def _oracle_grads(u, dt, A, B, C, D, z, reverse, g, state=None):
             outs = selective_scan_ref(*leaves[:6], z=leaves[6], reverse=reverse,
                                       initial_state=leaves[7], return_last_state=True)
             cots = (g.float(), state[1].float())
-        return torch.autograd.grad(outs, leaves, cots)
+        grads = iter(torch.autograd.grad(outs, [t for t in leaves if t is not None], cots))
+        return [None if t is None else next(grads) for t in leaves]
 
 
 def selective_scan_bwd_plain(dirs: list, gs: list, softplus: bool = True,
                              states: list | None = None, bf16_partials: int = 0) -> list:
     """The backward kernels' function in plain PyTorch (K2 and the fused
-    kernel compute the same).
+    kernel compute the same, and so do their sliced forms with the combine's
+    backward).
 
-    dirs: per direction (u, dt, A, B, C, D, z, reverse); gs: the cotangent of
-    each direction's output; ``states``: per direction (x0, gfin) for the
-    with_state form, the (B, D, N) starting state and the cotangent of the
-    final state. Recomputes the oracle in fp32 under autograd and returns per
-    direction (du, ddelta, dA, dB, dC, dD, dz, dbias), then dx0 (B, D, N)
-    fp32 in the with_state form: ddelta = ddt * (1 - exp(-dt)) through the
-    softplus (ddt without it) in dt's dtype, dbias its fp32 sum taken before
-    that cast, dA, dD fp32, the rest in their input's dtype.
+    dirs: per direction (u, dt, A, B, C, D, z, reverse) (D or z may be None);
+    gs: the cotangent of each direction's output; ``states``: per direction
+    (x0, gfin) for the with_state form, the (B, D, N) starting state and the
+    cotangent of the final state. Recomputes the oracle in fp32 under
+    autograd and returns per direction (du, ddelta, dA, dB, dC, dD, dz,
+    dbias), then dx0 (B, D, N) fp32 in the with_state form: ddelta = ddt *
+    (1 - exp(-dt)) through the softplus (ddt without it) in dt's dtype, dbias
+    its fp32 sum taken before that cast, dA, dD fp32, the rest in their
+    input's dtype; dD and dz None where D and z are.
 
     ``bf16_partials`` = P > 0: dB and dC as the kernels form them under
     AUM_SCAN_BWD_BF16_PARTIALS=1, the sum over each block of P channels
@@ -291,15 +363,17 @@ def selective_scan_bwd_plain(dirs: list, gs: list, softplus: bool = True,
             dB, dC = torch.zeros_like(dB), torch.zeros_like(dC)
             for d0 in range(0, u.shape[-1], bf16_partials):
                 ch = slice(d0, d0 + bf16_partials)
-                blk = _oracle_grads(u[..., ch], dt[..., ch], A[ch], B, C, D[ch], z[..., ch],
-                                    reverse, g[..., ch],
+                blk = _oracle_grads(u[..., ch], dt[..., ch], A[ch], B, C,
+                                    None if D is None else D[ch],
+                                    None if z is None else z[..., ch], reverse, g[..., ch],
                                     None if state is None else (state[0][:, ch], state[1][:, ch]))
                 dB += blk[3].to(torch.bfloat16).float()
                 dC += blk[4].to(torch.bfloat16).float()
         # sigmoid(delta + bias), from dt alone
         ddelta = ddt * (1.0 - torch.exp(-dt.float())) if softplus else ddt
         grads.append((du.to(u.dtype), ddelta.to(dt.dtype), dA, dB.to(B.dtype),
-                      dC.to(C.dtype), dD, dz.to(z.dtype), ddelta.sum(dim=(0, 1)), *dx0))
+                      dC.to(C.dtype), dD, None if dz is None else dz.to(z.dtype),
+                      ddelta.sum(dim=(0, 1)), *dx0))
     return grads
 
 
@@ -335,23 +409,53 @@ class _ScanBwdArgs(ctypes.Structure):
     _fields_ = [("dir", _ScanBwdDir * 2)]
 
 
-def _channel_contiguous(t: torch.Tensor) -> torch.Tensor:
+class _CombineDir(ctypes.Structure):
+    """Mirror of ``CombineDir`` in csrc/scan_combine.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("parts", "u", "z", "Dskip", "out")] + [
+        (name, ctypes.c_longlong) for name in ("u_sb", "u_sl", "z_sb", "z_sl")]
+
+
+class _CombineArgs(ctypes.Structure):
+    _fields_ = [("dir", _CombineDir * 2)]
+
+
+class _CombineBwdDir(ctypes.Structure):
+    """Mirror of ``CombineBwdDir`` in csrc/scan_combine.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in
+                ("du_parts", "dd_parts", "y_parts", "g", "z", "u", "Dskip", "du", "ddelta", "dz",
+                 "dD_part", "dbias_part")] + [
+        (name, ctypes.c_longlong) for name in ("g_sb", "g_sl", "z_sb", "z_sl", "u_sb", "u_sl")]
+
+
+class _CombineBwdArgs(ctypes.Structure):
+    _fields_ = [("dir", _CombineBwdDir * 2)]
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _channel_contiguous(t: torch.Tensor | None) -> torch.Tensor | None:
     """The kernels take any batch/length strides but need channel stride 1;
     a tensor without it is copied."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+    return t if t is None or t.stride(-1) == 1 else t.contiguous()
 
 
 def _check_dir(u, dt, A, B, C, D, z):
     """Validate one direction's operands for a kernel (dt None in the
-    fuse_dt form); returns them with channel stride 1 and A, D as contiguous
-    fp32 on u's device."""
+    fuse_dt form; D or z None, the scan without them); returns them with
+    channel stride 1 and A, D as contiguous fp32 on u's device."""
     bsz, seqlen, d = u.shape
     n = A.shape[1]
     if u.dtype not in _DTYPE_CODES:
         raise TypeError(f"the scan kernels take float32 or bfloat16, not {u.dtype}")
     streams = (("dt", dt, (bsz, seqlen, d)), ("z", z, (bsz, seqlen, d)),
                ("B", B, (bsz, seqlen, n)), ("C", C, (bsz, seqlen, n)))
-    for name, t, shape in streams[dt is None:]:
+    for name, t, shape in streams:
+        if t is None and name in ("dt", "z"):
+            continue
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.dtype != u.dtype:
@@ -359,28 +463,31 @@ def _check_dir(u, dt, A, B, C, D, z):
                             "take one stream dtype")
         if t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
-    if tuple(A.shape) != (d, n) or tuple(D.shape) != (d,):
-        raise ValueError(f"A {tuple(A.shape)} / D {tuple(D.shape)} do not match "
-                         f"D={d}, N={n}")
-    if n > MAX_D_STATE:
-        raise ValueError(f"d_state {n} > {MAX_D_STATE} is not supported by the kernels")
-    u, dt, z, B, C = (None if t is None else _channel_contiguous(t) for t in (u, dt, z, B, C))
+    if tuple(A.shape) != (d, n) or (D is not None and tuple(D.shape) != (d,)):
+        raise ValueError(f"A {tuple(A.shape)} / D {None if D is None else tuple(D.shape)} "
+                         f"do not match D={d}, N={n}")
+    u, dt, z, B, C = (_channel_contiguous(t) for t in (u, dt, z, B, C))
     A = A.to(device=u.device, dtype=torch.float32).contiguous()
-    D = D.to(device=u.device, dtype=torch.float32).contiguous()
+    D = None if D is None else D.to(device=u.device, dtype=torch.float32).contiguous()
     return u, dt, A, B, C, D, z
+
+
+def _zeros_for(D, u):
+    """D, or the exact zero vector the scan without D stands for."""
+    return torch.zeros(u.shape[-1], device=u.device) if D is None else D
 
 
 def _stream_strides(u, dt, z, B, C) -> list[int]:
     dt_strides = (0, 0) if dt is None else (dt.stride(0), dt.stride(1))
-    return [u.stride(0), u.stride(1), *dt_strides, z.stride(0),
-            z.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
+    z_strides = (0, 0) if z is None else (z.stride(0), z.stride(1))
+    return [u.stride(0), u.stride(1), *dt_strides, *z_strides,
+            B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
 
 
-MAX_DT_RANK = 64  # kMaxRank of the fuse_dt kernel
-# The fuse_dt kernel's shared memory per block in bf16 at MAX_DT_RANK must
-# stay within this: 4 blocks per SM (the register cap of the eval forms is
-# set for 4) of the H100's 228 KB, each with its 1 KB reserved.
-FDT_SMEM_PER_BLOCK = 56 * 1024
+MAX_DT_RANK = 400  # kMaxRank of the fuse_dt kernel
+# The shared memory a block can hold on an H100 (227 KB), opted in: the
+# fuse_dt kernel's, which grows with the dt rank, must stay within it.
+SMEM_PER_BLOCK = 232448
 
 
 def _check_fold(u, dtr, W, bias):
@@ -408,35 +515,42 @@ def _n_chunks(seqlen: int) -> int:
     return math.ceil(seqlen / STATE_CHUNK)
 
 
-def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None, fold=None):
+def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None, fold=None, out=None):
     """The kernel's arguments for one direction; ``x0`` (B, N, D) fp32
     contiguous selects the with_state form, whose final state is returned
     beside the outputs (xfin, else None); ``fold`` = (dtr, W, bias), with dt
-    None, the fuse_dt form's operands."""
+    None, the fuse_dt form's operands; ``out``: the output to write (an fp32
+    plane of partials for an ungated launch, whose D and z are None)."""
     u, dt, A, B, C, D, z = _check_dir(u, dt, A, B, C, D, z)
+    if A.shape[1] > SLICE_STATES:
+        raise ValueError(f"a launch takes at most {SLICE_STATES} states, not {A.shape[1]}")
     dtr, Wt, bias = (None, None, None) if fold is None else _check_fold(u, *fold)
     bsz, seqlen, d = u.shape
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=u.device)
 
-    out = empty(bsz, seqlen, d, dtype=u.dtype)
+    out = empty(bsz, seqlen, d, dtype=u.dtype) if out is None else out
     xb = empty(bsz, _n_chunks(seqlen), A.shape[1], d) if save_states else None
     xfin = None if x0 is None else empty(*x0.shape)
     args = _ScanDir(
-        u.data_ptr(), None if dt is None else dt.data_ptr(), z.data_ptr(), B.data_ptr(),
-        C.data_ptr(), A.data_ptr(), D.data_ptr(), out.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in (xb, x0, xfin)),
-        *_stream_strides(u, dt, z, B, C),
-        *(None if t is None else t.data_ptr() for t in (dtr, Wt, bias)),
+        u.data_ptr(), _ptr(dt), _ptr(z), B.data_ptr(), C.data_ptr(), A.data_ptr(), _ptr(D),
+        out.data_ptr(), *(_ptr(t) for t in (xb, x0, xfin)),
+        *_stream_strides(u, dt, z, B, C), *(_ptr(t) for t in (dtr, Wt, bias)),
         *((0, 0, 0, 0) if fold is None else (dtr.stride(0), dtr.stride(1), Wt.stride(0),
                                              dtr.shape[-1])))
     # Keep every buffer alive until the launch is enqueued.
     return args, out, xb, xfin, (u, dt, z, B, C, A, D, x0, dtr, Wt, bias)
 
 
-def _launch_dual(entry: str, args_f, args_r, u, dstate: int) -> None:
-    lib = _lib()
+def _slice_dir(args: tuple, n0: int, n1: int) -> tuple:
+    """One direction's (u, dt, A, B, C, D, z) on states [n0, n1), for an
+    ungated launch: its rows of A, its columns of B and C, no D, no z."""
+    u, dt, A, B, C = args[:5]
+    return u, dt, A[:, n0:n1], B[..., n0:n1], C[..., n0:n1], None, None
+
+
+def _launch_dual(lib, entry: str, args_f, args_r, u, dstate: int) -> None:
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         status = getattr(lib, entry)(ctypes.byref(args_f), ctypes.byref(args_r), *u.shape,
@@ -449,64 +563,108 @@ def _check_pair(u, u_rev):
         raise ValueError("both directions must share shape, dtype and device")
 
 
+def _dual_launches(entry: str, fwd: tuple, rev: tuple, save_states: bool,
+                   folds: tuple = (None, None)):
+    """The dual forward ``entry`` on both directions: one gated launch, or
+    where the kernels slice one ungated launch per slice of states and the
+    combine. Returns (y_fwd, y_rev, xb_fwd, xb_rev, launches, sliced)."""
+    u, n = fwd[0], fwd[2].shape[1]
+    if rev[2].shape[1] != n:
+        raise ValueError("both directions must share d_state")
+    if not (sliced_form(n, fwd[6]) or sliced_form(n, rev[6])):
+        fwd, rev = (a[:5] + (_zeros_for(a[5], a[0]), a[6]) for a in (fwd, rev))
+        args_f, out_f, xb_f, _, keep_f = _scan_dir_args(*fwd, save_states, fold=folds[0])
+        args_r, out_r, xb_r, _, keep_r = _scan_dir_args(*rev, save_states, fold=folds[1])
+        _launch_dual(_lib(), entry, args_f, args_r, u, n)
+        del keep_f, keep_r
+        return out_f, out_r, xb_f, xb_r, 1, False
+    slices = state_slices(n)
+    parts = [torch.empty((len(slices),) + tuple(u.shape), device=u.device) for _ in range(2)]
+    xbs = ([], [])
+    for i, (n0, n1) in enumerate(slices):
+        args_f, _, xb_f, _, keep_f = _scan_dir_args(*_slice_dir(fwd, n0, n1), save_states,
+                                                    fold=folds[0], out=parts[0][i])
+        args_r, _, xb_r, _, keep_r = _scan_dir_args(*_slice_dir(rev, n0, n1), save_states,
+                                                    fold=folds[1], out=parts[1][i])
+        _launch_dual(_sliced_lib(), entry, args_f, args_r, u, n1 - n0)
+        del keep_f, keep_r
+        if save_states:
+            xbs[0].append(xb_f)
+            xbs[1].append(xb_r)
+    out_f, out_r = scan_combine_cuda([(parts[0],) + (fwd[0], fwd[5], fwd[6]),
+                                      (parts[1],) + (rev[0], rev[5], rev[6])])
+    xb_f, xb_r = (torch.cat(x, dim=2) if save_states else None for x in xbs)
+    return out_f, out_r, xb_f, xb_r, len(slices), True
+
+
 def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False,
                              direct: bool | None = None):
     """Launch a dual forward kernel on (u, dt, A, B, C, D, z) per direction:
     the staged one, or the direct one under AUM_SCAN_DIRECT=1 (``direct``
     None: the switch decides; False: the staged one whatever it says), the
-    staged one in its stage form under AUM_SCAN_BF16_STAGE=1 (bf16).
+    staged one in its stage form under AUM_SCAN_BF16_STAGE=1 (bf16). Above
+    SLICE_STATES states or without z, the kernel's ungated form once per
+    slice of states, then the combine (``sliced_form``); D None is zero.
 
     Returns (y_fwd, y_rev), and with ``save_states`` also (xb_fwd, xb_rev).
     """
     u = fwd[0]
     _check_pair(u, rev[0])
-    args_f, out_f, xb_f, _, keep_f = _scan_dir_args(*fwd, save_states)
-    args_r, out_r, xb_r, _, keep_r = _scan_dir_args(*rev, save_states)
     direct = direct_forward_chosen() if direct is None else direct
     stage = bf16_stage_chosen(u.dtype, direct)
     entry = ("aum_selective_scan_dual_direct_fwd" if direct else
              "aum_selective_scan_dual_stage_fwd" if stage else "aum_selective_scan_dual_fwd")
-    _launch_dual(entry, args_f, args_r, u, fwd[2].shape[1])
-    del keep_f, keep_r
+    out_f, out_r, xb_f, xb_r, k, sliced = _dual_launches(entry, fwd, rev, save_states)
     if direct:
-        selective_scan_dual.direct_launches += 1
-        selective_scan_dual.direct_save_states_launches += save_states
+        selective_scan_dual.direct_launches += k
+        selective_scan_dual.direct_save_states_launches += k * save_states
     elif stage:
-        selective_scan_dual.stage_launches += 1
-        selective_scan_dual.stage_save_states_launches += save_states
+        selective_scan_dual.stage_launches += k
+        selective_scan_dual.stage_save_states_launches += k * save_states
     else:
-        selective_scan_dual.launches += 1
-        selective_scan_dual.save_states_launches += save_states
+        selective_scan_dual.launches += k
+        selective_scan_dual.save_states_launches += k * save_states
+    selective_scan_dual.sliced_launches += k * sliced
     return (out_f, out_r, xb_f, xb_r) if save_states else (out_f, out_r)
 
 
 def selective_scan_dual_fdt_cuda(fwd: tuple, rev: tuple):
     """Launch the fuse_dt dual forward (eval) on (u, dtr, W, A, B, C, D, z,
-    bias) per direction (see ``selective_scan_dual_fdt_plain``).
+    bias) per direction (see ``selective_scan_dual_fdt_plain``), sliced as
+    ``selective_scan_dual_cuda`` is.
 
     Returns (y_fwd, y_rev).
     """
     u = fwd[0]
     _check_pair(u, rev[0])
-    args_f, out_f, _, _, keep_f = _scan_dir_args(
-        u, None, *fwd[3:8], False, fold=(fwd[1], fwd[2], fwd[8]))
-    args_r, out_r, _, _, keep_r = _scan_dir_args(
-        rev[0], None, *rev[3:8], False, fold=(rev[1], rev[2], rev[8]))
-    _launch_dual("aum_selective_scan_dual_fdt_fwd", args_f, args_r, u, fwd[3].shape[1])
-    del keep_f, keep_r
-    selective_scan_dual.fdt_launches += 1
+    out_f, out_r, _, _, k, sliced = _dual_launches(
+        "aum_selective_scan_dual_fdt_fwd", (u, None) + tuple(fwd[3:8]),
+        (rev[0], None) + tuple(rev[3:8]), False,
+        folds=((fwd[1], fwd[2], fwd[8]), (rev[1], rev[2], rev[8])))
+    selective_scan_dual.fdt_launches += k
+    selective_scan_dual.sliced_launches += k * sliced
     return out_f, out_r
+
+
+def _launch_single(lib, kargs, reverse: bool, u, dstate: int) -> None:
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        status = lib.aum_selective_scan_fwd(ctypes.byref(kargs), int(bool(reverse)),
+                                            *u.shape, dstate, _DTYPE_CODES[u.dtype], stream)
+    _build.check_status(status, lib.aum_scan_error_string, "selective_scan kernel launch")
 
 
 def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
                         initial_state: torch.Tensor | None = None,
                         return_final_state: bool = False):
-    """Launch the single-direction forward kernel on (u, dt, A, B, C, D, z).
+    """Launch the single-direction forward kernel on (u, dt, A, B, C, D, z),
+    sliced as ``selective_scan_dual_cuda`` is.
 
     Returns what ``selective_scan_plain`` returns. The with_state form runs
     when an initial state is given or the final state is asked for (from
     zeros when only the latter); states cross in (B, D, N) and the kernel
-    takes (B, N, D), so the wrapper transposes them.
+    takes (B, N, D), so the wrapper transposes them (each slice takes its
+    states' rows).
     """
     u, A = args[0], args[2]
     bsz, _, d = u.shape
@@ -521,24 +679,161 @@ def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
                              f"{initial_state.device} must be ({bsz}, {d}, {n}) on {u.device}")
         else:
             x0 = initial_state.float().transpose(1, 2).contiguous()
-    kargs, out, xb, xfin, keep = _scan_dir_args(*args, save_states, x0)
-    lib = _lib()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        status = lib.aum_selective_scan_fwd(ctypes.byref(kargs), int(bool(reverse)),
-                                            *u.shape, n, _DTYPE_CODES[u.dtype], stream)
-    del keep
-    _build.check_status(status, lib.aum_scan_error_string, "selective_scan kernel launch")
-    selective_scan.launches += 1
+    if not sliced_form(n, args[6]):
+        kargs, out, xb, xfin, keep = _scan_dir_args(
+            *args[:5], _zeros_for(args[5], u), args[6], save_states, x0)
+        _launch_single(_lib(), kargs, reverse, u, n)
+        del keep
+        k = 1
+    else:
+        slices = state_slices(n)
+        parts = torch.empty((len(slices),) + tuple(u.shape), device=u.device)
+        xbs, fins = [], []
+        for i, (n0, n1) in enumerate(slices):
+            kargs, _, xb_s, fin_s, keep = _scan_dir_args(
+                *_slice_dir(args, n0, n1), save_states,
+                None if x0 is None else x0[:, n0:n1].contiguous(), out=parts[i])
+            _launch_single(_sliced_lib(), kargs, reverse, u, n1 - n0)
+            del keep
+            xbs.append(xb_s)
+            fins.append(fin_s)
+        (out,) = scan_combine_cuda([(parts, u, args[5], args[6])])
+        xb = torch.cat(xbs, dim=2) if save_states else None
+        xfin = torch.cat(fins, dim=1) if with_state else None
+        k = len(slices)
+        selective_scan.sliced_launches += k
+    selective_scan.launches += k
     result = (out,)
     if save_states:
-        selective_scan.save_states_launches += 1
+        selective_scan.save_states_launches += k
         result += (xb,)
     if with_state:
-        selective_scan.with_state_launches += 1
+        selective_scan.with_state_launches += k
         if return_final_state:
             result += (xfin.transpose(1, 2),)
     return result if len(result) > 1 else out
+
+
+def scan_combine_cuda(items: list) -> list:
+    """Launch the combine kernel once for one or two directions: per
+    direction (parts, u, D, z), parts the (S, B, L, D) fp32 slice partials
+    (contiguous), D or z None. Returns each direction's output (see
+    ``scan_combine_plain``)."""
+    u0 = items[0][1]
+    args = _CombineArgs()
+    outs, keep = [], []
+    for i, (parts, u, D, z) in enumerate(items):
+        if (parts.dtype != torch.float32 or not parts.is_contiguous()
+                or tuple(parts.shape[1:]) != tuple(u0.shape) or u.shape != u0.shape
+                or u.dtype != u0.dtype or (z is not None and z.shape != u.shape)):
+            raise ValueError("the combine takes contiguous fp32 (S, B, L, D) partials and "
+                             "(B, L, D) streams of one dtype")
+        u, z = _channel_contiguous(u), _channel_contiguous(z)
+        D = _zeros_for(D, u).to(device=u.device, dtype=torch.float32).contiguous()
+        out = torch.empty(u.shape, dtype=u.dtype, device=u.device)
+        args.dir[i] = _CombineDir(parts.data_ptr(), u.data_ptr(), _ptr(z), D.data_ptr(),
+                                  out.data_ptr(), u.stride(0), u.stride(1),
+                                  *((0, 0) if z is None else (z.stride(0), z.stride(1))))
+        outs.append(out)
+        keep.append((u, z, D))
+    lib = _combine_lib()
+    with torch.cuda.device(u0.device):
+        stream = torch.cuda.current_stream(u0.device).cuda_stream
+        status = lib.aum_scan_combine_fwd(ctypes.byref(args), len(items), items[0][0].shape[0],
+                                          *u0.shape, _DTYPE_CODES[u0.dtype], stream)
+    del keep
+    _build.check_status(status, lib.aum_scan_combine_error_string, "scan_combine kernel launch")
+    scan_combine_cuda.launches += 1
+    return outs
+
+
+scan_combine_cuda.launches = 0
+
+
+def scan_combine_bwd_cuda(items: list) -> list:
+    """Launch the combine's backward kernel once for one or two directions:
+    per direction (du_parts, dd_parts, y_parts, g, z, u, D), the partials
+    (S, B, L, D) fp32 contiguous (y_parts None without z). Returns per
+    direction (du, ddelta, dz, dD, dbias) (see ``scan_combine_bwd_plain``)."""
+    u0 = items[0][5]
+    bsz, seqlen, d = u0.shape
+    args = _CombineBwdArgs()
+    outs, keep = [], []
+    for i, (du_p, dd_p, y_p, g, z, u, D) in enumerate(items):
+        g, z, u = (_channel_contiguous(t) for t in (g, z, u))
+        Dk = _zeros_for(D, u).to(device=u.device, dtype=torch.float32).contiguous()
+
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=u.device)
+
+        du, ddelta = empty(*u.shape, dtype=u.dtype), empty(*u.shape, dtype=u.dtype)
+        dz = None if z is None else empty(*u.shape, dtype=u.dtype)
+        dD_p, dbias_p = empty(bsz, d), empty(bsz, d)
+        args.dir[i] = _CombineBwdDir(
+            du_p.data_ptr(), dd_p.data_ptr(), _ptr(y_p), g.data_ptr(), _ptr(z), u.data_ptr(),
+            Dk.data_ptr(), du.data_ptr(), ddelta.data_ptr(), _ptr(dz), dD_p.data_ptr(),
+            dbias_p.data_ptr(), g.stride(0), g.stride(1),
+            *((0, 0) if z is None else (z.stride(0), z.stride(1))), u.stride(0), u.stride(1))
+        outs.append((du, ddelta, dz, dD_p, dbias_p, D is None))
+        keep.append((du_p, dd_p, y_p, g, z, u, Dk))
+    lib = _combine_lib()
+    with torch.cuda.device(u0.device):
+        stream = torch.cuda.current_stream(u0.device).cuda_stream
+        status = lib.aum_scan_combine_bwd(ctypes.byref(args), len(items),
+                                          items[0][0].shape[0], bsz, seqlen, d,
+                                          _DTYPE_CODES[u0.dtype], stream)
+    del keep
+    _build.check_status(status, lib.aum_scan_combine_error_string,
+                        "scan_combine_bwd kernel launch")
+    scan_combine_bwd_cuda.launches += 1
+    return [(du, ddelta, dz, None if no_d else dD_p.sum(dim=0), dbias_p.sum(dim=0))
+            for du, ddelta, dz, dD_p, dbias_p, no_d in outs]
+
+
+scan_combine_bwd_cuda.launches = 0
+
+
+def _bwd_launch(fused: bool, sliced: bool, items: list, bsz: int, seqlen: int, d: int, n: int,
+                dtype: torch.dtype, softplus: bool, xminus: bool, bf16_partials: bool) -> list:
+    """One launch of a backward kernel (gated, or on one slice of ``n``
+    states), per direction of ``items``: (u, dt, A, B, C, D, z, g, xb,
+    reverse, gfin, du, ddelta, dz), the last three the outputs to write.
+    Returns per direction its (dA, dD, dbias, dbc) partials (an ungated
+    slice's dD and dbias None: the combine's backward forms them) and dx0
+    (B, n, D) (None without gfin)."""
+    n_parts = math.ceil(d / (BWD_FUSED_BLOCK_CHANNELS if fused else BWD_BLOCK_CHANNELS))
+    device = items[0][0].device
+    args = _ScanBwdArgs()
+    outs, keep = [], []
+    for i, (u, dt, A, B, C, D, z, g, xb, reverse, gfin, du, ddelta, dz) in enumerate(items):
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        dx0 = None if gfin is None else empty(bsz, n, d)
+        dA_p = empty(bsz, n, d)
+        dD_p, dbias_p = (None, None) if sliced else (empty(bsz, d), empty(bsz, d))
+        dbc_p = empty(n_parts, bsz, seqlen, 2 * SLICE_STATES,
+                      dtype=torch.bfloat16 if bf16_partials else torch.float32)
+        args.dir[i] = _ScanBwdDir(
+            u.data_ptr(), dt.data_ptr(), _ptr(z), B.data_ptr(), C.data_ptr(), A.data_ptr(),
+            _ptr(D), g.data_ptr(), xb.data_ptr(), du.data_ptr(), ddelta.data_ptr(), _ptr(dz),
+            dA_p.data_ptr(), _ptr(dD_p), _ptr(dbias_p), dbc_p.data_ptr(),
+            _ptr(gfin), _ptr(dx0), *_stream_strides(u, dt, z, B, C), g.stride(0), g.stride(1),
+            int(bool(reverse)), int(bool(softplus)), int(xminus), int(bf16_partials))
+        outs.append((dA_p, dD_p, dbias_p, dbc_p, dx0))
+        keep.append((u, dt, z, B, C, A, D, g, xb, gfin))
+    if fused:
+        lib, prefix = (_bwd_fused_sliced_lib() if sliced else _bwd_fused_lib()), "scan_bwd_fused"
+    else:
+        lib, prefix = (_bwd_sliced_lib() if sliced else _bwd_lib()), "scan_bwd"
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, f"aum_selective_{prefix}")(
+            ctypes.byref(args), len(items), bsz, seqlen, d, n, _DTYPE_CODES[dtype], stream)
+    del keep
+    _build.check_status(status, getattr(lib, f"aum_{prefix}_error_string"),
+                        f"selective_{prefix} kernel launch")
+    return outs
 
 
 def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = True,
@@ -547,13 +842,15 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
     fused kernel under AUM_SCAN_BWD_FUSED=1 (see ``fused_backward_chosen``);
     K2 in its x-minus form under AUM_SCAN_BWD_XMINUS=1 or AUM_SCAN_BWD_DBU=1
     (``bwd_dla_mode``), either kernel with bf16 dB/dC partials under
-    AUM_SCAN_BWD_BF16_PARTIALS=1 (``bwd_bf16_partials_chosen``).
+    AUM_SCAN_BWD_BF16_PARTIALS=1 (``bwd_bf16_partials_chosen``). Where the
+    forward slices (``sliced_form``), the chosen kernel's ungated form once
+    per slice of states, then the combine's backward.
 
-    dirs: per direction (u, dt, A, B, C, D, z, reverse); gs: the output
-    cotangents; xbs: the forward's saved states; ``gfins``: per direction the
-    (B, D, N) cotangent of the final state, for K2's with_state form (one
-    direction; never fused), whose starting state is xb's first entry.
-    Returns what ``selective_scan_bwd_plain`` returns.
+    dirs: per direction (u, dt, A, B, C, D, z, reverse) (D or z may be None);
+    gs: the output cotangents; xbs: the forward's saved states; ``gfins``:
+    per direction the (B, D, N) cotangent of the final state, for K2's
+    with_state form (one direction; never fused), whose starting state is
+    xb's first entry. Returns what ``selective_scan_bwd_plain`` returns.
     """
     if not 1 <= len(dirs) <= 2 or len(gs) != len(dirs) or len(xbs) != len(dirs):
         raise ValueError("the backward kernels take one or two directions")
@@ -567,9 +864,8 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
     u0 = dirs[0][0]
     bsz, seqlen, d = u0.shape
     n = dirs[0][2].shape[1]
-    n_parts = math.ceil(d / (BWD_FUSED_BLOCK_CHANNELS if fused else BWD_BLOCK_CHANNELS))
-    args = _ScanBwdArgs()
-    outs, keep = [], []
+    sliced = any(sliced_form(n, dr[6]) for dr in dirs)
+    checked = []
     for i, ((u, dt, A, B, C, D, z, reverse), g, xb) in enumerate(zip(dirs, gs, xbs)):
         if u.shape != u0.shape or u.dtype != u0.dtype or u.device != u0.device:
             raise ValueError("both directions must share shape, dtype and device")
@@ -583,59 +879,76 @@ def selective_scan_bwd_cuda(dirs: list, gs: list, xbs: list, softplus: bool = Tr
         if (xb is None or tuple(xb.shape) != xb_shape or xb.dtype != torch.float32
                 or not xb.is_contiguous() or xb.device != u.device):
             raise ValueError(f"the saved states must be contiguous fp32 {xb_shape}")
-
-        def empty(*shape, dtype=torch.float32):
-            return torch.empty(shape, dtype=dtype, device=u.device)
-
-        gfin = dx0 = None
+        gfin = None
         if with_state:
             if tuple(gfins[i].shape) != (bsz, d, n) or gfins[i].device != u.device:
                 raise ValueError(f"the final state's cotangent {tuple(gfins[i].shape)} on "
                                  f"{gfins[i].device} must be ({bsz}, {d}, {n}) on {u.device}")
             gfin = gfins[i].float().transpose(1, 2).contiguous()  # the kernel's (B, N, D)
-            dx0 = empty(bsz, n, d)
-        du, ddelta, dz = (empty(bsz, seqlen, d, dtype=u.dtype) for _ in range(3))
-        dA_p, dD_p, dbias_p = empty(bsz, n, d), empty(bsz, d), empty(bsz, d)
-        dbc_p = empty(n_parts, bsz, seqlen, 2 * MAX_D_STATE,
-                      dtype=torch.bfloat16 if bf16_partials else torch.float32)
-        args.dir[i] = _ScanBwdDir(
-            u.data_ptr(), dt.data_ptr(), z.data_ptr(), B.data_ptr(), C.data_ptr(),
-            A.data_ptr(), D.data_ptr(), g.data_ptr(), xb.data_ptr(), du.data_ptr(),
-            ddelta.data_ptr(), dz.data_ptr(), dA_p.data_ptr(), dD_p.data_ptr(),
-            dbias_p.data_ptr(), dbc_p.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in (gfin, dx0)),
-            *_stream_strides(u, dt, z, B, C), g.stride(0), g.stride(1), int(bool(reverse)),
-            int(bool(softplus)), int(xminus), int(bf16_partials))
-        outs.append((du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, B.dtype, C.dtype, dx0))
-        keep.append((u, dt, z, B, C, A, D, g, xb, gfin))
-    lib, prefix = (_bwd_fused_lib(), "scan_bwd_fused") if fused else (_bwd_lib(), "scan_bwd")
-    with torch.cuda.device(u0.device):
-        stream = torch.cuda.current_stream(u0.device).cuda_stream
-        status = getattr(lib, f"aum_selective_{prefix}")(
-            ctypes.byref(args), len(dirs), bsz, seqlen, d, n, _DTYPE_CODES[u0.dtype], stream)
-    del keep
-    _build.check_status(status, getattr(lib, f"aum_{prefix}_error_string"),
-                        f"selective_{prefix} kernel launch")
-    if fused:
-        selective_scan_bwd.fused_launches += 1
-    else:
-        selective_scan_bwd.launches += 1
-        selective_scan_bwd.with_state_launches += with_state
-        selective_scan_bwd.xminus_launches += xminus
-    selective_scan_bwd.bf16_partials_launches += bf16_partials
+        checked.append((u, dt, A, B, C, D, z, g, xb, reverse, gfin))
+    launch = functools.partial(_bwd_launch, fused, sliced, bsz=bsz, seqlen=seqlen, d=d,
+                               dtype=u0.dtype, softplus=softplus, xminus=xminus,
+                               bf16_partials=bf16_partials)
     grads = []
-    for du, ddelta, dz, dA_p, dD_p, dbias_p, dbc_p, b_dtype, c_dtype, dx0 in outs:
-        dbc = dbc_p.sum(dim=0, dtype=torch.float32)  # (B, L, 32): [:N] dB, [16:16+N] dC
-        grads.append((du, ddelta, dA_p.sum(dim=0).t(), dbc[..., :n].to(b_dtype),
-                      dbc[..., MAX_D_STATE:MAX_D_STATE + n].to(c_dtype),
-                      dD_p.sum(dim=0), dz, dbias_p.sum(dim=0))
-                     + (() if dx0 is None else (dx0.transpose(1, 2),)))
+    if not sliced:
+        items = []
+        for u, dt, A, B, C, D, z, g, xb, reverse, gfin in checked:
+            du, ddelta, dz = (torch.empty(u.shape, dtype=u.dtype, device=u.device)
+                              for _ in range(3))
+            items.append((u, dt, A, B, C, _zeros_for(D, u), z, g, xb, reverse, gfin,
+                          du, ddelta, dz))
+        for item, dr, (dA_p, dD_p, dbias_p, dbc_p, dx0) in zip(items, dirs,
+                                                                launch(items=items, n=n)):
+            dbc = dbc_p.sum(dim=0, dtype=torch.float32)  # (B, L, 32): [:N] dB, [16:16+N] dC
+            du, ddelta, dz = item[11:]
+            grads.append((du, ddelta, dA_p.sum(dim=0).t(), dbc[..., :n].to(dr[3].dtype),
+                          dbc[..., SLICE_STATES:SLICE_STATES + n].to(dr[4].dtype),
+                          None if dr[5] is None else dD_p.sum(dim=0), dz, dbias_p.sum(dim=0))
+                         + (() if dx0 is None else (dx0.transpose(1, 2),)))
+        k = 1
+    else:
+        slices = state_slices(n)
+        planes = [[None if z is None and j == 2 else
+                   torch.empty((len(slices),) + tuple(u0.shape), device=u0.device)
+                   for j in range(3)] for (_, _, _, _, _, _, z, *_) in checked]
+        per_dir = [{"dA": [], "dB": [], "dC": [], "dx0": []} for _ in checked]
+        for s, (n0, n1) in enumerate(slices):
+            items = []
+            for (u, dt, A, B, C, D, z, g, xb, reverse, gfin), (du_p, dd_p, y_p) in zip(
+                    checked, planes):
+                items.append((u, dt, A[:, n0:n1].contiguous(), B[..., n0:n1], C[..., n0:n1],
+                              None, z, g, xb[:, :, n0:n1].contiguous(), reverse,
+                              None if gfin is None else gfin[:, n0:n1].contiguous(),
+                              du_p[s], dd_p[s], None if y_p is None else y_p[s]))
+            for acc, (dA_p, _, _, dbc_p, dx0) in zip(per_dir, launch(items=items, n=n1 - n0)):
+                dbc = dbc_p.sum(dim=0, dtype=torch.float32)
+                acc["dA"].append(dA_p.sum(dim=0).t())
+                acc["dB"].append(dbc[..., :n1 - n0])
+                acc["dC"].append(dbc[..., SLICE_STATES:SLICE_STATES + n1 - n0])
+                acc["dx0"].append(dx0)
+        combined = scan_combine_bwd_cuda(
+            [(du_p, dd_p, y_p, g, z, u, D) for (u, _, _, _, _, D, z, g, *_), (du_p, dd_p, y_p)
+             in zip(checked, planes)])
+        for (du, ddelta, dz, dD, dbias), acc, dr in zip(combined, per_dir, dirs):
+            grads.append((du, ddelta, torch.cat(acc["dA"], dim=1),
+                          torch.cat(acc["dB"], dim=-1).to(dr[3].dtype),
+                          torch.cat(acc["dC"], dim=-1).to(dr[4].dtype), dD, dz, dbias)
+                         + (() if not with_state else
+                            (torch.cat(acc["dx0"], dim=1).transpose(1, 2),)))
+        k = len(slices)
+        selective_scan_bwd.sliced_launches += k
+    if fused:
+        selective_scan_bwd.fused_launches += k
+    else:
+        selective_scan_bwd.launches += k
+        selective_scan_bwd.with_state_launches += k * with_state
+        selective_scan_bwd.xminus_launches += k * xminus
+    selective_scan_bwd.bf16_partials_launches += k * bf16_partials
     return grads
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("selective_scan")
+def _load_scan_lib(name: str) -> ctypes.CDLL:
+    lib = _build.library(name)
     for fn in (lib.aum_selective_scan_dual_fwd, lib.aum_selective_scan_dual_direct_fwd,
                lib.aum_selective_scan_dual_fdt_fwd, lib.aum_selective_scan_dual_stage_fwd):
         fn.argtypes = [ctypes.POINTER(_ScanDir), ctypes.POINTER(_ScanDir),
@@ -652,12 +965,23 @@ def _lib() -> ctypes.CDLL:
     fn = lib.aum_scan_fdt_smem_bytes
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    smem = fn(MAX_DT_RANK, _DTYPE_CODES[torch.bfloat16])
-    if smem > FDT_SMEM_PER_BLOCK:
-        raise RuntimeError(f"the fuse_dt kernel takes {smem} bytes of shared memory per block "
-                           f"at rank {MAX_DT_RANK}, more than the {FDT_SMEM_PER_BLOCK} that "
-                           "keep 4 blocks per SM")
+    for dtype in (torch.float32, torch.bfloat16):
+        smem = fn(MAX_DT_RANK, _DTYPE_CODES[dtype])
+        if smem > SMEM_PER_BLOCK:
+            raise RuntimeError(f"the fuse_dt kernel takes {smem} bytes of shared memory per "
+                               f"block at rank {MAX_DT_RANK} in {dtype}, more than the "
+                               f"{SMEM_PER_BLOCK} a block can hold")
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _load_scan_lib("selective_scan")
+
+
+@functools.cache
+def _sliced_lib() -> ctypes.CDLL:
+    return _load_scan_lib("selective_scan_sliced")
 
 
 def _load_bwd_lib(name: str, prefix: str) -> ctypes.CDLL:
@@ -673,16 +997,38 @@ def _load_bwd_lib(name: str, prefix: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _load_bwd_lib("selective_scan_bwd", "scan_bwd")
+def _bwd_lib(name: str = "selective_scan_bwd") -> ctypes.CDLL:
+    lib = _load_bwd_lib(name, "scan_bwd")
     _build.check_constant(lib, "aum_scan_bwd_block_channels", BWD_BLOCK_CHANNELS)
     return lib
 
 
 @functools.cache
-def _bwd_fused_lib() -> ctypes.CDLL:
-    lib = _load_bwd_lib("selective_scan_bwd_fused", "scan_bwd_fused")
+def _bwd_fused_lib(name: str = "selective_scan_bwd_fused") -> ctypes.CDLL:
+    lib = _load_bwd_lib(name, "scan_bwd_fused")
     _build.check_constant(lib, "aum_scan_bwd_fused_block_channels", BWD_FUSED_BLOCK_CHANNELS)
+    return lib
+
+
+def _bwd_sliced_lib() -> ctypes.CDLL:
+    return _bwd_lib("selective_scan_bwd_sliced")
+
+
+def _bwd_fused_sliced_lib() -> ctypes.CDLL:
+    return _bwd_fused_lib("selective_scan_bwd_fused_sliced")
+
+
+@functools.cache
+def _combine_lib() -> ctypes.CDLL:
+    lib = _build.library("scan_combine")
+    lib.aum_scan_combine_fwd.argtypes = [ctypes.POINTER(_CombineArgs)] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.aum_scan_combine_bwd.argtypes = [ctypes.POINTER(_CombineBwdArgs)] + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for fn in (lib.aum_scan_combine_fwd, lib.aum_scan_combine_bwd):
+        fn.restype = ctypes.c_int
+    lib.aum_scan_combine_error_string.argtypes = [ctypes.c_int]
+    lib.aum_scan_combine_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -713,6 +1059,7 @@ def selective_scan_bwd(dirs: list, gs: list, xbs: list, softplus: bool = True,
 
 
 selective_scan_bwd.launches = 0
+selective_scan_bwd.sliced_launches = 0
 selective_scan_bwd.with_state_launches = 0
 selective_scan_bwd.fused_launches = 0
 selective_scan_bwd.xminus_launches = 0
@@ -849,8 +1196,9 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple, dt_fold: tuple | None 
     args_fwd / args_rev: (u, delta, A, B, C, D, z, delta_bias) for the
     forward-scanning and the reverse-scanning direction (bimamba v1 passes
     the same tensors in both, with its own A; autograd sums their grads).
-    delta is pre-softplus; D and z are required, as in the JAX kernel path.
-    Returns (y_fwd, y_rev); the caller sums them. Differentiable: when a
+    delta is pre-softplus; D or z may be None (no skip term; no gate), as
+    the JAX op's oracle path takes them. Returns (y_fwd, y_rev); the caller
+    sums them. Differentiable: when a
     grad is needed the forward kernel saves its chunk-entry states and the
     backward kernel runs in the backward pass; otherwise the eval forward
     runs alone.
@@ -881,6 +1229,7 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple, dt_fold: tuple | None 
 
 
 selective_scan_dual.launches = 0
+selective_scan_dual.sliced_launches = 0
 selective_scan_dual.save_states_launches = 0
 selective_scan_dual.direct_launches = 0
 selective_scan_dual.direct_save_states_launches = 0
@@ -924,16 +1273,17 @@ class _Scan(torch.autograd.Function):
 
 
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
-                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, z: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor | None = None,
+                   z: torch.Tensor | None = None,
                    delta_bias: torch.Tensor | None = None, delta_softplus: bool = False,
                    reverse: bool = False, initial_state: torch.Tensor | None = None,
                    return_final_state: bool = False):
     """Single-direction selective scan (see ``ops/scan_ref.py`` for the math).
 
     u, delta, z: (B, L, D); A: (D, N); B, C: (B, L, N); D, delta_bias: (D,);
-    ``reverse`` scans right to left. D and z are required, as in the JAX
-    kernel path. ``initial_state`` (B, D, N) starts the recurrence from a
-    carried state, and ``return_final_state`` also returns the (B, D, N) fp32
+    ``reverse`` scans right to left. D or z may be None (no skip term; no
+    gate), as the JAX op takes them. ``initial_state`` (B, D, N) starts the
+    recurrence from a carried state, and ``return_final_state`` also returns the (B, D, N) fp32
     state after the last processed step (position 0 when reversed).
     Returns y (B, L, D) in u's dtype, or (y, final state).
 
@@ -944,8 +1294,6 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     (each started from the previous one's final state) differentiate as one
     scan.
     """
-    if D is None or z is None:
-        raise ValueError("selective_scan takes D and z (the kernel path's form)")
     on_cpu = _on_cpu(u, "selective_scan")
     tensors = [t for t in (u, delta, A, B, C, D, z, delta_bias, initial_state)
                if t is not None]
@@ -960,5 +1308,6 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
 
 selective_scan.launches = 0
+selective_scan.sliced_launches = 0
 selective_scan.save_states_launches = 0
 selective_scan.with_state_launches = 0

@@ -37,6 +37,7 @@ def launch_counters() -> dict:
     """Every kernel launch counter of the port: name -> (holder, attribute)."""
     from aum_tpu_torch.ops import causal_conv1d, selective_scan, selective_scan_bwd, \
         selective_scan_dual
+    from aum_tpu_torch.ops.selective_scan import scan_combine_bwd_cuda, scan_combine_cuda
 
     dual = {"selective_scan_dual_fwd": "launches",
             "selective_scan_dual_fwd_save_states": "save_states_launches",
@@ -44,11 +45,14 @@ def launch_counters() -> dict:
             "selective_scan_dual_direct_fwd_save_states": "direct_save_states_launches",
             "selective_scan_dual_fdt_fwd": "fdt_launches",
             "selective_scan_dual_stage_fwd": "stage_launches",
-            "selective_scan_dual_stage_fwd_save_states": "stage_save_states_launches"}
+            "selective_scan_dual_stage_fwd_save_states": "stage_save_states_launches",
+            "selective_scan_dual_fwd_sliced": "sliced_launches"}
     single = {"selective_scan_fwd": "launches",
               "selective_scan_fwd_save_states": "save_states_launches",
-              "selective_scan_fwd_with_state": "with_state_launches"}
+              "selective_scan_fwd_with_state": "with_state_launches",
+              "selective_scan_fwd_sliced": "sliced_launches"}
     bwd = {"selective_scan_bwd": "launches",
+           "selective_scan_bwd_sliced": "sliced_launches",
            "selective_scan_bwd_with_state": "with_state_launches",
            "selective_scan_bwd_fused": "fused_launches",
            "selective_scan_bwd_xminus": "xminus_launches",
@@ -56,7 +60,9 @@ def launch_counters() -> dict:
     return {**{k: (selective_scan_dual, a) for k, a in dual.items()},
             **{k: (selective_scan, a) for k, a in single.items()},
             **{k: (selective_scan_bwd, a) for k, a in bwd.items()},
-            "causal_conv1d_fwd": (causal_conv1d, "launches")}
+            "causal_conv1d_fwd": (causal_conv1d, "launches"),
+            "scan_combine_fwd": (scan_combine_cuda, "launches"),
+            "scan_combine_bwd": (scan_combine_bwd_cuda, "launches")}
 
 
 def reset_counts() -> None:

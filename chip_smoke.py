@@ -216,7 +216,26 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    shapes. B=64 Fo-Bi clips/s are timed in turns: default,
    AUM_SCAN_DIRECT=1, AUM_SCAN_FUSE_DT=1, AUM_SCAN_FUSE_DT=1,
    AUM_SCAN_DIRECT=1, default.
-14. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
+14. sizes (run after lm): the shapes the JAX package's ops take beyond the
+   default paths'. Every scan form (the dual forward staged and direct, the
+   single-direction one as is, saving and with_state, K2 and the fused
+   backward, one and both directions, the stage, x-minus, bf16-partials and
+   fuse_dt forms) at d_state 17, 24, 32, 64 and 128 on the ragged shape,
+   which the kernels run as slices of 16 states and a combine; the scan
+   without z and/or D at d_state 5, 16 and 40; the combine and its
+   backward alone (at L=70000 too); d_state 64 at AuM-Base's eval (B=64) and train (B=12)
+   shapes; the conv at widths 1, 2, 3, 5, 8, causal and anti-causal, at
+   (64, 513, 1536) and at D=36 on an odd offset; the fuse_dt form at dt
+   ranks 65, 80, 128 and 256. Then AuM-Base Fo-Bi with d_state 64 (bf16,
+   depth 24): a B=64 eval forward and a B=12 train step with their launches,
+   its fp32 depth-2 forward and train step against the CPU; the Mamba LM at
+   mamba-130m's widths with d_state 64 and d_conv 3: a B=8 x 512 prefill and
+   16 decode steps with their launches, and the fp32 depth-2 checks
+   against the CPU and stepwise decoding. Then each new form's ms beside its
+   bound and its plain version's: a sliced form one launch on one slice of
+   16 states (its whole op beside it), the combine and its backward on
+   planes of their own per direction.
+15. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
    one Fo-Fo forward from waveforms (B=64), then one train step, under
    ``torch.profiler``: device time by
    kernel category (dual and single scan forward, scan backward, conv,
@@ -492,7 +511,7 @@ def phase_build() -> None:
           "wav_decoder_seconds": time.perf_counter() - t0})
     # What the occupancy calculator gives each kernel the paths launch.
     emit({"phase": "occupancy", "kernels": {name: _build.kernel_resources(name)
-                                            for name in _build.SOURCES}})
+                                            for name in _build.LIBRARIES}})
 
 
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
@@ -646,7 +665,7 @@ def _check_stage(label, dims, shared, n=16) -> list[dict]:
                                 "max_abs_err": 0.0 if same else float("nan"), "ok": same,
                                 **extra, **tag})
                 continue
-            ran = selective_scan_dual.stage_launches == before + 1
+            ran = selective_scan_dual.stage_launches == before + math.ceil(n / 16)
             want = selective_scan_dual_plain(dir_f, dir_r, save_states=save, bf16_stage=True)
             for i, (y, w) in enumerate(zip(got, want)):
                 tol = SCAN_TOL[dtype] if i < 2 else XB_TOL
@@ -693,7 +712,7 @@ def _check_bwd_forms(label, dims, dtype, n=16) -> list[dict]:
         base = launches(AUM_SCAN_BWD_FUSED=fused)
         before = selective_scan_bwd.bf16_partials_launches
         part = launches(AUM_SCAN_BWD_FUSED=fused, AUM_SCAN_BWD_BF16_PARTIALS=True)
-        ran = selective_scan_bwd.bf16_partials_launches == before + 3
+        ran = selective_scan_bwd.bf16_partials_launches == before + 3 * math.ceil(n / 16)
         for form, grads in part.items():
             for direction, (gr, br) in enumerate(zip(grads, base[form])):
                 checks = {name: compare_scaled(a, b, GRAD_TOL[torch.bfloat16])
@@ -712,7 +731,7 @@ def _check_bwd_forms(label, dims, dtype, n=16) -> list[dict]:
     want = selective_scan_bwd_plain(dirs, gs)
     before = selective_scan_bwd.xminus_launches
     got = launches(AUM_SCAN_BWD_XMINUS=True)
-    ran = selective_scan_bwd.xminus_launches == before + 3
+    ran = selective_scan_bwd.xminus_launches == before + 3 * math.ceil(n / 16)
     for form, grads in got.items():
         for direction, (gr, wr) in enumerate(zip(grads, want)):
             r = _grad_checks(GRAD_NAMES, gr, wr, GRAD_TOL[dtype])
@@ -727,7 +746,7 @@ def _check_bwd_forms(label, dims, dtype, n=16) -> list[dict]:
     with scan_switches(AUM_SCAN_BWD_XMINUS=True):
         got = selective_scan_bwd_cuda(dirs[:1], gs[:1], [xb_s], gfins=[gfin])[0]
     torch.cuda.synchronize()
-    ran = selective_scan_bwd.xminus_launches == before + 1
+    ran = selective_scan_bwd.xminus_launches == before + math.ceil(n / 16)
     want = selective_scan_bwd_plain(dirs[:1], gs[:1], states=[(x0, gfin)])[0]
     r = _grad_checks(GRAD_NAMES + ("dx0",), got, want, GRAD_TOL[dtype])
     results.append({**r, "ok": r["ok"] and ran, "kernel": "selective_scan_bwd",
@@ -926,10 +945,10 @@ def _grad_checks(names, got, want, tol) -> dict:
             "ok": all(c["ok"] for c in checks.values())}
 
 
-def _check_conv(label, dims, dtype, train: bool, offset=0) -> list[dict]:
+def _check_conv(label, dims, dtype, train: bool, offset=0, k=4) -> list[dict]:
     """The conv forward (or, train, its backward) against the plain version,
     causal and anti-causal, with bias and SiLU and without; x a column slice
-    from channel ``offset``."""
+    from channel ``offset``; width ``k``."""
     from aum_tpu_torch.ops.conv1d import (
         causal_conv1d_bwd_cuda,
         causal_conv1d_bwd_plain,
@@ -941,9 +960,9 @@ def _check_conv(label, dims, dtype, train: bool, offset=0) -> list[dict]:
     results = []
     for reverse in (False, True):
         for with_bias, act in ((True, "silu"), (False, None)):
-            x, w, b = conv_inputs(bsz, seqlen, d, 4, dtype, seed=3, offset=offset)
+            x, w, b = conv_inputs(bsz, seqlen, d, k, dtype, seed=3, offset=offset)
             b = b if with_bias else None
-            tag = dict(shape=label, dims=[bsz, seqlen, d, 4], dtype=str(dtype),
+            tag = dict(shape=label, dims=[bsz, seqlen, d, k], dtype=str(dtype),
                        reverse=reverse, bias=with_bias, activation=act,
                        **({"offset": offset} if offset else {}))
             if not train:
@@ -1246,13 +1265,15 @@ def _launches(**counts) -> dict:
     return {**dict.fromkeys(_counters(), 0), **counts}
 
 
-def _expected_train_launches(aum_type: str, depth: int, switches: dict, bf16: bool) -> dict:
+def _expected_train_launches(aum_type: str, depth: int, switches: dict, bf16: bool,
+                             slices: int = 1) -> dict:
     """What one forward and backward launches per layer: the scan's saving
     forward and its backward (the kernels the switches choose: the fuse_dt
     rule's saving forward is the staged kernel whatever AUM_SCAN_DIRECT says;
     the stage form takes bf16 streams only) and the conv four times (split
     remat: forward, recompute, the backward's pre-activation and dx; Bi-Bi's
-    two convs each)."""
+    two convs each). ``slices`` > 1 (d_state above 16): each scan kernel once
+    per slice of 16 states, and the combine and its backward once a layer."""
     on = {k for k, v in switches.items() if v}
     direct = "AUM_SCAN_DIRECT" in on and "AUM_SCAN_FUSE_DT" not in on
     if aum_type == "Fo-Fo":
@@ -1272,24 +1293,33 @@ def _expected_train_launches(aum_type: str, depth: int, switches: dict, bf16: bo
     if "AUM_SCAN_BWD_BF16_PARTIALS" in on:
         bwd["selective_scan_bwd_bf16_partials"] = depth
     convs = 2 if aum_type == "Bi-Bi" else 1
+    if slices > 1:
+        scans = {k: v * slices for k, v in scans.items()}
+        bwd = {k: v * slices for k, v in bwd.items()}
+        fwd_sliced = "selective_scan_fwd_sliced" if aum_type == "Fo-Fo" else \
+            "selective_scan_dual_fwd_sliced"
+        scans.update({fwd_sliced: slices * depth, "scan_combine_fwd": depth})
+        bwd.update({"selective_scan_bwd_sliced": slices * depth, "scan_combine_bwd": depth})
     return _launches(**scans, **bwd, causal_conv1d_fwd=4 * convs * depth)
 
 
 def _train_fp32_check(aum_type: str, switch_sets: dict, patch_size: int | None = None,
-                      batch: int = 2) -> dict:
+                      batch: int = 2, overrides: dict | None = None, slices: int = 1) -> dict:
     """fp32, full width, depth 2 (the CPU oracle's backward stays short): the
     loss and grads of one forward and backward, then one full train step
     without warmup (its lr is the schedule's 5e-5, not the warmup's 0), card
     against CPU; at the run-time ``patch_size`` where given. The card runs
     once per switch set (name -> switches), the CPU once. Returns the
-    launches of each card run's forward and backward."""
+    launches of each card run's forward and backward. ``overrides``: config
+    fields (a d_state whose scans take ``slices`` slices)."""
     import dataclasses
 
     from aum_tpu_torch.entry import STEPS_PER_EPOCH, TRAIN_HP, flagship_config
     from aum_tpu_torch.models import AudioMamba
     from aum_tpu_torch.train import init_train_state, loss_fn_of, make_optimizer, make_train_step
 
-    cfg = flagship_config(aum_type, dtype="float32", depth=2, remat=True, remat_mode="split")
+    cfg = flagship_config(aum_type, dtype="float32", depth=2, remat=True, remat_mode="split",
+                          **(overrides or {}))
     hp = dataclasses.replace(TRAIN_HP, warmup=False)
     g = torch.Generator().manual_seed(8)
     x = torch.randn((batch, 1024, 128), generator=g)
@@ -1335,11 +1365,13 @@ def _train_fp32_check(aum_type: str, switch_sets: dict, patch_size: int | None =
             moved = (after_c[k] - before_c[k]).norm().item()
             updates[k] = {"err_norm": err, "update_norm": moved,
                           "ok": moved > 0 and err <= TRAIN_FP32_TOL["update"] * moved}
-        expected = _expected_train_launches(aum_type, cfg.depth, switches, bf16=False)
+        expected = _expected_train_launches(aum_type, cfg.depth, switches, bf16=False,
+                                            slices=slices)
         loss_ok = abs(loss_g - loss_c) <= TRAIN_FP32_TOL["loss_rtol"] * abs(loss_c)
         ok = (loss_ok and all(c["ok"] for c in checks.values())
               and all(u["ok"] for u in updates.values()) and launches == expected)
         emit({"phase": "train_fp32_vs_cpu", "aum_type": aum_type, "patch_size": patch_size,
+              "d_state": cfg.d_state,
               "switches": {k: int(bool(v)) for k, v in switches.items()}, "batch": batch,
               "depth": cfg.depth, "width": cfg.embed_dim, "loss_gpu": loss_g, "loss_cpu": loss_c,
               "loss_rtol": TRAIN_FP32_TOL["loss_rtol"], "grads": checks, "lr": hp.lr,
@@ -3722,6 +3754,608 @@ def phase_profile() -> dict:
     return out
 
 
+# --- sizes: every shape the JAX package's ops take ------------------------------
+
+# The scan kernels run any d_state as slices of 16 states (the sliced
+# libraries) and a combine; the conv kernel any width to 8; the fuse_dt form
+# any dt rank to 400. The sizes phase holds each new form to its plain
+# version, drives AuM-Base and the Mamba LM with a wide state, and times
+# the new forms.
+SIZES_STATES = (17, 24, 32, 64, 128)
+SIZES_RAGGED = (2, 37, 40)
+# A length past grid.y's 65535 blocks: the combine puts L on grid.x.
+SIZES_LONG = (1, 70000, 40)
+SIZES_WIDE_N = 64
+SIZES_EVAL_DIMS = (BENCH_BATCH, 513, 1536)  # AuM-Base's eval batch
+SIZES_CONV_WIDTHS = (1, 2, 3, 5, 8)
+# The conv at the eval shapes, and at an unaligned D on a slice at an odd
+# channel offset (value by value).
+SIZES_CONV_DIMS = {"sizes_eval": ((64, 513, 1536), 0), "sizes_unaligned": ((2, 37, 36), 1)}
+SIZES_RANKS = (65, 80, 128, 256)
+# mamba-130m's widths with a wide state and a conv of width 3.
+SIZES_LM = dict(d_model=768, n_layer=24, vocab_size=50280, dtype="bfloat16", d_state=64,
+                d_conv=3)
+SIZES_DECODE_STEPS = 16
+
+
+def _check_no_gate(label, dims, dtype, n) -> list[dict]:
+    """The scan without z and/or D (the ungated kernels and the combine,
+    without its gate or skip term): the single-direction forward (as is, and
+    with_state), the dual forward, and the autograd op's backward (K2 and the
+    fused kernel, one and both directions), against their plain versions."""
+    from aum_tpu_torch.ops.selective_scan import (
+        _prep_dt,
+        selective_scan,
+        selective_scan_bwd_plain,
+        selective_scan_cuda,
+        selective_scan_dual,
+        selective_scan_dual_cuda,
+        selective_scan_dual_plain,
+        selective_scan_plain,
+    )
+
+    bsz, seqlen, d = dims
+    raw = scan_inputs(bsz, seqlen, d, n, dtype, seed=31)
+    atol, rtol = SCAN_TOL[dtype]
+    g = torch.Generator().manual_seed(32)
+    gouts = [torch.randn((bsz, seqlen, d), generator=g).to("cuda", dtype) for _ in range(2)]
+    x0 = torch.randn((bsz, d, n), generator=g).cuda()
+    results = []
+    for has_d, has_z in ((False, False), (False, True), (True, False)):
+        tag = dict(shape=label, dims=[bsz, seqlen, d, n], dtype=str(dtype), D=has_d, z=has_z)
+        D, z = (raw[5] if has_d else None), (raw[6] if has_z else None)
+        args = (raw[0], _prep_dt(raw[1], raw[7]), raw[2], raw[3], raw[4], D, z)
+        for reverse in (False, True):
+            got = selective_scan_cuda(args, reverse)
+            got_s, fin = selective_scan_cuda(args, reverse, initial_state=x0,
+                                             return_final_state=True)
+            torch.cuda.synchronize()
+            want_s, want_fin = selective_scan_plain(args, reverse, initial_state=x0,
+                                                    return_final_state=True)
+            for name, a, b, tol in (("out", got, selective_scan_plain(args, reverse),
+                                     (atol, rtol)),
+                                    ("with_state_out", got_s, want_s, (atol, rtol)),
+                                    ("final_state", fin, want_fin, XB_TOL)):
+                results.append({**compare(a, b, *tol), "kernel": "selective_scan_fwd",
+                                "form": "no_gate", "output": name,
+                                "direction": "reverse" if reverse else "forward", **tag})
+        rev = args[:2] + (args[2] * 0.5,) + args[3:]
+        got = selective_scan_dual_cuda(args, rev)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, selective_scan_dual_plain(args, rev))):
+            results.append({**compare(a, b, atol, rtol), "kernel": "selective_scan_dual_fwd",
+                            "form": "no_gate", "direction": "reverse" if i else "forward",
+                            **tag})
+        for fused in (False, True):
+            kernel = "selective_scan_bwd_fused" if fused else "selective_scan_bwd"
+            with scan_switches(AUM_SCAN_BWD_FUSED=fused):
+                leaves = [None if t is None else t.detach().requires_grad_() for t in raw[:7]]
+                leaves[5], leaves[6] = (leaves[5] if has_d else None), (leaves[6] if has_z
+                                                                        else None)
+                bias = raw[7].detach().requires_grad_()
+                y = selective_scan(*leaves, delta_bias=bias, delta_softplus=True)
+                y.backward(gouts[0])
+                y_f, y_r = selective_scan_dual(
+                    tuple(leaves) + (bias,), tuple(leaves[:2]) + (leaves[2] * 0.5,)
+                    + tuple(leaves[3:]) + (bias,))
+                torch.autograd.backward((y_f, y_r), gouts)
+            torch.cuda.synchronize()
+            # The op's grads summed over the three calls (one scan, two
+            # directions): against the plain backward of each, summed.
+            dirs = [args + (False,), args + (False,), rev + (True,)]
+            want = selective_scan_bwd_plain(dirs, [gouts[0], gouts[0], gouts[1]])
+            # The first run's y.backward and the dual's share the leaves; the
+            # plain grads of the three scans sum the same way (A_b = 0.5 A:
+            # the reverse direction's dA counts half).
+            sums = []
+            for j, name in enumerate(GRAD_NAMES[:7]):
+                parts = [w[j] for w in want]
+                if parts[0] is None:
+                    sums.append(None)
+                    continue
+                if name == "dA":
+                    parts[2] = parts[2] * 0.5
+                total = sum(p.float() for p in parts)
+                sums.append(total)
+            got_grads = [None if t is None else t.grad for t in leaves]
+            names = [nm for nm, w in zip(GRAD_NAMES[:7], sums) if w is not None]
+            r = _grad_checks(names, [gg for gg, w in zip(got_grads, sums) if w is not None],
+                             [w for w in sums if w is not None], GRAD_TOL[dtype])
+            bias_want = sum(w[7] for w in want)
+            rb = compare_scaled(bias.grad, bias_want, GRAD_TOL[dtype])
+            results.append({**r, "ok": r["ok"] and rb["ok"], "dbias": rb, "kernel": kernel,
+                            "form": "no_gate_autograd", **tag})
+    return results
+
+
+def _check_combine(label, dims, dtype, slices) -> list[dict]:
+    """The combine kernel and its backward alone against their plain
+    versions, two directions (one with z, one without D and z)."""
+    from aum_tpu_torch.ops.selective_scan import (
+        scan_combine_bwd_cuda,
+        scan_combine_bwd_plain,
+        scan_combine_cuda,
+        scan_combine_plain,
+    )
+
+    bsz, seqlen, d = dims
+    g = torch.Generator(device="cuda").manual_seed(33)  # gigabytes of planes: drawn on the card
+
+    def randn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    u, z, gout = (randn(bsz, seqlen, d, dt=dtype) for _ in range(3))
+    D = randn(d)
+    parts = [randn(slices, bsz, seqlen, d) for _ in range(5)]
+    tag = dict(shape=label, dims=[bsz, seqlen, d], slices=slices, dtype=str(dtype))
+    results = []
+    got = scan_combine_cuda([(parts[0], u, D, z), (parts[1], u, None, None)])
+    torch.cuda.synchronize()
+    for i, (a, want) in enumerate(zip(got, (scan_combine_plain(parts[0], u, D, z),
+                                            scan_combine_plain(parts[1], u, None, None)))):
+        results.append({**compare(a, want, *SCAN_TOL[dtype]), "kernel": "scan_combine_fwd",
+                        "gated": i == 0, **tag})
+    got = scan_combine_bwd_cuda([(parts[2], parts[3], parts[4], gout, z, u, D),
+                                 (parts[2], parts[3], None, gout, None, u, None)])
+    torch.cuda.synchronize()
+    wants = (scan_combine_bwd_plain(parts[2], parts[3], parts[4], gout, z, u, D),
+             scan_combine_bwd_plain(parts[2], parts[3], None, gout, None, u, None))
+    for i, (a, want) in enumerate(zip(got, wants)):
+        names = [nm for nm, w in zip(("du", "ddelta", "dz", "dD", "dbias"), want)
+                 if w is not None]
+        r = _grad_checks(names, [x for x, w in zip(a, want) if w is not None],
+                         [w for w in want if w is not None], GRAD_TOL[dtype])
+        results.append({**r, "kernel": "scan_combine_bwd", "gated": i == 0, **tag})
+    return results
+
+
+def _sizes_kernel_checks() -> list[dict]:
+    results = []
+    for n in SIZES_STATES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for train in (False, True):
+                for shared in (True, False):
+                    results += _check_scan("sizes_ragged", SIZES_RAGGED, dtype, shared, train, n)
+                for reverse in (False, True):
+                    results += _check_scan_single("sizes_ragged", SIZES_RAGGED, dtype, reverse,
+                                                  train, n)
+            results += _check_bwd_forms("sizes_ragged", SIZES_RAGGED, dtype, n)
+            for shared in (True, False):
+                results += _check_fdt("sizes_ragged", SIZES_RAGGED, dtype, shared, n, rank=12)
+        results += _check_stage("sizes_ragged", SIZES_RAGGED, True, n)
+    for n in (5, 16, 40):
+        for dtype in (torch.float32, torch.bfloat16):
+            results += _check_no_gate("sizes_no_gate", SIZES_RAGGED, dtype, n)
+    for dtype in (torch.float32, torch.bfloat16):
+        results += _check_combine("sizes_eval", SIZES_EVAL_DIMS, dtype, 4)
+        results += _check_combine("sizes_ragged", SIZES_RAGGED, dtype, 8)
+        results += _check_combine("sizes_long", SIZES_LONG, dtype, 2)
+        # N=64 at AuM-Base's eval shapes: the dual forward (v1) and the
+        # single-direction one.
+        results += _check_scan("sizes_eval", SIZES_EVAL_DIMS, dtype, True, False, SIZES_WIDE_N)
+        results += _check_scan_single("sizes_eval", SIZES_EVAL_DIMS, dtype, False, False,
+                                      SIZES_WIDE_N)
+    # At the train shapes (bf16, the path's dtype): the saving forward and
+    # both backward kernels, one and both directions, and the
+    # single-direction op under autograd.
+    results += _check_scan("sizes_train", TRAIN_DIMS, torch.bfloat16, True, True, SIZES_WIDE_N)
+    results += _check_scan_single("sizes_train", TRAIN_DIMS, torch.bfloat16, True, True,
+                                  SIZES_WIDE_N)
+    for k in SIZES_CONV_WIDTHS:
+        for label, (dims, offset) in SIZES_CONV_DIMS.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                for train in (False, True):
+                    results += _check_conv(label, dims, dtype, train, offset, k)
+    for rank in SIZES_RANKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            results += _check_fdt("sizes_ragged", SIZES_RAGGED, dtype, False, 16, rank)
+            results += _check_fdt("sizes_eval", EVAL_DIMS, dtype, True, 16, rank)
+    return results
+
+
+def _sizes_aum_paths() -> dict:
+    """AuM-Base Fo-Bi (bf16, depth 24, random weights from seed 0) with
+    d_state=64: a B=64 eval forward and a B=12 train step (split remat),
+    each between a reset and a read of every launch counter; ms per
+    forward and per step; then its fp32 depth-2 forward and train step
+    against the CPU."""
+    from aum_tpu_torch.entry import STEPS_PER_EPOCH, TRAIN_BATCH, TRAIN_HP, flagship_config
+    from aum_tpu_torch.models import AudioMamba
+    from aum_tpu_torch.train import (
+        init_train_state,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    n = SIZES_WIDE_N
+    slices = math.ceil(n / 16)
+    cfg = flagship_config(d_state=n)
+    depth = cfg.depth
+    model = AudioMamba(cfg, device="cuda", seed=0)
+    fn = make_eval_step(model)
+    x = torch.randn((BENCH_BATCH, 1024, 128), generator=torch.Generator().manual_seed(41))
+    x = x.cuda()
+    fn(x)
+    torch.cuda.synchronize()
+    _reset_counters()
+    logits = fn(x)
+    torch.cuda.synchronize()
+    eval_launches = _read_counters()
+    eval_ms = cuda_ms(lambda: fn(x), iters=5)
+    finite = bool(torch.isfinite(logits.float()).all())
+    expected = _launches(selective_scan_dual_fwd=slices * depth,
+                         selective_scan_dual_fwd_sliced=slices * depth,
+                         scan_combine_fwd=depth, causal_conv1d_fwd=depth)
+    out = {"eval": {"batch": BENCH_BATCH, "d_state": n, "ms_per_forward": eval_ms,
+                    "clips_per_s": BENCH_BATCH / (eval_ms / 1e3), "launches": eval_launches,
+                    "logits_shape": list(logits.shape), "finite": finite}}
+    emit({"phase": "sizes_aum_eval", **out["eval"]})
+    if tuple(logits.shape) != (BENCH_BATCH, 527) or not finite or eval_launches != expected:
+        raise RuntimeError(f"the d_state={n} eval forward gave {tuple(logits.shape)} "
+                           f"(finite {finite}) with launches {eval_launches}, expected {expected}")
+    del model, fn, logits
+    cfg = flagship_config(d_state=n, remat=True)
+    model = AudioMamba(cfg, device="cuda", seed=0)
+    state = init_train_state(model, make_optimizer(model.parameters(), TRAIN_HP))
+    step = make_train_step(TRAIN_HP, STEPS_PER_EPOCH, loss_type="BCE",
+                           generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(42)
+    batch = {"x": torch.randn((TRAIN_BATCH, 1024, 128), generator=g).cuda(),
+             "y": torch.nn.functional.one_hot(torch.arange(TRAIN_BATCH) % 527, 527).float().cuda()}
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    train_launches = _read_counters()
+    losses = [loss.item()]
+    step_ms = cuda_ms(lambda: step(state, batch), iters=3, warmup=0)
+    expected = _expected_train_launches("Fo-Bi", depth, {}, bf16=True, slices=slices)
+    out["train"] = {"batch": TRAIN_BATCH, "d_state": n, "loss": losses, "ms_per_step": step_ms,
+                    "clips_per_s": TRAIN_BATCH / (step_ms / 1e3),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "launches": train_launches, "expected_launches": expected}
+    emit({"phase": "sizes_aum_train", **out["train"]})
+    # One step under AUM_SCAN_BWD_FUSED=1: the fused backward's sliced form.
+    fused = {"AUM_SCAN_BWD_FUSED": True}
+    with scan_switches(**fused):
+        _reset_counters()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        fused_launches = _read_counters()
+    losses.append(loss.item())
+    expected_fused = _expected_train_launches("Fo-Bi", depth, fused, bf16=True, slices=slices)
+    out["train"].update(loss=losses, fused_launches=fused_launches)
+    emit({"phase": "sizes_aum_train_fused", "launches": fused_launches,
+          "expected_launches": expected_fused, "loss": losses[-1]})
+    if (not all(math.isfinite(v) for v in losses) or train_launches != expected
+            or fused_launches != expected_fused):
+        raise RuntimeError(f"the d_state={n} train step: loss {losses}, launches "
+                           f"{train_launches} and {fused_launches} (fused), expected "
+                           f"{expected} and {expected_fused}")
+    del model, state, step, batch
+    # fp32 at depth 2 on the card against the CPU: the forward's logits (B=2)
+    # and a train step.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = flagship_config(dtype="float32", depth=2, d_state=n)
+    x = torch.randn((2, 1024, 128), generator=torch.Generator().manual_seed(43))
+    with torch.inference_mode():
+        got = AudioMamba(cfg32, device="cuda", seed=0)(x.cuda()).cpu()
+        want = AudioMamba(cfg32, device="cpu", seed=0)(x)
+    r = compare(got, want, *MODEL_FP32_TOL)
+    emit({"phase": "sizes_aum_fp32_vs_cpu", "depth": 2, "d_state": n, **r})
+    if not r["ok"]:
+        raise RuntimeError(f"the d_state={n} fp32 forward on the card disagrees with the CPU")
+    out["fp32_logits"] = r
+    out["fp32_train"] = _train_fp32_check("Fo-Bi", {"default": {}}, overrides={"d_state": n},
+                                          slices=slices)
+    return out
+
+
+def _sizes_lm_path() -> dict:
+    """The Mamba LM at mamba-130m's widths with d_state=64 and d_conv=3 (bf16,
+    random weights from seed 0): a B=8 x 512 prefill and SIZES_DECODE_STEPS
+    decode steps (launches of each, ms); then the fp32 depth-2 checks against
+    the CPU and against stepwise decoding (``_lm_fp32_checks``)."""
+    from aum_tpu_torch.models.lm import MambaLM, MambaLMConfig, decode_step, prefill
+
+    cfg = MambaLMConfig(**SIZES_LM)
+    slices = math.ceil(cfg.d_state / 16)
+    bsz, seqlen, _ = LM_PREFILL_DIMS
+    model = MambaLM(cfg, device="cuda", seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (bsz, seqlen),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    prefill(model, ids)
+    torch.cuda.synchronize()
+    _reset_counters()
+    logits, state = prefill(model, ids)
+    torch.cuda.synchronize()
+    prefill_launches = _read_counters()
+    prefill_ms = cuda_ms(lambda: prefill(model, ids), iters=3)
+    _reset_counters()
+    token = logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    finite = bool(torch.isfinite(logits.float()).all())
+    for _ in range(SIZES_DECODE_STEPS):
+        step_logits, state = decode_step(model, token, state)
+        token = step_logits.argmax(dim=-1)
+        finite = finite and bool(torch.isfinite(step_logits.float()).all())
+    end.record()
+    end.synchronize()
+    decode_launches = _read_counters()
+    depth = cfg.n_layer
+    expected = _launches(selective_scan_fwd=slices * depth,
+                         selective_scan_fwd_with_state=slices * depth,
+                         selective_scan_fwd_sliced=slices * depth, scan_combine_fwd=depth,
+                         causal_conv1d_fwd=depth)
+    out = {"phase": "sizes_lm_path", "config": SIZES_LM, "batch": bsz, "prompt": seqlen,
+           "decode_steps": SIZES_DECODE_STEPS, "logits_shape": list(logits.shape),
+           "finite": finite, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": bsz * seqlen / (prefill_ms / 1e3),
+           "decode_step_ms": start.elapsed_time(end) / SIZES_DECODE_STEPS,
+           "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+           "conv_state_shape": list(state["conv"].shape),
+           "ssm_state_shape": list(state["ssm"].shape)}
+    emit(out)
+    if (tuple(logits.shape) != (bsz, cfg.padded_vocab) or not finite
+            or prefill_launches != expected or decode_launches != _launches()
+            or tuple(state["ssm"].shape[-1:]) != (cfg.d_state,)
+            or tuple(state["conv"].shape[-1:]) != (cfg.d_conv,)):
+        raise RuntimeError(f"the wide-state LM: logits {tuple(logits.shape)} finite {finite}, "
+                           f"prefill launches {prefill_launches} (expected {expected}), "
+                           f"decode launches {decode_launches}")
+    del model, state
+    out["fp32"] = _lm_fp32_checks(cfg)
+    return out
+
+
+def _slice_fwd_bounds(bsz, seqlen, d, n, es, sfu_rate, ndir, state_bytes=0) -> dict:
+    """One ungated forward launch on a slice of ``n`` states, ``ndir``
+    directions sharing u, dt, B and C (v1): u, dt, the slice's columns of B
+    and C read once, per direction its rows of A read and its fp32 partial
+    written once (plus ``state_bytes`` of carried states); one exp2 and
+    SCAN_FP32_OPS_PER_ELEMENT FP32-pipe instructions per (b, l, d, n) and
+    direction."""
+    bld, elems = bsz * seqlen * d, ndir * bsz * seqlen * d * n
+    nbytes = (2 * bld + 2 * bsz * seqlen * n) * es + ndir * (n * d * 4 + bld * 4) + state_bytes
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": exp_floor_s(elems, SCAN_FP32_OPS_PER_ELEMENT * elems, sfu_rate) * 1e3}
+
+
+def _slice_bwd_bounds(bsz, seqlen, d, n, es, sfu_rate, ndir) -> dict:
+    """One ungated backward launch on a slice of ``n`` states, ``ndir``
+    directions sharing u, dt, z, B and C (v1): those read once (B and C the
+    slice's columns), per direction its cotangent, its saved states and
+    rows of A read, its fp32 du, ddelta and y partials, dA rows and dB, dC
+    columns written once; SCAN_BWD_FP32_OPS_PER_ELEMENT per (b, l, d, n) and
+    direction."""
+    from aum_tpu_torch.ops.selective_scan import STATE_CHUNK
+
+    bld, bln = bsz * seqlen * d, bsz * seqlen * n
+    xb_bytes = bsz * math.ceil(seqlen / STATE_CHUNK) * n * d * 4
+    elems = ndir * bld * n
+    nbytes = (3 * bld + 2 * bln) * es + ndir * (bld * es + xb_bytes + n * d * 4
+                                               + 3 * bld * 4 + n * d * 4 + 2 * bln * es)
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": exp_floor_s(elems, SCAN_BWD_FP32_OPS_PER_ELEMENT * elems,
+                                      sfu_rate) * 1e3}
+
+
+def _sizes_bench(sfu_rate: float) -> dict:
+    """ms per launch of the new forms (bf16), each beside its bound and its
+    plain version's ms. The sliced forms are timed one launch on one slice
+    of 16 states, as the path launches it (its own fp32 planes per
+    direction), beside their whole op at N=64: the dual forward at
+    AuM-Base's eval shapes; the backward of both directions at the train
+    shapes, K2 and the fused kernel in turns; the with_state forward at the
+    LM prefill's shapes; the combine and its backward on planes of their
+    own per direction. Then the conv at each width and the fuse_dt form at
+    each dt rank (N=16)."""
+    from aum_tpu_torch.ops.conv1d import causal_conv1d_cuda, causal_conv1d_plain
+    from aum_tpu_torch.ops.selective_scan import (
+        _bwd_launch,
+        _launch_dual,
+        _launch_single,
+        _prep_dt,
+        _scan_dir_args,
+        _slice_dir,
+        _sliced_lib,
+        scan_combine_bwd_cuda,
+        scan_combine_bwd_plain,
+        scan_combine_cuda,
+        scan_combine_plain,
+        selective_scan_bwd_cuda,
+        selective_scan_bwd_plain,
+        selective_scan_cuda,
+        selective_scan_dual_cuda,
+        selective_scan_dual_fdt_cuda,
+        selective_scan_dual_fdt_plain,
+        selective_scan_dual_plain,
+        selective_scan_plain,
+    )
+
+    dtype, es, n, ns = torch.bfloat16, 2, SIZES_WIDE_N, 16
+    slices = math.ceil(n / ns)
+    out = {}
+    bsz, seqlen, d = SIZES_EVAL_DIMS
+    bld = bsz * seqlen * d
+    u, delta, A, B, C, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed=44)
+    fwd = (u, _prep_dt(delta, bias), A, B, C, D, z)
+    rev = fwd[:2] + (A * 0.5,) + fwd[3:]
+    op_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev), iters=20)
+    # Each direction its own S fp32 planes, as the path has them; the slice
+    # launch writes the first plane of each.
+    parts = [torch.randn((slices, bsz, seqlen, d), device="cuda") for _ in range(2)]
+    slice_f, slice_r = _slice_dir(fwd, 0, ns), _slice_dir(rev, 0, ns)
+    args_f, _, _, _, keep_f = _scan_dir_args(*slice_f, False, out=parts[0][0])
+    args_r, _, _, _, keep_r = _scan_dir_args(*slice_r, False, out=parts[1][0])
+    slice_ms = cuda_ms(lambda: _launch_dual(_sliced_lib(), "aum_selective_scan_dual_fwd",
+                                            args_f, args_r, u, ns), iters=50)
+    del keep_f, keep_r
+    combine_ms = cuda_ms(lambda: scan_combine_cuda([(parts[0], u, D, z), (parts[1], u, D, z)]),
+                         iters=50)
+    out["scan_sliced"] = {
+        "ms": slice_ms, "op_ms": op_ms, "combine_ms": combine_ms,
+        "plain_ms": cuda_ms(lambda: selective_scan_dual_plain(slice_f, slice_r), iters=1,
+                            warmup=0),
+        "bounds_ms": _slice_fwd_bounds(bsz, seqlen, d, ns, es, sfu_rate, 2),
+        "dims": [bsz, seqlen, d, n], "slices": slices}
+    # The combine: per direction its S fp32 planes read and its output
+    # written, u and z read once for both (v1); S + 4 operations per element.
+    cbytes = (2 * slices * bld * 4 + 2 * bld * es + 2 * bld * es) + d * 8
+    out["combine"] = {"ms": combine_ms,
+                      "plain_ms": cuda_ms(lambda: [scan_combine_plain(p, u, D, z)
+                                                   for p in parts], iters=5),
+                      "bounds_ms": {"bytes": cbytes / HBM_BYTES_PER_S * 1e3,
+                                    "fp32_flops": 2 * bld * (slices + 4) / FP32_FLOPS_PER_S
+                                    * 1e3}}
+    del fwd, rev, slice_f, slice_r, u, delta, z, B, C, parts
+    # The sliced backward at the train shapes, both directions (v1).
+    bsz, seqlen, d = TRAIN_DIMS
+    bld = bsz * seqlen * d
+    u, delta, A, B, C, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed=45)
+    fwd = (u, _prep_dt(delta, bias), A, B, C, D, z)
+    rev = fwd[:2] + (A * 0.5,) + fwd[3:]
+    save_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd, rev, save_states=True), iters=20)
+    _, _, xb_f, xb_r = selective_scan_dual_cuda(fwd, rev, save_states=True)
+    gs = [torch.randn((bsz, seqlen, d), generator=torch.Generator().manual_seed(i)).to(
+        "cuda", dtype) for i in range(2)]
+    dirs = [fwd + (False,), rev + (True,)]
+    # Per direction its own du, ddelta and y planes; the slice launch writes
+    # the first of each.
+    planes = [[torch.randn((slices, bsz, seqlen, d), device="cuda") for _ in range(3)]
+              for _ in range(2)]
+    items = [(dr[0], dr[1], dr[2][:, :ns].contiguous(), dr[3][..., :ns], dr[4][..., :ns], None,
+              dr[6], g, xb[:, :, :ns].contiguous(), dr[7], None, *(p[0] for p in pl))
+             for dr, g, xb, pl in zip(dirs, gs, (xb_f, xb_r), planes)]
+    bwd = {"k2": [], "fused": []}
+    bwd_slice = {"k2": [], "fused": []}
+    for name in ("fused", "k2", "k2", "fused"):
+        with scan_switches(AUM_SCAN_BWD_FUSED=name == "fused"):
+            bwd[name].append(cuda_ms(lambda: selective_scan_bwd_cuda(dirs, gs, [xb_f, xb_r]),
+                                     iters=10))
+        bwd_slice[name].append(cuda_ms(lambda: _bwd_launch(
+            name == "fused", True, items, bsz, seqlen, d, ns, dtype, softplus=True,
+            xminus=False, bf16_partials=False), iters=10))
+    cbwd_ms = cuda_ms(lambda: scan_combine_bwd_cuda(
+        [(*planes[i], gs[i], z, u, D) for i in range(2)]), iters=20)
+    # The slice's function: the ungated backward on its 16 states, from the
+    # pre-gate cotangent g silu(z).
+    slice_dirs = [_slice_dir(dr, 0, ns) + (dr[7],) for dr in dirs]
+    gys = [(g.float() * torch.nn.functional.silu(z.float())).to(dtype) for g in gs]
+    bwd_plain_ms = cuda_ms(lambda: selective_scan_bwd_plain(slice_dirs, gys), iters=1,
+                           warmup=0)
+    for name in ("k2", "fused"):
+        out[f"scan_bwd_sliced_{name}"] = {
+            "ms": min(bwd_slice[name]), "ms_in_turns": bwd_slice[name],
+            "op_ms_in_turns": bwd[name], "plain_ms": bwd_plain_ms,
+            "bounds_ms": _slice_bwd_bounds(bsz, seqlen, d, ns, es, sfu_rate, 2),
+            "dims": [bsz, seqlen, d, n], "slices": slices}
+    out["scan_save_sliced"] = {"op_ms": save_ms, "dims": [bsz, seqlen, d, n]}
+    # Per direction its S fp32 du, ddelta and y planes and its cotangent
+    # read, du, ddelta and dz written; u and z read once for both (v1).
+    cbbytes = 2 * (3 * slices * bld * 4 + bld * es + 3 * bld * es) + 2 * bld * es + d * 20
+    out["combine_bwd"] = {"ms": cbwd_ms, "plain_ms": cuda_ms(lambda: [
+        scan_combine_bwd_plain(*planes[i], gs[i], z, u, D) for i in range(2)], iters=3),
+        "bounds_ms": {"bytes": cbbytes / HBM_BYTES_PER_S * 1e3,
+                      "fp32_flops": 2 * bld * (3 * slices + 12) / FP32_FLOPS_PER_S * 1e3}}
+    del fwd, rev, dirs, slice_dirs, items, xb_f, xb_r, planes, gys, u, delta, z, B, C
+    # The sliced with_state forward at the LM prefill's shapes.
+    bsz, seqlen, d = LM_PREFILL_DIMS
+    u, delta, A, B, C, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed=46)
+    args = (u, _prep_dt(delta, bias), A, B, C, D, z)
+    x0 = torch.zeros((bsz, d, n), device="cuda")
+    ws_ms = cuda_ms(lambda: selective_scan_cuda(args, False, initial_state=x0,
+                                                return_final_state=True), iters=20)
+    parts = torch.randn((slices, bsz, seqlen, d), device="cuda")
+    ws_combine = cuda_ms(lambda: scan_combine_cuda([(parts, u, D, z)]), iters=50)
+    slice_args = _slice_dir(args, 0, ns)
+    kargs, _, _, _, keep = _scan_dir_args(
+        *slice_args, False, x0[..., :ns].transpose(1, 2).contiguous(), out=parts[0])
+    ws_slice = cuda_ms(lambda: _launch_single(_sliced_lib(), kargs, False, u, ns), iters=50)
+    del keep
+    out["scan_single_sliced_with_state"] = {
+        "ms": ws_slice, "op_ms": ws_ms, "combine_ms": ws_combine,
+        "plain_ms": cuda_ms(lambda: selective_scan_plain(
+            slice_args, False, initial_state=x0[..., :ns], return_final_state=True),
+            iters=1, warmup=0),
+        "bounds_ms": _slice_fwd_bounds(bsz, seqlen, d, ns, es, sfu_rate, 1,
+                                       2 * bsz * ns * d * 4),
+        "dims": [bsz, seqlen, d, n], "slices": slices}
+    del args, slice_args, parts, u, delta, z, B, C
+    # The conv at each width, at the eval shapes.
+    bsz, seqlen, d = SIZES_EVAL_DIMS
+    out["conv_by_width"] = {}
+    for k in SIZES_CONV_WIDTHS + (4,):
+        xc, w, b = conv_inputs(bsz, seqlen, d, k, dtype, seed=47)
+        w3 = w[:, None, :]
+        out["conv_by_width"][str(k)] = {
+            "ms": cuda_ms(lambda: causal_conv1d_cuda(xc, w, b, "silu", False), iters=500),
+            "plain_ms": cuda_ms(lambda: causal_conv1d_plain(xc, w, b, "silu", False), iters=5),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.silu(torch.nn.functional.conv1d(
+                xc.transpose(1, 2), w3, b, padding=k - 1, groups=d)[..., :seqlen]), iters=20),
+            "bounds_ms": _conv_bounds(bsz, seqlen, d, k, es)}
+        del xc, w, b
+    # The fuse_dt form at each dt rank (N=16, v1), at the eval shapes.
+    out["fdt_by_rank"] = {}
+    n16 = 16
+    for rank in SIZES_RANKS + (48,):
+        fold = fold_inputs(bsz, seqlen, d, n16, dtype, seed=48, rank=rank)
+        fold_r = fold[:3] + (fold[3] * 0.5,) + fold[4:]
+        elems = 2 * bsz * seqlen * d * n16
+        sbytes = (3 * bsz * seqlen * d + 2 * bsz * seqlen * n16) * es + 2 * bsz * seqlen * d * es \
+            + 2 * d * n16 * 4 + d * 4
+        fbytes = sbytes - bsz * seqlen * d * es + bsz * seqlen * rank * es + rank * d * es + d * 4
+        product_s = 2 * bsz * seqlen * rank * d / BF16_TENSOR_FLOPS_PER_S
+        out["fdt_by_rank"][str(rank)] = {
+            "ms": cuda_ms(lambda: selective_scan_dual_fdt_cuda(fold, fold_r), iters=50),
+            "plain_ms": cuda_ms(lambda: selective_scan_dual_fdt_plain(fold, fold_r), iters=1,
+                                warmup=0),
+            "bounds_ms": {"bytes": fbytes / HBM_BYTES_PER_S * 1e3,
+                          "operations": (exp_floor_s(elems, SCAN_FP32_OPS_PER_ELEMENT * elems,
+                                                     sfu_rate) + product_s) * 1e3}}
+        del fold, fold_r
+    emit({"phase": "sizes_bench", "dtype": "bfloat16", **out})
+    return out
+
+
+def phase_sizes(device_info: dict) -> dict:
+    """The shapes the JAX package's ops take beyond the default paths':
+    every new form against its plain version, the wide-state
+    AuM-Base and Mamba LM paths, and the new forms' ms."""
+    t0 = time.perf_counter()
+    results = _sizes_kernel_checks()
+    worst = {}
+    for r in results:
+        emit({"phase": "sizes_kernels", **r})
+        if r["dtype"] == str(torch.bfloat16) and r.get("against", "plain") == "plain":
+            key = r["kernel"] + ("_no_gate" if "no_gate" in r.get("form", "") else "")
+            worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+    failed = [r for r in results if not r["ok"]]
+    emit({"phase": "sizes_kernels_summary", "checks": len(results), "failed": len(failed),
+          "worst_bf16_max_abs_err": worst, "seconds": time.perf_counter() - t0})
+    if failed:
+        raise RuntimeError(f"{len(failed)} sizes checks disagree with the plain version")
+    seconds = {"kernels": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    aum = _sizes_aum_paths()
+    seconds["aum"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = _sizes_lm_path()
+    seconds["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sfu_rate = device_info["sms"] * SFU_PER_SM_PER_CLOCK * max_sm_clock_hz()
+    bench = _sizes_bench(sfu_rate)
+    seconds["bench"] = time.perf_counter() - t0
+    emit({"phase": "sizes_seconds", **seconds})
+    return {"worst": worst, "aum": aum, "lm": lm, "bench": bench}
+
+
 def _bound(bounds: dict) -> tuple[float, str]:
     key = max(bounds, key=bounds.get)
     return bounds[key], "bytes" if key == "bytes" else "operations"
@@ -3764,6 +4398,7 @@ def main() -> int:
         epic = timed("epic", phase_epic)
         flex = timed("flex", phase_flex, device_info)
         lm = timed("lm", phase_lm)
+        sizes = timed("sizes", phase_sizes, device_info)
         porters = timed("porters", phase_porters)
         ast = timed("ast", phase_ast)
         serving = timed("serving", phase_serving)
@@ -3984,7 +4619,63 @@ def main() -> int:
     scan["save_states"]["launches_by_path"] = {
         "train": train_launches["selective_scan_dual_fwd_save_states"],
         "flex_train_step": flex["recipe"]["step_launches"]["selective_scan_dual_fwd_save_states"]}
-    emit({"kernels": [scan, direct, fdt, stage, single, bwd, fused, conv]})
+    # The sizes phase (d_state 64, d_conv 3, dt ranks past 64): the sliced
+    # forms of the scan kernels and the combine, the conv by width and the
+    # fuse_dt form by dt rank.
+    sw, sb = sizes["worst"], sizes["bench"]
+    s_eval, s_train = sizes["aum"]["eval"]["launches"], sizes["aum"]["train"]["launches"]
+    s_lm = sizes["lm"]["prefill_launches"]
+    sliced_replaces = "aum_tpu/ops/selective_scan.py:{} (d_state above 16: N padded, :1127)"
+    scan["sliced"] = _kernel_entry(
+        "selective_scan_dual_fwd", scan["source"] + " (selective_scan_sliced)",
+        sliced_replaces.format(1648), s_eval["selective_scan_dual_fwd_sliced"],
+        sw["selective_scan_dual_fwd"], sb["scan_sliced"])
+    bwd["sliced"] = _kernel_entry(
+        "selective_scan_bwd", bwd["source"] + " (selective_scan_bwd_sliced)",
+        sliced_replaces.format(822), s_train["selective_scan_bwd_sliced"],
+        sw["selective_scan_bwd"], sb["scan_bwd_sliced_k2"])
+    fused["sliced"] = _kernel_entry(
+        "selective_scan_bwd_fused", fused["source"] + " (selective_scan_bwd_fused_sliced)",
+        sliced_replaces.format(553),
+        sizes["aum"]["train"]["fused_launches"]["selective_scan_bwd_fused"],
+        sw["selective_scan_bwd_fused"], sb["scan_bwd_sliced_fused"])
+    single["sliced"] = _kernel_entry(
+        "selective_scan_fwd", single["source"] + " (selective_scan_sliced)",
+        sliced_replaces.format(111), s_lm["selective_scan_fwd_sliced"],
+        sw["selective_scan_fwd"], sb["scan_single_sliced_with_state"])
+    for entry, counter in ((scan["sliced"], "selective_scan_dual_fwd_sliced"),
+                           (bwd["sliced"], "selective_scan_bwd_sliced"),
+                           (fused["sliced"], "selective_scan_bwd_fused"),
+                           (single["sliced"], "selective_scan_fwd_sliced")):
+        entry["launches_by_path"] = {
+            "sizes_aum_eval_b64": s_eval[counter], "sizes_aum_train_step": s_train[counter],
+            "sizes_aum_train_step_fused": sizes["aum"]["train"]["fused_launches"][counter],
+            "sizes_lm_prefill": s_lm[counter], "eval": eval_launches[counter],
+            "train": train_launches[counter], "lm_prefill": lm["prefill_launches"][counter]}
+    combine = _kernel_entry(
+        "scan_combine_fwd", "aum_tpu_torch/csrc/scan_combine.cu",
+        "aum_tpu/ops/selective_scan.py:1648 (the y readout summed over the padded states, "
+        ":1127; :111 likewise)", s_eval["scan_combine_fwd"], sw["scan_combine_fwd"],
+        sb["combine"])
+    combine["bwd"] = _kernel_entry(
+        "scan_combine_bwd", combine["source"],
+        "aum_tpu/ops/selective_scan.py:822 (d_state above 16: dz, dD and the sums over slices)",
+        s_train["scan_combine_bwd"], sw["scan_combine_bwd"], sb["combine_bwd"])
+    for entry, counter in ((combine, "scan_combine_fwd"), (combine["bwd"], "scan_combine_bwd")):
+        entry["launches_by_path"] = {
+            "sizes_aum_eval_b64": s_eval[counter], "sizes_aum_train_step": s_train[counter],
+            "sizes_lm_prefill": s_lm[counter], "eval": eval_launches[counter],
+            "train": train_launches[counter], "lm_prefill": lm["prefill_launches"][counter]}
+
+    def timed_entry(b):
+        bound, by = _bound(b["bounds_ms"])
+        return {"ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": bound, "bound_by": by,
+                **({"library_ms": b["library_ms"]} if "library_ms" in b else {})}
+
+    conv["by_width"] = {k: timed_entry(b) for k, b in sb["conv_by_width"].items()}
+    conv["by_width"]["3"]["launches_by_path"] = {"sizes_lm_prefill": s_lm["causal_conv1d_fwd"]}
+    fdt["by_rank"] = {r: timed_entry(b) for r, b in sb["fdt_by_rank"].items()}
+    emit({"kernels": [scan, direct, fdt, stage, single, bwd, fused, conv, combine]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

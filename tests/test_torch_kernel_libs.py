@@ -97,16 +97,20 @@ def test_kernel_resources_raises_on_a_cuda_error(monkeypatch):
 conv = importlib.import_module("aum_tpu_torch.ops.conv1d")
 
 
-@pytest.mark.parametrize("channels,tile,error", [
-    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, None),
-    (4, conv.TILE_STEPS, "aum_conv_channels_per_thread"),
-    (conv.CHANNELS_PER_THREAD, 64, "aum_conv_tile_steps")], ids=["same", "channels", "tile"])
-def test_conv_lib_checks_its_constants(channels, tile, error, monkeypatch):
+@pytest.mark.parametrize("channels,tile,width,error", [
+    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, conv.MAX_WIDTH, None),
+    (4, conv.TILE_STEPS, conv.MAX_WIDTH, "aum_conv_channels_per_thread"),
+    (conv.CHANNELS_PER_THREAD, 64, conv.MAX_WIDTH, "aum_conv_tile_steps"),
+    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, 4, "aum_conv_max_width")],
+    ids=["same", "channels", "tile", "width"])
+def test_conv_lib_checks_its_constants(channels, tile, width, error, monkeypatch):
     """The conv kernel's channels per thread and steps per tile, from which
-    the card's edge checks are sized: a library built with others is refused
-    at load."""
+    the card's edge checks are sized, and the widest conv it is built for
+    (the wrapper refuses wider ones before a launch): a library built with
+    others is refused at load."""
     lib = _Lib(aum_causal_conv1d_fwd=lambda *a: 0, aum_conv_error_string=lambda status: b"",
-               aum_conv_channels_per_thread=lambda: channels, aum_conv_tile_steps=lambda: tile)
+               aum_conv_channels_per_thread=lambda: channels, aum_conv_tile_steps=lambda: tile,
+               aum_conv_max_width=lambda: width)
     monkeypatch.setattr(_build, "library", lambda name: lib)
     if error is None:
         assert conv._lib.__wrapped__() is lib
@@ -115,30 +119,78 @@ def test_conv_lib_checks_its_constants(channels, tile, error, monkeypatch):
             conv._lib.__wrapped__()
 
 
-def _scan_lib_with(max_rank: int, smem: int) -> _Lib:
+def _scan_lib_with(max_rank: int, smem: int, dtypes=(0, 1)) -> _Lib:
     return _Lib(**{f"aum_selective_scan_{form}": lambda *a: 0
                    for form in ("dual_fwd", "dual_direct_fwd", "dual_fdt_fwd", "dual_stage_fwd",
                                 "fwd")},
                 aum_scan_error_string=lambda status: b"",
                 aum_scan_state_chunk=lambda: ss.STATE_CHUNK,
                 aum_scan_fdt_max_rank=lambda: max_rank,
-                aum_scan_fdt_smem_bytes=lambda rank, dtype: smem if rank == max_rank else 0)
+                aum_scan_fdt_smem_bytes=lambda rank, dtype: (
+                    smem if rank == max_rank and dtype in dtypes else 0))
 
 
 @pytest.mark.parametrize("max_rank,smem,error", [
-    (ss.MAX_DT_RANK, ss.FDT_SMEM_PER_BLOCK, None),
-    (32, ss.FDT_SMEM_PER_BLOCK, "aum_scan_fdt_max_rank"),
-    (ss.MAX_DT_RANK, ss.FDT_SMEM_PER_BLOCK + 16, "shared memory")],
+    (ss.MAX_DT_RANK, ss.SMEM_PER_BLOCK, None),
+    (32, ss.SMEM_PER_BLOCK, "aum_scan_fdt_max_rank"),
+    (ss.MAX_DT_RANK, ss.SMEM_PER_BLOCK + 16, "shared memory")],
     ids=["same", "rank", "smem"])
 def test_scan_lib_checks_the_fuse_dt_constants(max_rank, smem, error, monkeypatch):
     """The fuse_dt kernel's largest dt rank (the wrapper refuses larger ones
-    before a launch) and its shared memory per block at that rank, which
-    must leave room for 4 blocks per SM: a library that differs is refused at
-    load."""
+    before a launch) and its shared memory per block at that rank in fp32
+    and bf16, which must fit what a block can hold on the card: a library
+    that differs is refused at load, the gated one and the sliced one
+    alike."""
     lib = _scan_lib_with(max_rank, smem)
     monkeypatch.setattr(_build, "library", lambda name: lib)
-    if error is None:
-        assert ss._lib.__wrapped__() is lib
-    else:
-        with pytest.raises(RuntimeError, match=error):
-            ss._lib.__wrapped__()
+    for loader in (ss._lib, ss._sliced_lib):
+        if error is None:
+            assert loader.__wrapped__() is lib
+        else:
+            with pytest.raises(RuntimeError, match=error):
+                loader.__wrapped__()
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["fp32", "bf16"])
+def test_scan_lib_checks_the_fuse_dt_smem_in_each_dtype(dtype, monkeypatch):
+    """Past what a block holds in one dtype alone is refused too."""
+    lib = _scan_lib_with(ss.MAX_DT_RANK, ss.SMEM_PER_BLOCK + 16, dtypes=(dtype,))
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ss._lib.__wrapped__()
+
+
+def test_sliced_libraries_are_the_scan_sources_built_ungated(tmp_path, monkeypatch):
+    """Every source is its own library, and each scan source a second one,
+    ``<name>_sliced``, built with -DAUM_SCAN_GATED=0; the sliced backward
+    libraries are checked at load as the gated ones are."""
+    calls = []
+
+    class _Proc:
+        def __init__(self, cmd, **kw):
+            calls.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+            self.returncode = 0
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", _Proc)
+    paths = _build.build_all()
+    assert set(paths) == set(_build.SOURCES) | {f"{n}_sliced" for n in (
+        "selective_scan", "selective_scan_bwd", "selective_scan_bwd_fused")}
+    by_out = {cmd[cmd.index("-o") + 1]: cmd for cmd in calls}
+    for name, path in paths.items():
+        cmd = next(c for out, c in by_out.items() if out.startswith(str(path.with_suffix(""))))
+        source = name.removesuffix("_sliced")
+        assert cmd[-1].endswith(f"csrc/{source}.cu")
+        assert ("-DAUM_SCAN_GATED=0" in cmd) == name.endswith("_sliced")
+    assert _build.build_all() == paths and len(calls) == len(paths)  # built once
+    for which in ("k2", "fused"):
+        name, prefix, loader, block_channels = _BWD_LIBS[which]
+        lib = _bwd_lib_with(prefix, block_channels)
+        monkeypatch.setattr(_build, "library",
+                            lambda n, lib=lib, name=name: lib if n == f"{name}_sliced" else None)
+        assert getattr(ss, loader).__wrapped__(f"{name}_sliced") is lib

@@ -16,8 +16,8 @@ function on the same token ids:
   of the same key), which the test checks first);
 - ``save_pretrained`` / ``load_pretrained`` in both directions between the
   packages, and ``from_pretrained_hf`` on a local directory the test writes;
-- the kernel limits (d_state, d_conv) raising for a CUDA device, checked
-  without a card through ``check_kernel_limits``.
+- the kernel limits for a CUDA device (any d_state, conv widths 1 to 8),
+  checked without a card through ``check_kernel_limits``.
 
 The JAX prefill and forward run the Pallas scan kernel in interpret mode on
 the CPU, as ``tests/test_lm.py`` runs them; their results are computed once
@@ -237,20 +237,26 @@ def test_from_pretrained_hf_local_dir(models, tmp_path):
         from_pretrained_hf("state-spaces/mamba-130m", device="cpu")
 
 
-@pytest.mark.parametrize("field,value,match", [
-    ("d_state", 32, "d_state <= 16"),
-    ("d_conv", 3, "width 4 only"),
+@pytest.mark.parametrize("overrides,match", [
+    ({"d_state": 32, "d_conv": 3}, None),
+    ({"d_conv": 9}, "widths 1..8"),
 ], ids=["d_state", "d_conv"])
-def test_kernel_limits_raise_on_cuda(field, value, match):
+def test_kernel_limits_raise_on_cuda(overrides, match):
+    """The kernels take any d_state (in slices of 16 states) and conv widths
+    1 to 8: d_state 32 with d_conv 3 is taken on a CUDA device, a width past
+    8 (the one cap left) raises there; the CPU's plain path takes both."""
     import dataclasses
 
     import torch
 
     from aum_tpu_torch.models.lm import MambaLM, check_kernel_limits
 
-    cfg = dataclasses.replace(_port_cfg(), **{field: value})
-    with pytest.raises(ValueError, match=match):
+    cfg = dataclasses.replace(_port_cfg(), **overrides)
+    if match is None:
         check_kernel_limits(cfg, torch.device("cuda"))
+    else:
+        with pytest.raises(ValueError, match=match):
+            check_kernel_limits(cfg, torch.device("cuda"))
     check_kernel_limits(cfg, torch.device("cpu"))
     check_kernel_limits(_port_cfg(), torch.device("cuda"))
     # The plain path on the CPU takes the config.

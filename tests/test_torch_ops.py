@@ -193,7 +193,8 @@ def test_selective_scan_grads_match_jax_kernels(jax_single_scan, reverse):
 
 
 def test_selective_scan_state_forms_run_without_grad_only():
-    """D and z are required; without grad the state forms run (the final
+    """D or z may be None (the scan without them; their grads:
+    tests/test_torch_sizes.py); without grad the state forms run (the final
     state in (B, D, N)); under grad the state forms and the form without the
     softplus run too (their grads: the tests below)."""
     import torch
@@ -201,8 +202,8 @@ def test_selective_scan_state_forms_run_without_grad_only():
     from aum_tpu_torch.ops import selective_scan
 
     args = [t.requires_grad_() for t in _as_torch(_scan_args(3), "float32")]
-    with pytest.raises(ValueError, match="D and z"):
-        selective_scan(*args[:5], None, args[6])
+    y_no_d = selective_scan(*args[:5], None, args[6])
+    assert y_no_d.shape == args[0].shape and y_no_d.requires_grad
     with torch.no_grad():
         y, fin = selective_scan(*args[:7], delta_bias=args[7], return_final_state=True)
     assert y.shape == args[0].shape and tuple(fin.shape) == (2, 16, 4)
@@ -211,7 +212,7 @@ def test_selective_scan_state_forms_run_without_grad_only():
                             return_final_state=True)
     assert y.requires_grad and fin.requires_grad and tuple(fin.shape) == (2, 16, 4)
     y2 = selective_scan(*args[:7], delta_bias=args[7])
-    (y.sum() + fin.sum() + y2.sum()).backward()
+    (y.sum() + fin.sum() + y2.sum() + y_no_d.sum()).backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in args)
 
 
@@ -385,17 +386,38 @@ def test_causal_conv1d_edges_match_jax(seqlen, d, offset):
 
 
 @pytest.mark.parametrize("width", [3, 5])
-def test_conv_kernel_wrapper_takes_width_4_only(width):
-    """The kernel is built for the mixer's width; another is refused before
-    any build or launch (the plain form, used on the CPU, takes any width)."""
+def test_conv_kernel_wrapper_takes_width_4_only(width, monkeypatch):
+    """The wrapper hands widths other than the mixer's 4 (3 and 5 here) to
+    the kernel, which is built for widths 1 to ``MAX_WIDTH`` (8); a width
+    past 8 is refused before any build or launch. A stand-in library takes
+    the launch; the plain form, used on the CPU, takes any width."""
+    import contextlib
+    import types
+
     import torch
 
-    from aum_tpu_torch.ops.conv1d import causal_conv1d_cuda, causal_conv1d_plain
+    from aum_tpu_torch.ops import conv1d
 
-    x, w = torch.zeros((1, 8, 6)), torch.zeros((6, width))
-    with pytest.raises(ValueError, match="K=4"):
-        causal_conv1d_cuda(x, w)
-    assert causal_conv1d_plain(x, w).shape == x.shape
+    launched = []
+
+    def launch(args, bsz, seqlen, d, k, *rest):
+        launched.append(k)
+        return 0
+
+    lib = types.SimpleNamespace(aum_causal_conv1d_fwd=launch, aum_conv_error_string=str)
+    monkeypatch.setattr(conv1d, "_lib", lambda: lib)
+    monkeypatch.setattr(conv1d.causal_conv1d, "launches", 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=None))
+    x = torch.zeros((1, 8, 6))
+    assert 1 <= width <= conv1d.MAX_WIDTH == 8
+    assert conv1d.causal_conv1d_cuda(x, torch.zeros((6, width))).shape == x.shape
+    assert launched == [width] and conv1d.causal_conv1d.launches == 1
+    with pytest.raises(ValueError, match="K in 1..8"):
+        conv1d.causal_conv1d_cuda(x, torch.zeros((6, conv1d.MAX_WIDTH + 1)))
+    assert launched == [width]
+    assert conv1d.causal_conv1d_plain(x, torch.zeros((6, width))).shape == x.shape
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
