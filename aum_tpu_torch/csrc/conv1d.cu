@@ -1,18 +1,22 @@
 // Depthwise causal / anti-causal 1D convolution + bias + optional SiLU
 // (sm_90a).
 //
-// Replaces the TPU kernel aum_tpu/ops/conv1d.py:_conv_kernel. Weights are
-// (D, K), any width K from 1 to kMaxK = 8 (a template: each K is its own
-// instantiation; the mixers' 4 is as it was), with tap k
+// Replaces the TPU kernel aum_tpu/ops/conv1d.py:_conv_kernel at any width
+// K, as it takes any k. Weights are (D, K), with tap k
 // multiplying x[t - (K-1) + k] (causal); reverse = 1 is the anti-causal form
 // out[t] = sum_i x[t + i] * w[K-1-i], i.e. flip -> causal conv -> flip.
-// Out-of-range inputs are zeros (the halo). The taps and the bias are read
-// in their own dtype (fp32 or bf16, converted exactly), the taps summed in
-// fp32 in the plain version's order (causal: tap 0 first; anti-causal: tap
-// K-1 first), then the bias is added and the SiLU applied in fp32, and the
-// result is cast once: the TPU kernel's compute_f32 form. The SiLU is the
-// scan kernels' gate, v times the SFU's reciprocal of 1 + its exp2 (a few
-// ulp in fp32).
+// Out-of-range inputs are zeros (the halo), K >= L included. The taps and
+// the bias are read in their own dtype (fp32 or bf16, converted exactly),
+// the taps summed in fp32 in the plain version's order (causal: tap 0
+// first; anti-causal: tap K-1 first), then the bias is added and the SiLU
+// applied in fp32, and the result is cast once: the TPU kernel's
+// compute_f32 form. The SiLU is the scan kernels' gate, v times the SFU's
+// reciprocal of 1 + its exp2 (a few ulp in fp32).
+//
+// Two forms: widths 1 to kMaxK = 8 each have their own instantiation of
+// conv1d_fwd_kernel (a template on K: the mixers' 4 among them), the taps
+// and the window of inputs in registers; wider convs take
+// conv1d_general_kernel, where K is a run-time value (below).
 //
 // What bounds it: bytes. Per element it does 2K + 4 fp32 operations and one
 // exponential against one read and one write, far below the card's ratio of
@@ -25,7 +29,8 @@
 // The bytes do not grow with K (the K-1 halo rows of a tile are read again,
 // (K-1) / kTileL of a read), the operations do (2K per element).
 //
-// Design: a thread owns kVec = 8 neighbouring channels over a tile of kTileL
+// Design of the instantiated widths: a thread owns kVec = 8 neighbouring
+// channels over a tile of kTileL
 // steps (grid = (ceil(D / (8 kThreads)), ceil(L / kTileL), batch)). It
 // slides a K-row window of its 8 channels through registers (fp32), with the
 // 8 channels' taps and biases in registers too, so each input is read from
@@ -41,6 +46,23 @@
 // Where x's base, its row or batch stride, or D (not a multiple of 8) breaks
 // 16-byte alignment, the same kernel, in its scalar form, reads and writes
 // the 8 channels value by value.
+//
+// Design of the general form: registers cannot hold a run-time number of
+// taps, so a block of kGenThreads threads stages in shared memory, as fp32,
+// the taps of its kGenChannels channels and the rows of its tile of
+// kGenTileL steps with their K - 1 halo rows (grid = (ceil(D / 64),
+// ceil(L / 64), batch)). A thread owns one channel over kGenSteps = 16
+// consecutive steps and keeps their 16 sums in registers; for each tap it
+// reads one new input row and the tap from shared memory and does 16 FMAs,
+// the rows it needs next held in a ring of 16 registers (the tap loop is
+// unrolled by 16, so the ring's slots are fixed registers). A block holds
+// kGenTaps taps at a time: a wider conv loops over its taps in windows of
+// kGenTaps, each window staging its taps and the tile's rows they reach,
+// the sums carried in registers from one window to the next (in the tap
+// order above). Rows are staged in 16-byte loads where x is aligned as for
+// the instantiated widths, else value by value. On an H100 this ran faster
+// than the same kernel with its registers capped for 5 or 6 blocks an SM,
+// or with 8 steps a thread (more shared-memory loads per FMA).
 
 #include <cstdint>
 
@@ -63,7 +85,15 @@ template <int K>
 constexpr int kMinBlocks = K <= 4 ? 8 : 4;
 constexpr int kVec = 8;        // channels per thread
 constexpr int kTileL = 32;     // steps per tile
-constexpr int kMaxK = 8;       // the widest conv built
+constexpr int kMaxK = 8;       // the widest conv with its own instantiation
+
+// The general form (K > kMaxK): threads per block, channels per block,
+// steps per thread, steps per block and taps per window.
+constexpr int kGenThreads = 256;
+constexpr int kGenChannels = 64;
+constexpr int kGenSteps = 16;
+constexpr int kGenTileL = kGenThreads / kGenChannels * kGenSteps;
+constexpr int kGenTaps = 32;
 
 // Rows loaded together: 128 bytes a thread.
 template <typename T>
@@ -252,6 +282,100 @@ conv1d_fwd_kernel(const ConvArgs a, int seqlen, int dim, int silu) {
   }
 }
 
+// The general form: any width K, one window of kGenTaps taps at a time.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kGenThreads)
+conv1d_general_kernel(const ConvArgs a, int seqlen, int dim, int width, int reverse, int silu) {
+  __shared__ __align__(16) float s_x[kGenTileL + kGenTaps - 1][kGenChannels];
+  __shared__ float s_w[kGenTaps][kGenChannels];
+  const int c0 = blockIdx.x * kGenChannels;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.y * kGenTileL;
+  const int c = threadIdx.x % kGenChannels;  // this thread's channel of the block
+  const int s0 = threadIdx.x / kGenChannels * kGenSteps;  // and its first step
+  const T* x = static_cast<const T*>(a.x) + b * a.x_sb;
+  // Output step t0 + s sums tap(i) x[base + s + i] over i = 0 .. K-1, tap(i)
+  // = i causal, K-1-i anti-causal: the plain version's order.
+  const long long base = reverse ? t0 : static_cast<long long>(t0) - (width - 1);
+  constexpr int kPer = 16 / sizeof(T);  // channels per 16-byte vector
+  float acc[kGenSteps];
+#pragma unroll
+  for (int j = 0; j < kGenSteps; ++j) acc[j] = 0.0f;
+
+  for (int i0 = 0; i0 < width; i0 += kGenTaps) {
+    const int nw = min(kGenTaps, width - i0);  // taps of this window
+    const int nrows = kGenTileL + nw - 1;        // rows they reach
+    __syncthreads();  // the previous window's readers are done
+    // s_x[r] = x[base + i0 + r] of the block's channels; zeros outside the
+    // sequence and past D.
+    if (kVector) {
+      for (int idx = threadIdx.x; idx < nrows * (kGenChannels / kPer); idx += kGenThreads) {
+        const int r = idx / (kGenChannels / kPer), v = idx % (kGenChannels / kPer) * kPer;
+        const long long t = base + i0 + r;
+        const bool in = t >= 0 && t < seqlen && c0 + v < dim;
+        float4* dst = reinterpret_cast<float4*>(&s_x[r][v]);
+        if constexpr (sizeof(T) == 2) {
+          // 8 channels: bf16 pairs, element 2k in the low half.
+          const uint4 q = in ? __ldg(reinterpret_cast<const uint4*>(x + t * a.x_sl + c0 + v))
+                             : make_uint4(0u, 0u, 0u, 0u);
+          dst[0] = make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                               __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+          dst[1] = make_float4(__uint_as_float(q.z << 16), __uint_as_float(q.z & 0xffff0000u),
+                               __uint_as_float(q.w << 16), __uint_as_float(q.w & 0xffff0000u));
+        } else {
+          dst[0] = in ? __ldg(reinterpret_cast<const float4*>(x + t * a.x_sl + c0 + v))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < nrows * kGenChannels; idx += kGenThreads) {
+        const int r = idx / kGenChannels, ch = idx % kGenChannels;
+        const long long t = base + i0 + r;
+        s_x[r][ch] = t >= 0 && t < seqlen && c0 + ch < dim
+                         ? aum::to_float(__ldg(x + t * a.x_sl + c0 + ch))
+                         : 0.0f;
+      }
+    }
+    for (int idx = threadIdx.x; idx < nw * kGenChannels; idx += kGenThreads) {
+      const int i = idx / kGenChannels, ch = idx % kGenChannels;
+      const int tap = reverse ? width - 1 - (i0 + i) : i0 + i;
+      s_w[i][ch] = c0 + ch < dim
+                       ? param(a.weight, a.w_dtype, static_cast<long long>(c0 + ch) * width + tap)
+                       : 0.0f;
+    }
+    __syncthreads();
+    // ring[(i + j) % 16] holds s_x[s0 + i + j][c] at tap i of the window.
+    float ring[kGenSteps];
+#pragma unroll
+    for (int j = 0; j + 1 < kGenSteps; ++j) ring[j] = s_x[s0 + j][c];
+    for (int i1 = 0; i1 < nw; i1 += kGenSteps) {
+#pragma unroll
+      for (int u = 0; u < kGenSteps; ++u) {
+        const int i = i1 + u;
+        if (i < nw) {
+          ring[(u + kGenSteps - 1) % kGenSteps] = s_x[s0 + i + kGenSteps - 1][c];
+          const float w = s_w[i][c];
+#pragma unroll
+          for (int j = 0; j < kGenSteps; ++j) {
+            acc[j] = fmaf(w, ring[(u + j) % kGenSteps], acc[j]);
+          }
+        }
+      }
+    }
+  }
+  if (c0 + c >= dim) return;
+  const float bias = a.bias != nullptr ? param(a.bias, a.b_dtype, c0 + c) : 0.0f;
+  T* out = static_cast<T*>(a.out) + static_cast<long long>(b) * seqlen * dim + c0 + c;
+#pragma unroll
+  for (int j = 0; j < kGenSteps; ++j) {
+    const int t = t0 + s0 + j;
+    if (t < seqlen) {
+      const float v = acc[j] + bias;
+      out[static_cast<long long>(t) * dim] = aum::from_float<T>(silu ? aum::silu_fast(v) : v);
+    }
+  }
+}
+
 template <typename T, bool kReverse, int K>
 void launch_dir(const ConvArgs& a, bool vector, dim3 grid, int seqlen, int dim, int silu,
                 cudaStream_t s) {
@@ -279,7 +403,26 @@ int launch(const ConvArgs& a, int batch, int seqlen, int dim, int reverse, int s
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of width `width` (1 .. kMaxK).
+// The general form, for widths past kMaxK.
+template <typename T>
+int launch_general(const ConvArgs& a, int width, int batch, int seqlen, int dim, int reverse,
+                   int silu, cudaStream_t s) {
+  const long long per16 = 16 / sizeof(T);
+  const bool vector = dim % per16 == 0 && aum::aligned16(a.x) && a.x_sl % per16 == 0 &&
+                      a.x_sb % per16 == 0;
+  const dim3 grid((dim + kGenChannels - 1) / kGenChannels, (seqlen + kGenTileL - 1) / kGenTileL,
+                  batch);
+  if (vector) {
+    conv1d_general_kernel<T, true><<<grid, kGenThreads, 0, s>>>(a, seqlen, dim, width, reverse,
+                                                                 silu);
+  } else {
+    conv1d_general_kernel<T, false><<<grid, kGenThreads, 0, s>>>(a, seqlen, dim, width, reverse,
+                                                                  silu);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of width `width` (1 .. kMaxK), else the general form.
 template <typename T, int K = kMaxK>
 int launch_width(const ConvArgs& a, int width, int batch, int seqlen, int dim, int reverse,
                  int silu, cudaStream_t s) {
@@ -287,7 +430,7 @@ int launch_width(const ConvArgs& a, int width, int batch, int seqlen, int dim, i
   if constexpr (K > 1) {
     return launch_width<T, K - 1>(a, width, batch, seqlen, dim, reverse, silu, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_general<T>(a, width, batch, seqlen, dim, reverse, silu, s);
 }
 
 }  // namespace
@@ -295,10 +438,12 @@ int launch_width(const ConvArgs& a, int width, int batch, int seqlen, int dim, i
 extern "C" {
 
 // The wrapper's constants, read back at load: channels per thread and steps
-// per tile (the edges the card checks are sized from).
+// per tile (the edges the card checks are sized from), and the widest conv
+// with its own instantiation (wider ones take the general form: the wrapper
+// counts those launches apart).
 int aum_conv_channels_per_thread() { return kVec; }
 int aum_conv_tile_steps() { return kTileL; }
-int aum_conv_max_width() { return kMaxK; }
+int aum_conv_unrolled_widths() { return kMaxK; }
 
 // The resources of the i-th kernel instantiation (aum_kernel_resources in
 // common.cuh: info[0..5]) and its name; 0 on success, a CUDA error, or -1
@@ -326,16 +471,27 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_KERNEL(conv1d_fwd_kernel<__nv_bfloat16, false, true, 8>)
   AUM_KERNEL(conv1d_fwd_kernel<float, false, true, 8>)
 #undef AUM_KERNEL
+  // The general form (any width past kMaxK).
+#define AUM_GEN_KERNEL(...)                                         \
+  if (i == n++) {                                                   \
+    *name = #__VA_ARGS__;                                           \
+    return aum_kernel_resources(__VA_ARGS__, kGenThreads, 0, info); \
+  }
+  AUM_GEN_KERNEL(conv1d_general_kernel<__nv_bfloat16, true>)
+  AUM_GEN_KERNEL(conv1d_general_kernel<__nv_bfloat16, false>)
+  AUM_GEN_KERNEL(conv1d_general_kernel<float, true>)
+  AUM_GEN_KERNEL(conv1d_general_kernel<float, false>)
+#undef AUM_GEN_KERNEL
   return -1;
 }
 
-// dtype: 0 = fp32, 1 = bf16 (x and out); width 1 .. kMaxK; the args'
+// dtype: 0 = fp32, 1 = bf16 (x and out); any width from 1; the args'
 // w_dtype and b_dtype 0 or 1. Returns cudaGetLastError() after the launch (0
 // on success); a refused launch never runs.
 int aum_causal_conv1d_fwd(const ConvArgs* args, int batch, int seqlen, int dim,
                           int width, int reverse, int silu, int dtype,
                           void* stream) {
-  if (batch < 1 || seqlen < 1 || dim < 1 || width < 1 || width > kMaxK || args->w_dtype < 0 ||
+  if (batch < 1 || seqlen < 1 || dim < 1 || width < 1 || args->w_dtype < 0 ||
       args->w_dtype > 1 || args->b_dtype < 0 || args->b_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -98,14 +98,24 @@
 // the default kernel's time on an H100 at the Fo-Bi bench shapes, the walk
 // itself as fast as the default's: each tile's loads, products and softplus
 // came on top. Hence the operands in shared memory, read as ldmatrix
-// fragments, and the SFU softplus. Any dt rank up to kMaxRank (400) runs:
-// the product loops over the rank in mma k-steps of 16 (zeros past it), and
+// fragments, and the SFU softplus. Up to dt rank kWholeRank (400) the
+// product loops over the rank in mma k-steps of 16 (zeros past it), and
 // the W slice and the dtr ring are sized by the rank (dynamic shared
 // memory, opted into above 48 KB), up to the 227 KB a block can hold in
 // bf16. In fp32 the W slice and the ring together pass that at rank 209, and
 // a lane reads only its own channel's W row: from there on (kWGlobal) W
 // stays in global memory, each lane reading its row through L1, and only
-// the ring is staged.
+// the ring is staged. Past kWholeRank (any rank: the TPU kernel pads R to a
+// multiple of 128) a block cannot hold its W slice, so the windowed form
+// (scan_dual_fdt_win_fwd_kernel, the same walk) forms the dt of a whole
+// chunk of kChunk steps at the chunk's start, block-wide, over windows of
+// kWinCols<T> rank columns: per window it stages the block's W slice's
+// columns (bf16; fp32 keeps W in global memory as above) and the chunk's dtr
+// rows' columns, and each warp adds the window's product to its channels'
+// fp32 dt sums, kept in a (kChunk x channels) shared tile between windows;
+// after the last window the softplus, once per element, as above. The
+// windows are sized so that two blocks fit an SM (8 warps); the W slice is
+// read again at every chunk, from L2.
 //
 // State sizes above 16 (any N, as the TPU kernels pad N to a multiple of 8
 // and sum over it): the recurrence is independent per state, so the
@@ -177,7 +187,10 @@ constexpr float kLog2eBf16 = 1.4453125f;  // log2 e rounded to bf16 (the stage f
 constexpr int kWarpSize = 32;
 constexpr int kWarps = kThreads / kWarpSize;
 constexpr int kDtRows = 16;    // steps per dt tile of the fuse_dt form: one mma's rows
-constexpr int kMaxRank = 400;  // the fuse_dt form's largest dt rank (shared memory, bf16)
+// The fuse_dt form's largest dt rank whose W slice and dtr ring a block
+// holds whole (in bf16; fp32 keeps W in global memory past 208): past it the
+// windowed form runs.
+constexpr int kWholeRank = 400;
 // The fuse_dt form's ring of staged dtr rows: two windows of kChunk steps;
 // processed step i sits in slot (i - kDtrLead) mod kDtrSlots, so that the
 // window staged at the start of chunk c (steps c + kChunk + kDtrLead on)
@@ -258,9 +271,38 @@ constexpr int fold_smem(int rank, bool fp32) {
                 : fold_w_global(rank, fp32) ? kDtrSlots * fold_dtr_stride<float>(rank) * 4
                                             : fold_dyn_smem<float>(rank));
 }
-static_assert(fold_smem(kMaxRank, false) <= kMaxSmem && fold_smem(kMaxRank, true) <= kMaxSmem,
-              "both forms take every rank up to kMaxRank");
-static_assert(fold_smem(kMaxRank + 16, false) > kMaxSmem, "kMaxRank is the largest bf16 rank");
+static_assert(fold_smem(kWholeRank, false) <= kMaxSmem && fold_smem(kWholeRank, true) <= kMaxSmem,
+              "both dtypes hold every rank up to kWholeRank whole");
+
+// The windowed form (ranks past kWholeRank): its static shared memory (s_B,
+// s_C, the chunk's dt sums, the biases), the row stride of its staged W and
+// dtr windows (as fold_w_stride: bf16 rows padded for ldmatrix, fp32 rows
+// 16-byte aligned), its rank columns per window (a multiple of the mma
+// k-step: the largest that keeps a block within kWinSmem, two blocks an
+// SM) and its dynamic shared memory (bf16: the W window and the dtr
+// window; fp32: the dtr window alone).
+constexpr int kDtcStride = kThreads + 4;  // the chunk's dt sums, [step][channel]
+constexpr int kWinStaticSmem = (2 * kChunk * kMaxN + kChunk * kDtcStride + kThreads) * 4;
+constexpr int kWinSmem = 112 * 1024;
+template <typename T>
+__host__ __device__ constexpr int win_stride(int cols) {
+  return sizeof(T) == 2 ? cols + 8 : cols;
+}
+template <typename T>
+__host__ __device__ constexpr int win_dyn_smem(int cols) {
+  return (sizeof(T) == 2 ? kThreads + kChunk : kChunk) * win_stride<T>(cols) *
+         static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int win_cols() {
+  int cols = 16;
+  while (kWinStaticSmem + win_dyn_smem<T>(cols + 16) <= kWinSmem) cols += 16;
+  return cols;
+}
+template <typename T>
+constexpr int kWinCols = win_cols<T>();
+static_assert(kWinCols<__nv_bfloat16> < kWholeRank && kWinCols<float> < kWholeRank,
+              "a windowed rank needs two windows or more");
 
 // The fuse_dt form's shared operands: the block's W slice (kThreads channel
 // rows of rank values), the dtr ring, the block's biases and each warp's dt
@@ -273,6 +315,18 @@ struct Fold {
   float* bias;
   float (*dt)[kDtRows][kWarpSize + 1];
   int w_stride, dtr_stride;
+};
+
+// The windowed form's shared operands: the W window (bf16: kThreads channel
+// rows; fp32: W in global memory, W the calling thread's own channel's row
+// of it), the dtr window (kChunk step rows), both win_stride apart, the
+// block's biases and the chunk's dt sums.
+template <typename T>
+struct FoldWin {
+  T* W;
+  T* dtr;
+  float* bias;
+  float (*dt)[kDtcStride];
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -364,7 +418,30 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) 
 // ldmatrix.x4 gives A (rows 0-7 and 8-15, columns 0-7 and 8-15) and two
 // give B (two 8-channel tiles, columns 0-7 and 8-15 each). Lane (g = lane
 // / 4, q = lane % 4) holds the sums at rows g, g + 8 and channels 2q, 2q + 1
-// of each tile.
+// of each tile. mma_ksteps adds the product of `cols` columns (from a_ptr
+// and b_ptr, this lane's ldmatrix addresses) to acc.
+__device__ __forceinline__ void mma_ksteps(float (&acc)[4][4], const __nv_bfloat16* a_ptr,
+                                           const __nv_bfloat16* b_ptr, int b_stride, int cols) {
+  for (int k0 = 0; k0 < cols; k0 += 16) {
+    unsigned a[4];
+    ldmatrix_x4(a, a_ptr + k0);
+#pragma unroll
+    for (int pair = 0; pair < 2; ++pair) {
+      unsigned bb[4];
+      ldmatrix_x4(bb, b_ptr + pair * 16 * b_stride + k0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* c = acc[2 * pair + h];
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(bb[2 * h]), "r"(bb[2 * h + 1]));
+      }
+    }
+  }
+}
+
 template <>
 __device__ __forceinline__ void dt_tile<__nv_bfloat16>(const Fold<__nv_bfloat16>& f, int rank,
                                                        int i0, float (*tile)[kWarpSize + 1]) {
@@ -382,24 +459,7 @@ __device__ __forceinline__ void dt_tile<__nv_bfloat16>(const Fold<__nv_bfloat16>
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
   }
-  for (int k0 = 0; k0 < rank; k0 += 16) {
-    unsigned a[4];
-    ldmatrix_x4(a, a_ptr + k0);
-#pragma unroll
-    for (int pair = 0; pair < 2; ++pair) {
-      unsigned bb[4];
-      ldmatrix_x4(bb, b_ptr + pair * 16 * f.w_stride + k0);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* c = acc[2 * pair + h];
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(bb[2 * h]), "r"(bb[2 * h + 1]));
-      }
-    }
-  }
+  mma_ksteps(acc, a_ptr, b_ptr, f.w_stride, rank);
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -408,6 +468,76 @@ __device__ __forceinline__ void dt_tile<__nv_bfloat16>(const Fold<__nv_bfloat16>
       const float bias = f.bias[warp * kWarpSize + c];
       tile[g][c] = softplus(acc[nt][e] + bias);
       tile[g + 8][c] = softplus(acc[nt][2 + e] + bias);
+    }
+  }
+}
+
+// The windowed form: one window's product, over its `cols` rank columns
+// from column k0, added to the chunk's dt sums of the calling warp's
+// channels at the chunk's steps tile * kDtRows .. + kDtRows - 1 (from zero
+// at the first window); at the last window the softplus of the sum and the
+// bias replaces it. Every lane of the warp calls it; each lane reads back
+// only what it wrote.
+template <typename T>
+__device__ __forceinline__ void dt_win_tile(const FoldWin<T>& f, int tile, int k0, int cols,
+                                            bool first, bool last);
+
+// fp32: each lane its own channel, W's row from global memory.
+template <>
+__device__ __forceinline__ void dt_win_tile<float>(const FoldWin<float>& f, int tile, int k0,
+                                                   int cols, bool first, bool last) {
+  constexpr int kStride = win_stride<float>(kWinCols<float>);
+  const int c = threadIdx.x;
+  const float* w = f.W + k0;
+  const float* rows = f.dtr + tile * kDtRows * kStride;
+  float (*dt)[kDtcStride] = f.dt + tile * kDtRows;
+  float acc[kDtRows];
+#pragma unroll
+  for (int j = 0; j < kDtRows; ++j) acc[j] = first ? 0.0f : dt[j][c];
+  for (int r = 0; r < cols; ++r) {
+    const float wr = w[r];
+#pragma unroll
+    for (int j = 0; j < kDtRows; ++j) acc[j] = fmaf(rows[j * kStride + r], wr, acc[j]);
+  }
+  const float bias = f.bias[c];
+#pragma unroll
+  for (int j = 0; j < kDtRows; ++j) dt[j][c] = last ? softplus(acc[j] + bias) : acc[j];
+}
+
+// bf16: the tensor-core product of dt_tile on the window's staged columns
+// (column 0 of the window is rank column k0), the sums in the same
+// fragments.
+template <>
+__device__ __forceinline__ void dt_win_tile<__nv_bfloat16>(const FoldWin<__nv_bfloat16>& f,
+                                                           int tile, int k0, int cols,
+                                                           bool first, bool last) {
+  constexpr int kStride = win_stride<__nv_bfloat16>(kWinCols<__nv_bfloat16>);
+  const int lane = threadIdx.x % kWarpSize;
+  const int warp = threadIdx.x / kWarpSize;
+  const int g = lane / 4, q = lane % 4;
+  const int m = lane / 8, r8 = lane % 8;
+  const __nv_bfloat16* a_ptr = f.dtr + (tile * kDtRows + r8 + (m & 1) * 8) * kStride + (m >> 1) * 8;
+  const __nv_bfloat16* b_ptr = f.W + (warp * kWarpSize + (m >> 1) * 8 + r8) * kStride + (m & 1) * 8;
+  float (*dt)[kDtcStride] = f.dt + tile * kDtRows;
+  float acc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = warp * kWarpSize + nt * 8 + 2 * q + e;
+      acc[nt][e] = first ? 0.0f : dt[g][c];
+      acc[nt][2 + e] = first ? 0.0f : dt[g + 8][c];
+    }
+  }
+  mma_ksteps(acc, a_ptr, b_ptr, kStride, cols);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = warp * kWarpSize + nt * 8 + 2 * q + e;
+      const float bias = f.bias[c];
+      dt[g][c] = last ? softplus(acc[nt][e] + bias) : acc[nt][e];
+      dt[g + 8][c] = last ? softplus(acc[nt][2 + e] + bias) : acc[nt][2 + e];
     }
   }
 }
@@ -426,14 +556,18 @@ struct SubStreams {
 // no barriers). kFdt (the fuse_dt form) reads dt from the warp's tile
 // fold->dt[warp], formed every kDtRows steps from fold's staged operands
 // (kWGlobal: W read from global memory, not staged); kStage rounds to bf16
-// where the stage form does. The ungated build (aum::kGated false) writes
+// where the stage form does. kWin (the windowed fuse_dt form, with kFdt)
+// reads dt from win->dt instead, formed at every chunk's start by the whole
+// block over rank windows. The ungated build (aum::kGated false) writes
 // the fp32 partial y_t and reads neither z nor D.
 template <typename T, bool kSave, bool kState, bool kDirect, bool kFdt = false,
-          bool kStage = false, bool kWGlobal = false>
+          bool kStage = false, bool kWGlobal = false, bool kWin = false>
 __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int seqlen,
                                           int dim, int dstate, float (*s_B)[kMaxN],
                                           float (*s_C)[kMaxN],
-                                          const Fold<T>* fold = nullptr) {
+                                          const Fold<T>* fold = nullptr,
+                                          const FoldWin<T>* win = nullptr) {
+  static_assert(!kWin || kFdt, "the windowed form is a fuse_dt form");
   static_assert(!kStage || !kFdt, "the stage form is off in the fuse_dt form");
   using Out = std::conditional_t<aum::kGated, T, float>;
   const int tid = threadIdx.x;
@@ -466,12 +600,59 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
   // Element steps between consecutive processed steps (negative reversed).
   const int dir = reverse ? -1 : 1;
   const long long dt_step = dir * p.dt_sl, u_step = dir * p.u_sl, z_step = dir * p.z_sl;
+  // The windowed form's dt of the chunk whose first processed step is i0:
+  // per window of kWinCols<T> rank columns, its columns of the block's W
+  // rows (bf16) and of the chunk's dtr rows (past the end: the last
+  // step's) staged, then each warp's product added to its channels' sums.
+  // Every thread of the block calls it.
+  auto dt_chunk = [&](int i0) {
+    constexpr int kCols = kWinCols<T>;
+    constexpr int kStride = win_stride<T>(kCols);
+    const int rank = p.rank;
+    const T* dtr = static_cast<const T*>(p.dtr) + b * p.dtr_sb;
+    const T* wt = static_cast<const T*>(p.Wt);
+    const int d0 = blockIdx.x * kThreads;
+    for (int k0 = 0; k0 < rank; k0 += kCols) {
+      const int cols = min(kCols, rank - k0);
+      __syncthreads();  // the previous window's (or chunk's) readers are done
+      if constexpr (sizeof(T) == 2) {
+        stage_rows<T>(
+            [&](int r) { return wt + static_cast<long long>(min(d0 + r, dim - 1)) * p.Wt_sd + k0; },
+            [&](int r) { return win->W + r * kStride; }, kThreads, cols,
+            whole_rows16<T>(p.Wt, rank, p.Wt_sd, 0));
+      }
+      stage_rows<T>(
+          [&](int r) {
+            return dtr + static_cast<long long>(step_of(min(i0 + r, seqlen - 1))) * p.dtr_sl + k0;
+          },
+          [&](int r) { return win->dtr + r * kStride; }, kChunk, cols,
+          whole_rows16<T>(p.dtr, rank, p.dtr_sb, p.dtr_sl));
+      if constexpr (sizeof(T) == 2) {
+        // Zeros from the window's last column to its last k-step's.
+        const int pad = (cols + 15) / 16 * 16 - cols;
+        for (int idx = tid; idx < (kThreads + kChunk) * pad; idx += kThreads) {
+          const int r = idx / pad;
+          T* row = r < kThreads ? win->W + r * kStride : win->dtr + (r - kThreads) * kStride;
+          row[cols + idx % pad] = aum::from_float<T>(0.0f);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      for (int tile = 0; tile < kChunk / kDtRows; ++tile) {
+        dt_win_tile<T>(*win, tile, k0, cols, k0 == 0, k0 + cols >= rank);
+      }
+    }
+    __syncwarp();  // each warp reads back its own channels' dt
+  };
   auto load_sub = [&](SubStreams& s, int i0) {
     const long long t0 = step_of(i0);
     const T* pd = dt + t0 * p.dt_sl;
     const T* pu = u + t0 * p.u_sl;
     const T* pz = z + t0 * p.z_sl;
-    if constexpr (kFdt) {
+    if constexpr (kWin) {
+      // A new chunk's dt; the previous chunk's is in registers already.
+      if (i0 % kChunk == 0) dt_chunk(i0);
+    } else if constexpr (kFdt) {
       // A new tile every kDtRows steps; the rows it replaces are in
       // registers already (this sub-chunk's cur was loaded from them).
       if (i0 % kDtRows == 0) {
@@ -483,7 +664,9 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
 #pragma unroll
     for (int j = 0; j < kSub; ++j) {
       const bool in = i0 + j < seqlen;  // past the end: zeros, unused
-      if constexpr (kFdt) {
+      if constexpr (kWin) {
+        s.dt[j] = in ? win->dt[i0 % kChunk + j][tid] : 0.0f;
+      } else if constexpr (kFdt) {
         s.dt[j] = in ? fold->dt[tid / kWarpSize][i0 % kDtRows + j][tid % kWarpSize] : 0.0f;
       } else {
         s.dt[j] = in ? aum::to_float(pd[j * dt_step]) : 0.0f;
@@ -509,7 +692,9 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
                                             fold->dtr_stride; },
         count, p.rank, whole_rows16<T>(p.dtr, p.rank, p.dtr_sb, p.dtr_sl));
   };
-  if constexpr (kFdt) {
+  if constexpr (kWin) {
+    win->bias[tid] = p.bias[dc];  // read after dt_chunk's first barrier
+  } else if constexpr (kFdt) {
     // Once per block: W's rows of the block's channels (past the last
     // channel: the last one's), the zeros past the rank (bf16), the biases,
     // and the dtr rows of the first tile and of the first window.
@@ -555,9 +740,9 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
           vb[r] = in ? aum::to_float(Bm[t * p.B_sl + n]) : 0.0f;
           vc[r] = in ? aum::to_float(Cm[t * p.C_sl + n]) : 0.0f;
         }
-        if constexpr (kFdt) cp_async_wait_all();  // this chunk's window, staged a chunk ago
+        if constexpr (kFdt && !kWin) cp_async_wait_all();  // this chunk's window, staged a chunk ago
         __syncthreads();  // the previous chunk's readers are done with s_B/s_C
-        if constexpr (kFdt) {
+        if constexpr (kFdt && !kWin) {
           // The next window, into the half of the ring the previous one held.
           const int first = i0 + kChunk + kDtrLead;
           if (first < seqlen) stage_dtr(first, kChunk);
@@ -675,6 +860,45 @@ scan_dual_fdt_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int d
   }
 }
 
+// The windowed fuse_dt form (dt ranks past kWholeRank, eval): dt formed per
+// chunk over rank windows; win_dyn_smem<T>(kWinCols<T>) bytes of dynamic
+// shared memory, two blocks an SM (at most 255 registers a thread).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+scan_dual_fdt_win_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim,
+                             int dstate) {
+  __shared__ __align__(16) float s_B[kChunk][kMaxN];
+  __shared__ __align__(16) float s_C[kChunk][kMaxN];
+  __shared__ float s_dtc[kChunk][kDtcStride];
+  __shared__ float s_bias[kThreads];
+  extern __shared__ __align__(16) unsigned char s_fold[];
+  const bool reverse = blockIdx.z == 1;
+  const ScanDir& p = reverse ? rev : fwd;
+  constexpr int kStride = win_stride<T>(kWinCols<T>);
+  T* w = reinterpret_cast<T*>(s_fold);
+  FoldWin<T> fold = {w, w, s_bias, s_dtc};
+  if constexpr (sizeof(T) == 2) {
+    fold.dtr = w + kThreads * kStride;
+  } else {
+    const int row = min(static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x),
+                        dim - 1);
+    fold.W = const_cast<T*>(static_cast<const T*>(p.Wt)) + static_cast<long long>(row) * p.Wt_sd;
+  }
+  scan_walk<T, false, false, false, true, false, false, true>(p, reverse, seqlen, dim, dstate,
+                                                              s_B, s_C, nullptr, &fold);
+}
+
+// The windowed form's dynamic shared memory, with the kernel allowed to
+// take it.
+template <typename T>
+int fdt_win_smem() {
+  constexpr int bytes = win_dyn_smem<T>(kWinCols<T>);
+  static_assert(kWinStaticSmem + bytes > kDefaultSmem, "the windowed form opts in");
+  cudaFuncSetAttribute(scan_dual_fdt_win_fwd_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return bytes;
+}
+
 // The fuse_dt kernel's dynamic shared memory at `rank`, with the kernel
 // allowed to take it (above 48 KB in all it has to opt in).
 template <typename T, bool kWGlobal = false>
@@ -734,6 +958,11 @@ void launch_dual(const ScanDir& fwd, const ScanDir& rev, DualKind kind, int batc
   const bool direct = kind == DualKind::kDirect;
   if (kind == DualKind::kFdt) {
     const int rank = fwd.rank > rev.rank ? fwd.rank : rev.rank;
+    if (rank > kWholeRank) {
+      const int smem = fdt_win_smem<T>();
+      scan_dual_fdt_win_fwd_kernel<T><<<grid, kThreads, smem, s>>>(fwd, rev, seqlen, dim, dstate);
+      return;
+    }
     if constexpr (sizeof(T) == 4) {
       if (fold_w_global(rank, true)) {
         // Both directions' W rows from global memory, the ring sized by the larger rank.
@@ -794,8 +1023,7 @@ bool bad_sizes(int batch, int seqlen, int dim, int dstate) {
 }
 
 bool bad_fold(const ScanDir& p) {
-  return p.dtr == nullptr || p.Wt == nullptr || p.bias == nullptr || p.rank < 1 ||
-         p.rank > kMaxRank;
+  return p.dtr == nullptr || p.Wt == nullptr || p.bias == nullptr || p.rank < 1;
 }
 
 int dual_fwd(const ScanDir* fwd, const ScanDir* rev, DualKind kind, int batch, int seqlen,
@@ -855,7 +1083,7 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_KERNEL(scan_dual_stage_fwd_kernel<true>)
 #undef AUM_KERNEL
   // The fuse_dt form at AuM-Base's dt rank, at 64, at a width-4096 model's
-  // 256 (fp32 there: W in global memory) and at the largest.
+  // 256 (fp32 there: W in global memory) and at the largest held whole.
 #define AUM_FDT_KERNEL(T, rank, ...)                                                 \
   if (i == n++) {                                                                    \
     *name = "scan_dual_fdt_fwd_kernel<" #T #__VA_ARGS__ "> rank " #rank;             \
@@ -871,14 +1099,28 @@ int aum_kernel_info(int i, int* info, const char** name) {
   AUM_FDT_KERNEL(float, 256, , true)
   AUM_FDT_KERNEL(float, 400, , true)
 #undef AUM_FDT_KERNEL
+  // The windowed form (every rank past kWholeRank alike).
+#define AUM_FDT_WIN_KERNEL(T)                                                        \
+  if (i == n++) {                                                                    \
+    *name = "scan_dual_fdt_win_fwd_kernel<" #T "> rank > 400";                      \
+    return aum_kernel_resources(scan_dual_fdt_win_fwd_kernel<T>, kThreads,           \
+                                fdt_win_smem<T>(), info);                            \
+  }
+  AUM_FDT_WIN_KERNEL(__nv_bfloat16)
+  AUM_FDT_WIN_KERNEL(float)
+#undef AUM_FDT_WIN_KERNEL
   return -1;
 }
 
-// The fuse_dt form's largest dt rank, and its shared memory per block
-// (static and dynamic, bytes) at `rank` for dtype 0 (fp32) or 1 (bf16):
-// the wrapper checks both at load.
-int aum_scan_fdt_max_rank() { return kMaxRank; }
-int aum_scan_fdt_smem_bytes(int rank, int dtype) { return fold_smem(rank, dtype == 0); }
+// The fuse_dt form's largest dt rank held whole (past it the windowed form
+// runs), and its shared memory per block (static and dynamic, bytes) at
+// `rank` for dtype 0 (fp32) or 1 (bf16): the wrapper checks both at load.
+int aum_scan_fdt_whole_rank() { return kWholeRank; }
+int aum_scan_fdt_smem_bytes(int rank, int dtype) {
+  if (rank <= kWholeRank) return fold_smem(rank, dtype == 0);
+  return kWinStaticSmem + (dtype == 0 ? win_dyn_smem<float>(kWinCols<float>)
+                                      : win_dyn_smem<__nv_bfloat16>(kWinCols<__nv_bfloat16>));
+}
 
 // dtype: 0 = fp32 streams, 1 = bf16 streams. Both directions save states
 // (xb set in both) or neither does; neither carries a state in or out.
@@ -898,7 +1140,8 @@ int aum_selective_scan_dual_direct_fwd(const ScanDir* fwd, const ScanDir* rev,
 }
 
 // The fuse_dt form (eval only: no saved states); dt unused, dtr, Wt, bias
-// and rank (1 .. 400) set in both directions.
+// and rank (any from 1; past kWholeRank the windowed form) set in both
+// directions.
 int aum_selective_scan_dual_fdt_fwd(const ScanDir* fwd, const ScanDir* rev,
                                     int batch, int seqlen, int dim, int dstate,
                                     int dtype, void* stream) {

@@ -35,11 +35,11 @@ Counterpart of ``aum_tpu/models/lm.py`` (the reference's
   local HF-format directory (``config.json`` + ``pytorch_model.bin``).
 
 On a CUDA device the kernels take any d_state (the scan kernels run it in
-slices of 16 states) and d_conv from 1 to the conv kernel's ``MAX_WIDTH``
-(8), the one cap left; ``check_kernel_limits`` raises at construction past
-it. On the CPU the plain path takes any config. ``MambaLMConfig.use_kernel`` is read from the
-JAX package's ``config.json`` files and has no effect here: the device
-decides.
+slices of 16 states) and any d_conv (past 8 the conv kernel's general
+form); ``check_kernel_limits`` raises at construction for a size of 0,
+which no kernel takes. On the CPU the plain path takes any config.
+``MambaLMConfig.use_kernel`` is read from the JAX package's ``config.json``
+files and has no effect here: the device decides.
 """
 
 from __future__ import annotations
@@ -62,7 +62,6 @@ from aum_tpu_torch.ops import (
     selective_scan,
     selective_state_update,
 )
-from aum_tpu_torch.ops.conv1d import MAX_WIDTH
 from aum_tpu_torch.utils import resolve_device
 
 
@@ -102,12 +101,12 @@ class MambaLMConfig:
 
 def check_kernel_limits(cfg: MambaLMConfig, device: torch.device) -> None:
     """Raise ``ValueError`` on a CUDA device for a config the kernels do not
-    take: d_conv past the conv kernel's ``MAX_WIDTH`` (every d_state runs)."""
+    take: a d_conv or d_state below 1 (every positive size runs)."""
     if torch.device(device).type != "cuda":
         return
-    if not 1 <= cfg.d_conv <= MAX_WIDTH:
-        raise ValueError(f"d_conv={cfg.d_conv}: the conv kernel takes widths 1..{MAX_WIDTH} "
-                         "(ops/conv1d.py::MAX_WIDTH); run on the CPU")
+    for name in ("d_conv", "d_state"):
+        if getattr(cfg, name) < 1:
+            raise ValueError(f"{name}={getattr(cfg, name)}: the kernels take sizes from 1")
 
 
 class _Backbone(nn.Module):

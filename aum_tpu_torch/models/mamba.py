@@ -23,8 +23,8 @@ no ``A_b_log``. The mixer's shape and init constants (conv width 4, expand
 2, dt rank ceil(d_model / 16), dt in [1e-3, 1e-1] floored at 1e-4, conv
 bias) are the reference defaults; only an LM config changes the conv width
 and the expansion (``d_conv``, ``expand``). ``d_conv`` and ``d_state`` go
-to the kernels as given: the conv kernel takes widths 1 to 8
-(``ops/conv1d.py::MAX_WIDTH``), the scan kernels any d_state.
+to the kernels as given: the conv kernel takes any width (past 8 its
+general form), the scan kernels any d_state.
 
 ``init_layer_scale`` adds the reference's LayerScale: a ``gamma`` (d_model,)
 initialised to that value, multiplying the out_proj output. The block's

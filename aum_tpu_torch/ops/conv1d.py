@@ -3,9 +3,10 @@ CUDA kernel + plain form.
 
 Counterpart of ``aum_tpu/ops/conv1d.py::causal_conv1d``. The CUDA kernel
 (``csrc/conv1d.cu``) replaces the TPU kernel
-``aum_tpu/ops/conv1d.py:_conv_kernel`` at every width from 1 to ``MAX_WIDTH``
-(8; one instantiation each); the source says what bounds it on the card
-(bytes) and what its design does about that.
+``aum_tpu/ops/conv1d.py:_conv_kernel`` at every width, as that takes any k:
+widths 1 to ``UNROLLED_WIDTHS`` (8) have one instantiation each, wider ones
+a general form with the width a run-time value; the source says what bounds
+it on the card (bytes) and what its design does about that.
 
 Semantics: weight (D, K), tap k multiplies ``x[t - (K-1) + k]``; zero halo;
 ``reverse=True`` is the anti-causal form with mirrored taps (flip -> causal
@@ -26,7 +27,8 @@ the rest plain torch.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. ``causal_conv1d.launches`` counts launches,
-those of the backward included.
+those of the backward included, and ``causal_conv1d.general_launches``
+those of them that took the general form (widths past 8).
 """
 
 from __future__ import annotations
@@ -38,8 +40,6 @@ import torch
 import torch.nn.functional as F
 
 from aum_tpu_torch.ops import _build
-
-MAX_WIDTH = 8  # kMaxK: the kernel takes widths 1 .. 8 (the plain form any)
 
 
 def causal_conv1d_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -77,9 +77,11 @@ class _ConvArgs(ctypes.Structure):
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel's channels per thread and steps per tile (kVec, kTileL in
 # csrc/conv1d.cu), checked against the library at load: the card's edge
-# checks in chip_smoke.py are sized from them.
+# checks in chip_smoke.py are sized from them. Past UNROLLED_WIDTHS (kMaxK)
+# the general form runs, and the wrapper counts its launches apart.
 CHANNELS_PER_THREAD = 8
 TILE_STEPS = 32
+UNROLLED_WIDTHS = 8
 
 
 @functools.cache
@@ -92,7 +94,7 @@ def _lib() -> ctypes.CDLL:
     lib.aum_conv_error_string.restype = ctypes.c_char_p
     for fn_name, value in (("aum_conv_channels_per_thread", CHANNELS_PER_THREAD),
                            ("aum_conv_tile_steps", TILE_STEPS),
-                           ("aum_conv_max_width", MAX_WIDTH)):
+                           ("aum_conv_unrolled_widths", UNROLLED_WIDTHS)):
         _build.check_constant(lib, fn_name, value)
     return lib
 
@@ -106,9 +108,8 @@ def causal_conv1d_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise TypeError(f"the conv kernel takes float32 or bfloat16, not {x.dtype}")
     bsz, seqlen, d = x.shape
     width = weight.shape[-1]
-    if weight.dim() != 2 or weight.shape[0] != d or not 1 <= width <= MAX_WIDTH:
-        raise ValueError(f"weight {tuple(weight.shape)} must be (D={d}, K) with K in "
-                         f"1..{MAX_WIDTH}, the widths the kernel is built for")
+    if weight.dim() != 2 or weight.shape[0] != d or width < 1:
+        raise ValueError(f"weight {tuple(weight.shape)} must be (D={d}, K) with K >= 1")
     if bias is not None and tuple(bias.shape) != (d,):
         raise ValueError(f"bias {tuple(bias.shape)} must be ({d},)")
     if x.stride(-1) != 1:
@@ -130,6 +131,7 @@ def causal_conv1d_cuda(x: torch.Tensor, weight: torch.Tensor,
             int(activation == "silu"), _DTYPE_CODES[x.dtype], stream)
     _build.check_status(status, lib.aum_conv_error_string, "causal_conv1d kernel launch")
     causal_conv1d.launches += 1
+    causal_conv1d.general_launches += width > UNROLLED_WIDTHS
     return out
 
 
@@ -215,6 +217,7 @@ def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
 
 
 causal_conv1d.launches = 0
+causal_conv1d.general_launches = 0
 
 
 def causal_conv1d_update(x: torch.Tensor, conv_state: torch.Tensor, weight: torch.Tensor,

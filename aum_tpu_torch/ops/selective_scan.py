@@ -44,7 +44,9 @@ on its own rows of A, columns of B and C and saved or carried states, and
 applies the gate, rounding once (``scan_combine_cuda``); its backward twin
 (``scan_combine_bwd_cuda``) sums the backward slices' du and ddelta
 partials and forms dz, dD and dbias from the whole pre-gate y. D None is
-the zero vector. The fuse_dt form takes dt ranks up to ``MAX_DT_RANK``.
+the zero vector. The fuse_dt form takes any dt rank: past
+``FDT_WHOLE_RANK`` (400) its windowed kernel accumulates the dt product
+over windows of the rank.
 
 The ``_prep`` contract of the JAX op is kept: ``dt = softplus(delta + bias)``
 is computed outside the kernels in fp32 and cast to delta's dtype, and the
@@ -100,6 +102,7 @@ SLICE_STATES = 16  # kMaxN of the scan kernels: the states one launch takes
 STATE_CHUNK = 64  # kChunk of both kernels: the interval of the saved states
 BWD_BLOCK_CHANNELS = 32  # channels per block of K2: one dB/dC partial row each
 BWD_FUSED_BLOCK_CHANNELS = 16  # the same for the fused backward
+COMBINE_BWD_CHUNK = 32  # kBwdChunk of the combine's backward: steps per dD/dbias partial row
 
 
 def _env_int(name: str, default: int) -> int:
@@ -484,15 +487,18 @@ def _stream_strides(u, dt, z, B, C) -> list[int]:
             B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
 
 
-MAX_DT_RANK = 400  # kMaxRank of the fuse_dt kernel
+# kWholeRank of the fuse_dt kernel: the largest dt rank whose operands a block
+# holds whole; past it the kernel's windowed form runs.
+FDT_WHOLE_RANK = 400
 # The shared memory a block can hold on an H100 (227 KB), opted in: the
-# fuse_dt kernel's, which grows with the dt rank, must stay within it.
+# fuse_dt kernel's, which grows with the dt rank to FDT_WHOLE_RANK, must
+# stay within it, and so must the windowed form's.
 SMEM_PER_BLOCK = 232448
 
 
 def _check_fold(u, dtr, W, bias):
     """The fuse_dt form's (dtr, W, bias) for a kernel: dtr (B, L, R) and W
-    (R, D) in u's dtype, R <= MAX_DT_RANK; returns dtr with rank stride 1, W
+    (R, D) in u's dtype, any R; returns dtr with rank stride 1, W
     as Wt (D, R) with rank stride 1 (dt_proj's own layout: no copy for
     ``weight.t()``), bias as contiguous fp32 (zeros where None)."""
     bsz, seqlen, d = u.shape
@@ -500,9 +506,6 @@ def _check_fold(u, dtr, W, bias):
     if tuple(dtr.shape) != (bsz, seqlen, rank) or tuple(W.shape) != (rank, d):
         raise ValueError(f"dtr {tuple(dtr.shape)} / W {tuple(W.shape)} do not match "
                          f"u {tuple(u.shape)}")
-    if not 1 <= rank <= MAX_DT_RANK:
-        raise ValueError(f"dt rank {rank} is outside 1..{MAX_DT_RANK}, what the fuse_dt "
-                         "kernel supports")
     for name, t in (("dtr", dtr), ("W", W)):
         if t.dtype != u.dtype or t.device != u.device:
             raise TypeError(f"{name} is {t.dtype} on {t.device}; u is {u.dtype} on {u.device}")
@@ -768,7 +771,9 @@ def scan_combine_bwd_cuda(items: list) -> list:
 
         du, ddelta = empty(*u.shape, dtype=u.dtype), empty(*u.shape, dtype=u.dtype)
         dz = None if z is None else empty(*u.shape, dtype=u.dtype)
-        dD_p, dbias_p = empty(bsz, d), empty(bsz, d)
+        # One dD and dbias partial row per (b, chunk of COMBINE_BWD_CHUNK steps).
+        dD_p, dbias_p = (empty(bsz * math.ceil(seqlen / COMBINE_BWD_CHUNK), d)
+                         for _ in range(2))
         args.dir[i] = _CombineBwdDir(
             du_p.data_ptr(), dd_p.data_ptr(), _ptr(y_p), g.data_ptr(), _ptr(z), u.data_ptr(),
             Dk.data_ptr(), du.data_ptr(), ddelta.data_ptr(), _ptr(dz), dD_p.data_ptr(),
@@ -961,16 +966,19 @@ def _load_scan_lib(name: str) -> ctypes.CDLL:
     lib.aum_scan_error_string.argtypes = [ctypes.c_int]
     lib.aum_scan_error_string.restype = ctypes.c_char_p
     _build.check_constant(lib, "aum_scan_state_chunk", STATE_CHUNK)
-    _build.check_constant(lib, "aum_scan_fdt_max_rank", MAX_DT_RANK)
+    _build.check_constant(lib, "aum_scan_fdt_whole_rank", FDT_WHOLE_RANK)
     fn = lib.aum_scan_fdt_smem_bytes
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    for dtype in (torch.float32, torch.bfloat16):
-        smem = fn(MAX_DT_RANK, _DTYPE_CODES[dtype])
-        if smem > SMEM_PER_BLOCK:
-            raise RuntimeError(f"the fuse_dt kernel takes {smem} bytes of shared memory per "
-                               f"block at rank {MAX_DT_RANK} in {dtype}, more than the "
-                               f"{SMEM_PER_BLOCK} a block can hold")
+    # The largest rank held whole, and one past it (the windowed form, the
+    # same at every rank).
+    for rank in (FDT_WHOLE_RANK, FDT_WHOLE_RANK + 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            smem = fn(rank, _DTYPE_CODES[dtype])
+            if smem > SMEM_PER_BLOCK:
+                raise RuntimeError(f"the fuse_dt kernel takes {smem} bytes of shared memory "
+                                   f"per block at rank {rank} in {dtype}, more than the "
+                                   f"{SMEM_PER_BLOCK} a block can hold")
     return lib
 
 
@@ -1029,6 +1037,7 @@ def _combine_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.aum_scan_combine_error_string.argtypes = [ctypes.c_int]
     lib.aum_scan_combine_error_string.restype = ctypes.c_char_p
+    _build.check_constant(lib, "aum_scan_combine_bwd_chunk", COMBINE_BWD_CHUNK)
     return lib
 
 

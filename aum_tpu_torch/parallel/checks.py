@@ -61,6 +61,7 @@ def launch_counters() -> dict:
             **{k: (selective_scan, a) for k, a in single.items()},
             **{k: (selective_scan_bwd, a) for k, a in bwd.items()},
             "causal_conv1d_fwd": (causal_conv1d, "launches"),
+            "causal_conv1d_fwd_general": (causal_conv1d, "general_launches"),
             "scan_combine_fwd": (scan_combine_cuda, "launches"),
             "scan_combine_bwd": (scan_combine_bwd_cuda, "launches")}
 

@@ -223,18 +223,25 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    fuse_dt forms) at d_state 17, 24, 32, 64 and 128 on the ragged shape,
    which the kernels run as slices of 16 states and a combine; the scan
    without z and/or D at d_state 5, 16 and 40; the combine and its
-   backward alone (at L=70000 too); d_state 64 at AuM-Base's eval (B=64) and train (B=12)
-   shapes; the conv at widths 1, 2, 3, 5, 8, causal and anti-causal, at
-   (64, 513, 1536) and at D=36 on an odd offset; the fuse_dt form at dt
-   ranks 65, 80, 128 and 256. Then AuM-Base Fo-Bi with d_state 64 (bf16,
+   backward alone (at L=70000 too, at the train shapes, at a D not a
+   multiple of 4; the backward run twice for the same bits); d_state 64 at
+   AuM-Base's eval (B=64) and train (B=12)
+   shapes; the conv at widths 1, 2, 3, 5, 8 and, through its general form,
+   9, 12, 16 and 33 (past one window of taps), causal and anti-causal, at
+   (8, 513, 1536) and at D=36 on an odd offset, and 40 (past L) there; the
+   fuse_dt form at dt ranks 65, 80, 128, 256, and past 400 (its windowed
+   form) 401, 416, 417 and 512, the last two at the width they imply (d_inner
+   32 x rank, B=8). Then AuM-Base Fo-Bi with d_state 64 (bf16,
    depth 24): a B=64 eval forward and a B=12 train step with their launches,
    its fp32 depth-2 forward and train step against the CPU; the Mamba LM at
-   mamba-130m's widths with d_state 64 and d_conv 3: a B=8 x 512 prefill and
+   mamba-130m's widths with d_state 64 and d_conv 3, and with d_state 16 and
+   d_conv 12 (the conv's general form): a B=8 x 512 prefill and
    16 decode steps with their launches, and the fp32 depth-2 checks
    against the CPU and stepwise decoding. Then each new form's ms beside its
    bound and its plain version's: a sliced form one launch on one slice of
    16 states (its whole op beside it), the combine and its backward on
-   planes of their own per direction.
+   planes of their own per direction, the conv at every width, the fuse_dt
+   form at every rank (and past 400 at the width the rank implies).
 15. profile: one Fo-Bi bench forward (and one under AUM_SCAN_FUSE_DT=1),
    one Fo-Fo forward from waveforms (B=64), then one train step, under
    ``torch.profiler``: device time by
@@ -3644,6 +3651,59 @@ def probe_fused_bwd(trees: dict[str, str] | None = None,
     return out
 
 
+AB_ORDER = ("parent", "change", "change", "parent")
+
+
+def ab_bench(trees: dict[str, str], order: tuple = AB_ORDER) -> dict:
+    """Two trees in turns on one card: each tree's own ``chip_smoke.py`` in a
+    process of its own (cwd and PYTHONPATH the tree, so each builds and
+    loads its own kernels), ``phase_build`` (its occupancy line) and
+    ``phase_bench`` (rows 1-7's kernels and the conv at K=4 at the bench
+    shapes, B=64 Fo-Bi clips/s), in ``order`` over the names of ``trees``,
+    e.g. ``ab_bench({"parent": "build/parent", "change": "."})`` with the
+    parent unpacked from ``git archive`` into the git-ignored ``build/``.
+    Emits each run's ms by kernel, the change/parent ratio of each kernel's
+    mean ms, and the kernel instantiations whose registers, spills, shared
+    memory or warps per SM differ between the trees."""
+    script = ("import json, chip_smoke as c; i = c.phase_device(); c.phase_build(); "
+              "b = c.phase_bench(i); print('AB_RESULT ' + json.dumps("
+              "{k: v['ms'] for k, v in b.items() if isinstance(v, dict) and 'ms' in v}))")
+    ms = {name: [] for name in trees}
+    occupancy = {}
+    for name in order:
+        tree = os.path.abspath(trees[name])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", script], cwd=tree, capture_output=True,
+                              text=True, env={**os.environ, "PYTHONPATH": tree})
+        if proc.returncode != 0:
+            raise RuntimeError(f"ab_bench: {name} failed:\n{proc.stderr[-4000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("AB_RESULT "):
+                ms[name].append(json.loads(line[len("AB_RESULT "):]))
+            elif line.startswith('{"phase": "occupancy"'):
+                occupancy[name] = {(lib, r["kernel"]): (r["registers"], r["local_bytes"],
+                                                        r["shared_bytes"], r["warps_per_sm"])
+                                   for lib, rows in json.loads(line)["kernels"].items()
+                                   for r in rows}
+        emit({"phase": "ab_run", "tree": name, "ms": ms[name][-1],
+              "seconds": time.perf_counter() - t0})
+    base, other = order[0], next(n for n in order if n != order[0])
+    ratio = {k: (sum(r[k] for r in ms[other]) / len(ms[other]))
+             / (sum(r[k] for r in ms[base]) / len(ms[base]))
+             for k in ms[base][0] if k in ms[other][0]}
+    common = occupancy[base].keys() & occupancy[other].keys()
+    changed = {f"{lib} {kernel}": {base: occupancy[base][(lib, kernel)],
+                                   other: occupancy[other][(lib, kernel)]}
+               for lib, kernel in sorted(common)
+               if occupancy[base][(lib, kernel)] != occupancy[other][(lib, kernel)]}
+    out = {"phase": "ab", "order": list(order), "ms": ms, f"ratio_{other}_over_{base}": ratio,
+           "instantiations_compared": len(common), "resources_changed": changed,
+           f"only_in_{other}": sorted(f"{lib} {k}" for lib, k in
+                                      occupancy[other].keys() - occupancy[base].keys())}
+    emit(out)
+    return out
+
+
 def _kernel_category(name: str) -> str:
     low = name.lower()
     if "scan_bwd_kernel" in low:
@@ -3757,24 +3817,39 @@ def phase_profile() -> dict:
 # --- sizes: every shape the JAX package's ops take ------------------------------
 
 # The scan kernels run any d_state as slices of 16 states (the sliced
-# libraries) and a combine; the conv kernel any width to 8; the fuse_dt form
-# any dt rank to 400. The sizes phase holds each new form to its plain
-# version, drives AuM-Base and the Mamba LM with a wide state, and times
-# the new forms.
+# libraries) and a combine; the conv kernel any width (past 8 its general
+# form); the fuse_dt form any dt rank (past 400 its windowed form). The sizes
+# phase holds each new form to its plain version, drives AuM-Base and the
+# Mamba LM with a wide state and the LM with a wide conv, and times the new
+# forms.
 SIZES_STATES = (17, 24, 32, 64, 128)
 SIZES_RAGGED = (2, 37, 40)
 # A length past grid.y's 65535 blocks: the combine puts L on grid.x.
 SIZES_LONG = (1, 70000, 40)
 SIZES_WIDE_N = 64
 SIZES_EVAL_DIMS = (BENCH_BATCH, 513, 1536)  # AuM-Base's eval batch
-SIZES_CONV_WIDTHS = (1, 2, 3, 5, 8)
-# The conv at the eval shapes, and at an unaligned D on a slice at an odd
+SIZES_CONV_WIDTHS = (1, 2, 3, 5, 8, 9, 12, 16, 33)
+# The general form at a width past L, at the unaligned shape (L = 37).
+SIZES_CONV_PAST_L = 40
+# The conv at AuM-Base's widths and length (B=8: each check draws its
+# inputs on the host, and B=64 took most of the phase's time; the kernels
+# are timed at B=64 below), and at an unaligned D on a slice at an odd
 # channel offset (value by value).
-SIZES_CONV_DIMS = {"sizes_eval": ((64, 513, 1536), 0), "sizes_unaligned": ((2, 37, 36), 1)}
-SIZES_RANKS = (65, 80, 128, 256)
+SIZES_CONV_DIMS = {"sizes_aligned": ((8, 513, 1536), 0), "sizes_unaligned": ((2, 37, 36), 1)}
+SIZES_RANKS = (65, 80, 128, 256, 416, 512)
+# Past 400 (the windowed fuse_dt form) each rank is also checked and timed at
+# the width it implies (d_inner = 32 x rank: dt rank ceil(d_model / 16)),
+# B=8; 401 (a partial k-step in the last window) and 417 (dtr rows not
+# 16-byte aligned: staged value by value) at the ragged shape.
+SIZES_WIDE_RANKS = {416: (8, 513, 13312), 512: (8, 513, 16384)}
+SIZES_RAGGED_RANKS = (401, 417)
+# The combine's backward with D not a multiple of its 4-channel vectors.
+SIZES_COMBINE_ODD = (2, 45, 38)
 # mamba-130m's widths with a wide state and a conv of width 3.
 SIZES_LM = dict(d_model=768, n_layer=24, vocab_size=50280, dtype="bfloat16", d_state=64,
                 d_conv=3)
+# The same widths with d_state 16 and a conv of width 12: the general form.
+SIZES_LM_CONV = dict(SIZES_LM, d_state=16, d_conv=12)
 SIZES_DECODE_STEPS = 16
 
 
@@ -3895,11 +3970,18 @@ def _check_combine(label, dims, dtype, slices) -> list[dict]:
                                             scan_combine_plain(parts[1], u, None, None)))):
         results.append({**compare(a, want, *SCAN_TOL[dtype]), "kernel": "scan_combine_fwd",
                         "gated": i == 0, **tag})
-    got = scan_combine_bwd_cuda([(parts[2], parts[3], parts[4], gout, z, u, D),
-                                 (parts[2], parts[3], None, gout, None, u, None)])
+    items = [(parts[2], parts[3], parts[4], gout, z, u, D),
+             (parts[2], parts[3], None, gout, None, u, None)]
+    got = scan_combine_bwd_cuda(items)
+    again = scan_combine_bwd_cuda(items)
     torch.cuda.synchronize()
-    wants = (scan_combine_bwd_plain(parts[2], parts[3], parts[4], gout, z, u, D),
-             scan_combine_bwd_plain(parts[2], parts[3], None, gout, None, u, None))
+    # The same bits from run to run (no atomics).
+    pairs = [(a, b) for g1, g2 in zip(got, again) for a, b in zip(g1, g2) if a is not None]
+    results.append({"kernel": "scan_combine_bwd", "against": "itself",
+                    "ok": all(torch.equal(a, b) for a, b in pairs),
+                    "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                       for a, b in pairs), **tag})
+    wants = (scan_combine_bwd_plain(*items[0]), scan_combine_bwd_plain(*items[1]))
     for i, (a, want) in enumerate(zip(got, wants)):
         names = [nm for nm, w in zip(("du", "ddelta", "dz", "dD", "dbias"), want)
                  if w is not None]
@@ -3930,6 +4012,7 @@ def _sizes_kernel_checks() -> list[dict]:
         results += _check_combine("sizes_eval", SIZES_EVAL_DIMS, dtype, 4)
         results += _check_combine("sizes_ragged", SIZES_RAGGED, dtype, 8)
         results += _check_combine("sizes_long", SIZES_LONG, dtype, 2)
+        results += _check_combine("sizes_odd_d", SIZES_COMBINE_ODD, dtype, 3)
         # N=64 at AuM-Base's eval shapes: the dual forward (v1) and the
         # single-direction one.
         results += _check_scan("sizes_eval", SIZES_EVAL_DIMS, dtype, True, False, SIZES_WIDE_N)
@@ -3939,6 +4022,8 @@ def _sizes_kernel_checks() -> list[dict]:
     # both backward kernels, one and both directions, and the
     # single-direction op under autograd.
     results += _check_scan("sizes_train", TRAIN_DIMS, torch.bfloat16, True, True, SIZES_WIDE_N)
+    results += _check_combine("sizes_train", TRAIN_DIMS, torch.bfloat16,
+                              math.ceil(SIZES_WIDE_N / 16))
     results += _check_scan_single("sizes_train", TRAIN_DIMS, torch.bfloat16, True, True,
                                   SIZES_WIDE_N)
     for k in SIZES_CONV_WIDTHS:
@@ -3946,10 +4031,20 @@ def _sizes_kernel_checks() -> list[dict]:
             for dtype in (torch.float32, torch.bfloat16):
                 for train in (False, True):
                     results += _check_conv(label, dims, dtype, train, offset, k)
+    dims, offset = SIZES_CONV_DIMS["sizes_unaligned"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for train in (False, True):
+            results += _check_conv("sizes_past_l", dims, dtype, train, offset, SIZES_CONV_PAST_L)
     for rank in SIZES_RANKS:
         for dtype in (torch.float32, torch.bfloat16):
             results += _check_fdt("sizes_ragged", SIZES_RAGGED, dtype, False, 16, rank)
-            results += _check_fdt("sizes_eval", EVAL_DIMS, dtype, True, 16, rank)
+            label = "sizes_implied_width" if rank in SIZES_WIDE_RANKS else "sizes_eval"
+            results += _check_fdt(label, SIZES_WIDE_RANKS.get(rank, EVAL_DIMS), dtype, True, 16,
+                                  rank)
+    for rank in SIZES_RAGGED_RANKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for shared in (True, False):
+                results += _check_fdt("sizes_ragged", SIZES_RAGGED, dtype, shared, 16, rank)
     return results
 
 
@@ -4055,14 +4150,17 @@ def _sizes_aum_paths() -> dict:
     return out
 
 
-def _sizes_lm_path() -> dict:
-    """The Mamba LM at mamba-130m's widths with d_state=64 and d_conv=3 (bf16,
-    random weights from seed 0): a B=8 x 512 prefill and SIZES_DECODE_STEPS
-    decode steps (launches of each, ms); then the fp32 depth-2 checks against
-    the CPU and against stepwise decoding (``_lm_fp32_checks``)."""
+def _sizes_lm_path(config: dict, label: str) -> dict:
+    """The Mamba LM at mamba-130m's widths with ``config``'s d_state and
+    d_conv (SIZES_LM: 64 and 3; SIZES_LM_CONV: 16 and 12, the conv's general
+    form) (bf16, random weights from seed 0): a B=8 x 512 prefill and
+    SIZES_DECODE_STEPS decode steps (launches of each, ms); then the fp32
+    depth-2 checks against the CPU and against stepwise decoding
+    (``_lm_fp32_checks``)."""
     from aum_tpu_torch.models.lm import MambaLM, MambaLMConfig, decode_step, prefill
+    from aum_tpu_torch.ops.conv1d import UNROLLED_WIDTHS
 
-    cfg = MambaLMConfig(**SIZES_LM)
+    cfg = MambaLMConfig(**config)
     slices = math.ceil(cfg.d_state / 16)
     bsz, seqlen, _ = LM_PREFILL_DIMS
     model = MambaLM(cfg, device="cuda", seed=0)
@@ -4089,11 +4187,12 @@ def _sizes_lm_path() -> dict:
     end.synchronize()
     decode_launches = _read_counters()
     depth = cfg.n_layer
+    sliced = {"selective_scan_fwd_sliced": slices * depth, "scan_combine_fwd": depth}
     expected = _launches(selective_scan_fwd=slices * depth,
                          selective_scan_fwd_with_state=slices * depth,
-                         selective_scan_fwd_sliced=slices * depth, scan_combine_fwd=depth,
-                         causal_conv1d_fwd=depth)
-    out = {"phase": "sizes_lm_path", "config": SIZES_LM, "batch": bsz, "prompt": seqlen,
+                         **(sliced if slices > 1 else {}), causal_conv1d_fwd=depth,
+                         causal_conv1d_fwd_general=depth * (cfg.d_conv > UNROLLED_WIDTHS))
+    out = {"phase": label, "config": config, "batch": bsz, "prompt": seqlen,
            "decode_steps": SIZES_DECODE_STEPS, "logits_shape": list(logits.shape),
            "finite": finite, "prefill_ms": prefill_ms,
            "prefill_tokens_per_s": bsz * seqlen / (prefill_ms / 1e3),
@@ -4106,7 +4205,7 @@ def _sizes_lm_path() -> dict:
             or prefill_launches != expected or decode_launches != _launches()
             or tuple(state["ssm"].shape[-1:]) != (cfg.d_state,)
             or tuple(state["conv"].shape[-1:]) != (cfg.d_conv,)):
-        raise RuntimeError(f"the wide-state LM: logits {tuple(logits.shape)} finite {finite}, "
+        raise RuntimeError(f"{label}: logits {tuple(logits.shape)} finite {finite}, "
                            f"prefill launches {prefill_launches} (expected {expected}), "
                            f"decode launches {decode_launches}")
     del model, state
@@ -4301,10 +4400,11 @@ def _sizes_bench(sfu_rate: float) -> dict:
                 xc.transpose(1, 2), w3, b, padding=k - 1, groups=d)[..., :seqlen]), iters=20),
             "bounds_ms": _conv_bounds(bsz, seqlen, d, k, es)}
         del xc, w, b
-    # The fuse_dt form at each dt rank (N=16, v1), at the eval shapes.
-    out["fdt_by_rank"] = {}
+    # The fuse_dt form at each dt rank (N=16, v1), at the eval shapes, and
+    # past 400 at the width the rank implies.
     n16 = 16
-    for rank in SIZES_RANKS + (48,):
+
+    def fdt_bench(bsz, seqlen, d, rank):
         fold = fold_inputs(bsz, seqlen, d, n16, dtype, seed=48, rank=rank)
         fold_r = fold[:3] + (fold[3] * 0.5,) + fold[4:]
         elems = 2 * bsz * seqlen * d * n16
@@ -4312,14 +4412,19 @@ def _sizes_bench(sfu_rate: float) -> dict:
             + 2 * d * n16 * 4 + d * 4
         fbytes = sbytes - bsz * seqlen * d * es + bsz * seqlen * rank * es + rank * d * es + d * 4
         product_s = 2 * bsz * seqlen * rank * d / BF16_TENSOR_FLOPS_PER_S
-        out["fdt_by_rank"][str(rank)] = {
+        return {
             "ms": cuda_ms(lambda: selective_scan_dual_fdt_cuda(fold, fold_r), iters=50),
             "plain_ms": cuda_ms(lambda: selective_scan_dual_fdt_plain(fold, fold_r), iters=1,
                                 warmup=0),
             "bounds_ms": {"bytes": fbytes / HBM_BYTES_PER_S * 1e3,
                           "operations": (exp_floor_s(elems, SCAN_FP32_OPS_PER_ELEMENT * elems,
-                                                     sfu_rate) + product_s) * 1e3}}
-        del fold, fold_r
+                                                     sfu_rate) + product_s) * 1e3},
+            "dims": [bsz, seqlen, d, n16]}
+
+    out["fdt_by_rank"] = {str(rank): fdt_bench(bsz, seqlen, d, rank)
+                          for rank in SIZES_RANKS + (48,)}
+    out["fdt_by_rank_implied_width"] = {str(rank): fdt_bench(*dims, rank)
+                                        for rank, dims in SIZES_WIDE_RANKS.items()}
     emit({"phase": "sizes_bench", "dtype": "bfloat16", **out})
     return out
 
@@ -4329,12 +4434,16 @@ def phase_sizes(device_info: dict) -> dict:
     every new form against its plain version, the wide-state
     AuM-Base and Mamba LM paths, and the new forms' ms."""
     t0 = time.perf_counter()
+    from aum_tpu_torch.ops.conv1d import UNROLLED_WIDTHS
+
     results = _sizes_kernel_checks()
     worst = {}
     for r in results:
         emit({"phase": "sizes_kernels", **r})
         if r["dtype"] == str(torch.bfloat16) and r.get("against", "plain") == "plain":
             key = r["kernel"] + ("_no_gate" if "no_gate" in r.get("form", "") else "")
+            if r["kernel"].startswith("causal_conv1d") and r["dims"][3] > UNROLLED_WIDTHS:
+                key += "_general"  # the conv's general form
             worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
     failed = [r for r in results if not r["ok"]]
     emit({"phase": "sizes_kernels_summary", "checks": len(results), "failed": len(failed),
@@ -4346,14 +4455,17 @@ def phase_sizes(device_info: dict) -> dict:
     aum = _sizes_aum_paths()
     seconds["aum"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lm = _sizes_lm_path()
+    lm = _sizes_lm_path(SIZES_LM, "sizes_lm_path")
     seconds["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_conv = _sizes_lm_path(SIZES_LM_CONV, "sizes_lm_conv_path")
+    seconds["lm_conv"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     sfu_rate = device_info["sms"] * SFU_PER_SM_PER_CLOCK * max_sm_clock_hz()
     bench = _sizes_bench(sfu_rate)
     seconds["bench"] = time.perf_counter() - t0
     emit({"phase": "sizes_seconds", **seconds})
-    return {"worst": worst, "aum": aum, "lm": lm, "bench": bench}
+    return {"worst": worst, "aum": aum, "lm": lm, "lm_conv": lm_conv, "bench": bench}
 
 
 def _bound(bounds: dict) -> tuple[float, str]:
@@ -4674,7 +4786,23 @@ def main() -> int:
 
     conv["by_width"] = {k: timed_entry(b) for k, b in sb["conv_by_width"].items()}
     conv["by_width"]["3"]["launches_by_path"] = {"sizes_lm_prefill": s_lm["causal_conv1d_fwd"]}
+    # The general form (widths past 8), on the LM's d_conv-12 prefill, timed
+    # at width 12.
+    s_lm_conv = sizes["lm_conv"]["prefill_launches"]
+    conv["launches_by_path"]["sizes_lm_conv12_prefill"] = s_lm_conv["causal_conv1d_fwd"]
+    conv["general"] = _kernel_entry(
+        "causal_conv1d_fwd_general", conv["source"], conv["replaces"] + " (any k)",
+        s_lm_conv["causal_conv1d_fwd_general"], sw["causal_conv1d_fwd_general"],
+        sb["conv_by_width"]["12"], library_ms=sb["conv_by_width"]["12"]["library_ms"])
+    conv["general"]["launches_by_path"] = {
+        "sizes_lm_conv12_prefill": s_lm_conv["causal_conv1d_fwd_general"],
+        "sizes_lm_prefill": s_lm["causal_conv1d_fwd_general"],
+        "eval": eval_launches["causal_conv1d_fwd_general"],
+        "train": train_launches["causal_conv1d_fwd_general"],
+        "lm_prefill": lm["prefill_launches"]["causal_conv1d_fwd_general"]}
     fdt["by_rank"] = {r: timed_entry(b) for r, b in sb["fdt_by_rank"].items()}
+    fdt["by_rank_implied_width"] = {r: timed_entry(b)
+                                    for r, b in sb["fdt_by_rank_implied_width"].items()}
     emit({"kernels": [scan, direct, fdt, stage, single, bwd, fused, conv, combine]})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

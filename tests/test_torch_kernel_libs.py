@@ -98,19 +98,19 @@ conv = importlib.import_module("aum_tpu_torch.ops.conv1d")
 
 
 @pytest.mark.parametrize("channels,tile,width,error", [
-    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, conv.MAX_WIDTH, None),
-    (4, conv.TILE_STEPS, conv.MAX_WIDTH, "aum_conv_channels_per_thread"),
-    (conv.CHANNELS_PER_THREAD, 64, conv.MAX_WIDTH, "aum_conv_tile_steps"),
-    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, 4, "aum_conv_max_width")],
+    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, conv.UNROLLED_WIDTHS, None),
+    (4, conv.TILE_STEPS, conv.UNROLLED_WIDTHS, "aum_conv_channels_per_thread"),
+    (conv.CHANNELS_PER_THREAD, 64, conv.UNROLLED_WIDTHS, "aum_conv_tile_steps"),
+    (conv.CHANNELS_PER_THREAD, conv.TILE_STEPS, 4, "aum_conv_unrolled_widths")],
     ids=["same", "channels", "tile", "width"])
 def test_conv_lib_checks_its_constants(channels, tile, width, error, monkeypatch):
     """The conv kernel's channels per thread and steps per tile, from which
-    the card's edge checks are sized, and the widest conv it is built for
-    (the wrapper refuses wider ones before a launch): a library built with
-    others is refused at load."""
+    the card's edge checks are sized, and the widest conv with its own
+    instantiation (the wrapper counts the general form's launches past it):
+    a library built with others is refused at load."""
     lib = _Lib(aum_causal_conv1d_fwd=lambda *a: 0, aum_conv_error_string=lambda status: b"",
                aum_conv_channels_per_thread=lambda: channels, aum_conv_tile_steps=lambda: tile,
-               aum_conv_max_width=lambda: width)
+               aum_conv_unrolled_widths=lambda: width)
     monkeypatch.setattr(_build, "library", lambda name: lib)
     if error is None:
         assert conv._lib.__wrapped__() is lib
@@ -119,29 +119,33 @@ def test_conv_lib_checks_its_constants(channels, tile, width, error, monkeypatch
             conv._lib.__wrapped__()
 
 
-def _scan_lib_with(max_rank: int, smem: int, dtypes=(0, 1)) -> _Lib:
+def _scan_lib_with(whole_rank: int, smem: int, dtypes=(0, 1), ranks=None) -> _Lib:
+    """A stand-in scan library whose fuse_dt form holds ranks to
+    ``whole_rank`` whole and takes ``smem`` bytes per block at ``ranks``
+    (default: that rank and the windowed form's past it) in ``dtypes``."""
+    ranks = (whole_rank, whole_rank + 1) if ranks is None else ranks
     return _Lib(**{f"aum_selective_scan_{form}": lambda *a: 0
                    for form in ("dual_fwd", "dual_direct_fwd", "dual_fdt_fwd", "dual_stage_fwd",
                                 "fwd")},
                 aum_scan_error_string=lambda status: b"",
                 aum_scan_state_chunk=lambda: ss.STATE_CHUNK,
-                aum_scan_fdt_max_rank=lambda: max_rank,
+                aum_scan_fdt_whole_rank=lambda: whole_rank,
                 aum_scan_fdt_smem_bytes=lambda rank, dtype: (
-                    smem if rank == max_rank and dtype in dtypes else 0))
+                    smem if rank in ranks and dtype in dtypes else 0))
 
 
-@pytest.mark.parametrize("max_rank,smem,error", [
-    (ss.MAX_DT_RANK, ss.SMEM_PER_BLOCK, None),
-    (32, ss.SMEM_PER_BLOCK, "aum_scan_fdt_max_rank"),
-    (ss.MAX_DT_RANK, ss.SMEM_PER_BLOCK + 16, "shared memory")],
+@pytest.mark.parametrize("whole_rank,smem,error", [
+    (ss.FDT_WHOLE_RANK, ss.SMEM_PER_BLOCK, None),
+    (32, ss.SMEM_PER_BLOCK, "aum_scan_fdt_whole_rank"),
+    (ss.FDT_WHOLE_RANK, ss.SMEM_PER_BLOCK + 16, "shared memory")],
     ids=["same", "rank", "smem"])
-def test_scan_lib_checks_the_fuse_dt_constants(max_rank, smem, error, monkeypatch):
-    """The fuse_dt kernel's largest dt rank (the wrapper refuses larger ones
-    before a launch) and its shared memory per block at that rank in fp32
-    and bf16, which must fit what a block can hold on the card: a library
-    that differs is refused at load, the gated one and the sliced one
-    alike."""
-    lib = _scan_lib_with(max_rank, smem)
+def test_scan_lib_checks_the_fuse_dt_constants(whole_rank, smem, error, monkeypatch):
+    """The largest dt rank the fuse_dt kernel holds whole (past it, its
+    windowed form) and its shared memory per block at that rank and past it
+    in fp32 and bf16, which must fit what a block can hold on the card: a
+    library that differs is refused at load, the gated one and the sliced
+    one alike."""
+    lib = _scan_lib_with(whole_rank, smem)
     monkeypatch.setattr(_build, "library", lambda name: lib)
     for loader in (ss._lib, ss._sliced_lib):
         if error is None:
@@ -153,8 +157,14 @@ def test_scan_lib_checks_the_fuse_dt_constants(max_rank, smem, error, monkeypatc
 
 @pytest.mark.parametrize("dtype", [0, 1], ids=["fp32", "bf16"])
 def test_scan_lib_checks_the_fuse_dt_smem_in_each_dtype(dtype, monkeypatch):
-    """Past what a block holds in one dtype alone is refused too."""
-    lib = _scan_lib_with(ss.MAX_DT_RANK, ss.SMEM_PER_BLOCK + 16, dtypes=(dtype,))
+    """Past what a block holds in one dtype alone is refused too, and in the
+    windowed form alone."""
+    lib = _scan_lib_with(ss.FDT_WHOLE_RANK, ss.SMEM_PER_BLOCK + 16, dtypes=(dtype,))
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ss._lib.__wrapped__()
+    lib = _scan_lib_with(ss.FDT_WHOLE_RANK, ss.SMEM_PER_BLOCK + 16, dtypes=(dtype,),
+                         ranks=(ss.FDT_WHOLE_RANK + 1,))
     monkeypatch.setattr(_build, "library", lambda name: lib)
     with pytest.raises(RuntimeError, match="shared memory"):
         ss._lib.__wrapped__()

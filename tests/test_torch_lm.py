@@ -16,7 +16,7 @@ function on the same token ids:
   of the same key), which the test checks first);
 - ``save_pretrained`` / ``load_pretrained`` in both directions between the
   packages, and ``from_pretrained_hf`` on a local directory the test writes;
-- the kernel limits for a CUDA device (any d_state, conv widths 1 to 8),
+- the kernel limits for a CUDA device (any d_state and conv width from 1),
   checked without a card through ``check_kernel_limits``.
 
 The JAX prefill and forward run the Pallas scan kernel in interpret mode on
@@ -237,14 +237,13 @@ def test_from_pretrained_hf_local_dir(models, tmp_path):
         from_pretrained_hf("state-spaces/mamba-130m", device="cpu")
 
 
-@pytest.mark.parametrize("overrides,match", [
-    ({"d_state": 32, "d_conv": 3}, None),
-    ({"d_conv": 9}, "widths 1..8"),
-], ids=["d_state", "d_conv"])
-def test_kernel_limits_raise_on_cuda(overrides, match):
-    """The kernels take any d_state (in slices of 16 states) and conv widths
-    1 to 8: d_state 32 with d_conv 3 is taken on a CUDA device, a width past
-    8 (the one cap left) raises there; the CPU's plain path takes both."""
+@pytest.mark.parametrize("overrides", [{"d_state": 32, "d_conv": 3}, {"d_conv": 12}],
+                         ids=["d_state", "d_conv"])
+def test_kernel_limits_raise_on_cuda(overrides):
+    """The kernels take any d_state (in slices of 16 states) and any conv
+    width (past 8 the conv kernel's general form): d_state 32 with d_conv 3
+    and d_conv 12 are taken on a CUDA device, while a size of 0, which no
+    kernel takes, raises there; the CPU's plain path takes the configs."""
     import dataclasses
 
     import torch
@@ -252,11 +251,10 @@ def test_kernel_limits_raise_on_cuda(overrides, match):
     from aum_tpu_torch.models.lm import MambaLM, check_kernel_limits
 
     cfg = dataclasses.replace(_port_cfg(), **overrides)
-    if match is None:
-        check_kernel_limits(cfg, torch.device("cuda"))
-    else:
-        with pytest.raises(ValueError, match=match):
-            check_kernel_limits(cfg, torch.device("cuda"))
+    check_kernel_limits(cfg, torch.device("cuda"))
+    for name in overrides:
+        with pytest.raises(ValueError, match=f"{name}=0"):
+            check_kernel_limits(dataclasses.replace(cfg, **{name: 0}), torch.device("cuda"))
     check_kernel_limits(cfg, torch.device("cpu"))
     check_kernel_limits(_port_cfg(), torch.device("cuda"))
     # The plain path on the CPU takes the config.

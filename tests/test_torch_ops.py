@@ -387,10 +387,12 @@ def test_causal_conv1d_edges_match_jax(seqlen, d, offset):
 
 @pytest.mark.parametrize("width", [3, 5])
 def test_conv_kernel_wrapper_takes_width_4_only(width, monkeypatch):
-    """The wrapper hands widths other than the mixer's 4 (3 and 5 here) to
-    the kernel, which is built for widths 1 to ``MAX_WIDTH`` (8); a width
-    past 8 is refused before any build or launch. A stand-in library takes
-    the launch; the plain form, used on the CPU, takes any width."""
+    """The wrapper hands widths other than the mixer's 4 (3 and 5 here, and
+    12) to the kernel: widths 1 to ``UNROLLED_WIDTHS`` (8) have their own
+    instantiations, a wider one takes the general form, whose launches are
+    counted apart; a width of 0 is refused before any build or launch. A
+    stand-in library takes the launch; the plain form, used on the CPU,
+    takes any width."""
     import contextlib
     import types
 
@@ -407,16 +409,21 @@ def test_conv_kernel_wrapper_takes_width_4_only(width, monkeypatch):
     lib = types.SimpleNamespace(aum_causal_conv1d_fwd=launch, aum_conv_error_string=str)
     monkeypatch.setattr(conv1d, "_lib", lambda: lib)
     monkeypatch.setattr(conv1d.causal_conv1d, "launches", 0)
+    monkeypatch.setattr(conv1d.causal_conv1d, "general_launches", 0)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=None))
     x = torch.zeros((1, 8, 6))
-    assert 1 <= width <= conv1d.MAX_WIDTH == 8
+    assert 1 <= width <= conv1d.UNROLLED_WIDTHS == 8
     assert conv1d.causal_conv1d_cuda(x, torch.zeros((6, width))).shape == x.shape
     assert launched == [width] and conv1d.causal_conv1d.launches == 1
-    with pytest.raises(ValueError, match="K in 1..8"):
-        conv1d.causal_conv1d_cuda(x, torch.zeros((6, conv1d.MAX_WIDTH + 1)))
-    assert launched == [width]
+    assert conv1d.causal_conv1d.general_launches == 0
+    assert conv1d.causal_conv1d_cuda(x, torch.zeros((6, 12))).shape == x.shape
+    assert launched == [width, 12] and conv1d.causal_conv1d.launches == 2
+    assert conv1d.causal_conv1d.general_launches == 1
+    with pytest.raises(ValueError, match="K >= 1"):
+        conv1d.causal_conv1d_cuda(x, torch.zeros((6, 0)))
+    assert launched == [width, 12]
     assert conv1d.causal_conv1d_plain(x, torch.zeros((6, width))).shape == x.shape
 
 

@@ -2,18 +2,21 @@
 against the JAX package, on the CPU.
 
 The port's scan kernels run a d_state above 16 (and a scan without z) as
-slices of 16 states and a combine, the conv kernel any width to 8, the
-fuse_dt form any dt rank to 400; on CPU tensors each wrapper runs its plain
-version (the sequential oracle, at every N). Here, on inputs drawn with
-numpy from fixed seeds: ``selective_scan`` forward and every grad at d_state
-24 and 40, its with_state form chained at 24, and without D and/or z (JAX's
-oracle path); ``selective_scan_dual`` (v1) at 32; the conv forward and
-backward at widths 2, 3, 6, causal and anti-causal; the fuse_dt form at dt
-rank 80 (JAX pads it to 128); the combine's plain version over per-slice
-oracle outputs against the unsliced oracle; the sequence-parallel scan and
-the decode state update at d_state 24; a depth-2 Mamba LM with d_state 32 and d_conv 3 (logits and
-caches) and a depth-2 tiny AuM at d_state 40 (logits and a train step's
-loss and grads). The JAX side runs its Pallas kernels in interpret mode,
+slices of 16 states and a combine, the conv kernel any width (past 8 its
+general form), the fuse_dt form any dt rank (past 400 its windowed form);
+on CPU tensors each wrapper runs its plain version (the sequential oracle,
+at every N). Here, on inputs drawn with numpy from fixed seeds:
+``selective_scan`` forward and every grad at d_state 24 and 40, its
+with_state form chained at 24, and without D and/or z (JAX's oracle path);
+``selective_scan_dual`` (v1) at 32; the conv forward and backward at widths
+2, 3, 6, 12 and 40 (wider than its L of 35), causal and anti-causal; the
+fuse_dt form at dt ranks 80 and 420 (JAX pads them to 128 and 512); the
+combine's plain version over per-slice oracle outputs against the unsliced
+oracle, and its backward's over per-slice oracle grads at an L that is not
+a multiple of the kernel's chunk; the sequence-parallel scan and the decode
+state update at d_state 24; a depth-2 Mamba LM with d_state 32 and d_conv 3
+or 12 (logits and caches) and a depth-2 tiny AuM at d_state 40 (logits and
+a train step's loss and grads). The JAX side runs its Pallas kernels in interpret mode,
 jitted, as its own tests do (d_block 8, l_chunk 8). fp32 throughout;
 tolerances as ``tests/test_torch_scan_opt_in.py`` states them: forward
 2e-5, grads 3e-4 of the reference's max-abs.
@@ -198,10 +201,11 @@ def test_dual_scan_matches_jax_kernel_at_wide_state():
         _close_scaled(_np(t.grad), g, name=name)
 
 
-@pytest.mark.parametrize("k", [2, 3, 6])
+@pytest.mark.parametrize("k", [2, 3, 6, 12, 40])
 @pytest.mark.parametrize("reverse", [False, True], ids=["causal", "anti_causal"])
 def test_conv_matches_jax_kernel_at_widths(k, reverse):
-    """The conv (bias, SiLU) at widths other than 4: output and the grads of
+    """The conv (bias, SiLU) at widths other than 4, 12 and 40 among them
+    (the kernel's general form; 40 is wider than L): output and the grads of
     x, the taps and the bias against JAX's ``_conv_kernel`` and its VJP."""
     from aum_tpu_torch.ops import causal_conv1d
 
@@ -226,10 +230,12 @@ def test_conv_matches_jax_kernel_at_widths(k, reverse):
         _close_scaled(_np(t.grad), g, name=name)
 
 
-def test_fuse_dt_matches_jax_kernel_at_rank_80(monkeypatch):
-    """AUM_SCAN_FUSE_DT=1 at dt rank 80 (past the 64 the kernel took before;
-    JAX pads it to 128): the fuse_dt dual forward's plain version against
-    JAX's kernel, v1, within 2e-5."""
+@pytest.mark.parametrize("rank", [80, 420])
+def test_fuse_dt_matches_jax_kernel_at_ranks(rank, monkeypatch):
+    """AUM_SCAN_FUSE_DT=1 at dt rank 80 (past the 64 the kernel once took)
+    and 420 (past the 400 its operands fit a block whole: the kernel's
+    windowed form; JAX pads them to 128 and 512): the fuse_dt dual forward's
+    plain version against JAX's kernel, v1, within 2e-5."""
     import torch
 
     from aum_tpu_torch.ops import selective_scan_dual
@@ -237,8 +243,8 @@ def test_fuse_dt_matches_jax_kernel_at_rank_80(monkeypatch):
     monkeypatch.setenv("AUM_SCAN_FUSE_DT", "1")
     rng = np.random.default_rng(84)
     u, _, A, B, C, D, z, bias = _scan_args(85, 8)
-    dtr = (rng.standard_normal((2, 37, 80)) * 0.5).astype(np.float32)
-    w = (rng.standard_normal((80, 24)) * 0.15).astype(np.float32)
+    dtr = (rng.standard_normal((2, 37, rank)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((rank, 24)) * 0.15 * np.sqrt(80 / rank)).astype(np.float32)
     a_b = (A * 0.7).astype(np.float32)
 
     def run(t, **kw):
@@ -256,19 +262,27 @@ def test_fuse_dt_matches_jax_kernel_at_rank_80(monkeypatch):
         np.testing.assert_allclose(_np(g), np.asarray(ref), **FWD_TOL)
 
 
-@pytest.mark.parametrize("gated", [True, False], ids=["D_z", "no_D_z"])
-def test_combine_of_slices_matches_the_oracle(gated):
+@pytest.mark.parametrize("gated,backward", [(True, False), (False, False), (True, True)],
+                         ids=["D_z", "no_D_z", "backward"])
+def test_combine_of_slices_matches_the_oracle(gated, backward):
     """The kernels' decomposition at d_state 40: the oracle ungated and
     without D on each of ``state_slices`` (16, 16, 8 states), its fp32
     outputs summed by the combine's plain version ``scan_combine_plain``
     (with D and z, or without them), its chunk and final states side by
-    side, against the unsliced oracle from a carried state."""
+    side, against the unsliced oracle from a carried state. The backward
+    case: at L = 45 (not a multiple of ``COMBINE_BWD_CHUNK``), each slice's
+    fp32 du and ddelta grads from the gated cotangent g silu(z) and its y,
+    combined by ``scan_combine_bwd_plain``, against the unsliced oracle's
+    grads of u, delta, z, D and the bias."""
     import torch
 
     ss = importlib.import_module("aum_tpu_torch.ops.selective_scan")
     from aum_tpu_torch.ops.scan_ref import selective_scan_ref
 
     n = 40
+    if backward:
+        _check_combine_bwd(ss, selective_scan_ref, n, seqlen=45)
+        return
     u, delta, A, B, C, D, z, bias = (_torch(a) for a in _scan_args(86, n, seqlen=70))
     assert ss.sliced_form(n, z) and ss.sliced_form(16, None) and not ss.sliced_form(16, z)
     D, z = (D, z) if gated else (None, None)
@@ -287,6 +301,33 @@ def test_combine_of_slices_matches_the_oracle(gated):
                                   return_last_state=True)
         for g, w in zip(got, want):
             np.testing.assert_allclose(_np(g), _np(w), **FWD_TOL)
+
+
+def _check_combine_bwd(ss, scan_ref, n, seqlen):
+    import torch
+
+    assert seqlen % ss.COMBINE_BWD_CHUNK != 0
+    u, delta, A, B, C, D, z, bias = (_torch(a).requires_grad_()
+                                     for a in _scan_args(91, n, seqlen=seqlen))
+    g = _torch(np.random.default_rng(92).standard_normal(u.shape))
+    for reverse in (False, True):
+        leaves = (u, delta, z, D, bias)
+        out = scan_ref(u, ss._prep_dt(delta, bias), A, B, C, D, z, reverse=reverse)
+        want = torch.autograd.grad((out * g).sum(), leaves)
+        gy = (g * torch.nn.functional.silu(z)).detach()
+        du_parts, dd_parts, y_parts = [], [], []
+        for n0, n1 in ss.state_slices(n):
+            y_s = scan_ref(u, ss._prep_dt(delta, bias), A[:, n0:n1], B[..., n0:n1],
+                           C[..., n0:n1], reverse=reverse)
+            du_s, dd_s = torch.autograd.grad((y_s * gy).sum(), (u, delta))
+            du_parts.append(du_s)
+            dd_parts.append(dd_s)
+            y_parts.append(y_s.detach())
+        got = ss.scan_combine_bwd_plain(torch.stack(du_parts), torch.stack(dd_parts),
+                                        torch.stack(y_parts), g, z.detach(), u.detach(),
+                                        D.detach())
+        for name, gt, w in zip(("du", "ddelta", "dz", "dD", "dbias"), got, want):
+            _close_scaled(_np(gt), _np(w), name=name)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -348,16 +389,18 @@ def test_state_update_matches_jax_at_wide_state():
         np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-5, atol=1e-5)
 
 
-def test_lm_with_wide_state_and_conv_3_matches_jax():
-    """A depth-2 Mamba LM with d_state 32 and d_conv 3, the port's weights
-    carried into the JAX model by its porter: prefill's last logits and both
-    caches."""
+@pytest.mark.parametrize("d_conv", [3, 12], ids=["conv_3", "conv_12"])
+def test_lm_with_wide_state_and_conv_matches_jax(d_conv):
+    """A depth-2 Mamba LM with d_state 32 and d_conv 3 or 12 (the conv
+    kernel's general form; wider than the 7-token prompt), the port's
+    weights carried into the JAX model by its porter: prefill's last logits
+    and both caches."""
     import torch
 
     from aum_tpu.models import lm as jlm
     from aum_tpu_torch.models.lm import MambaLM, MambaLMConfig, prefill
 
-    cfg = jlm.MambaLMConfig(d_model=32, n_layer=2, vocab_size=60, d_state=32, d_conv=3)
+    cfg = jlm.MambaLMConfig(d_model=32, n_layer=2, vocab_size=60, d_state=32, d_conv=d_conv)
     ids = np.array([[5, 17, 3, 42, 8, 13, 21], [2, 9, 31, 7, 1, 44, 0]], np.int32)
     port_cfg = MambaLMConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
     model = MambaLM(port_cfg, device="cpu", seed=1)
@@ -366,7 +409,7 @@ def test_lm_with_wide_state_and_conv_3_matches_jax():
     want_logits, want_state = jax.jit(lambda i: jlm.prefill(params, cfg, i))(jnp.asarray(ids))
     logits, state = prefill(model, torch.from_numpy(ids).long())
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **FWD_TOL)
-    assert state["conv"].shape == (2, 2, 64, 3) and state["ssm"].shape == (2, 2, 64, 32)
+    assert state["conv"].shape == (2, 2, 64, d_conv) and state["ssm"].shape == (2, 2, 64, 32)
     for k in ("conv", "ssm"):
         np.testing.assert_allclose(state[k].numpy(), np.asarray(want_state[k]), **FWD_TOL)
 
