@@ -30,8 +30,13 @@ names so each counterpart is easy to find:
                              aum_tpu_torch.serving export|serve``).
 - ``aum_tpu_torch.convert``— the checkpoint porters (reference AuM, ViM,
                              DeiT and AST ``.pth`` -> state dicts, and
-                             back), and the JAX package's parameter trees
-                             -> this package's state dicts.
+                             back), the JAX package's parameter trees
+                             -> this package's state dicts, and the runner
+                             of the upstream model code (``ref_runner``).
+- ``aum_tpu_torch.scripts``— the user tools (``python -m
+                             aum_tpu_torch.scripts.<name>``): infer,
+                             verify_ckpt, verify_lm, get_norm_stats,
+                             gen_weight_file, export_torch_ckpt.
 - ``aum_tpu_torch.parallel``— the parallel modes: the mesh of ranks and the
                              tensor-parallel layout, multi-process runs,
                              the collectives, GPipe, the rank spawner and

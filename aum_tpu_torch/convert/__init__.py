@@ -8,6 +8,10 @@
   counterpart).
 - ``ast_port``: timm DeiT and reference AST checkpoints -> ``ASTModel``
   state dicts, and back (``aum_tpu/convert/ast_port.py``'s counterpart).
+- ``ref_runner``: the upstream model code importable without its CUDA/Triton
+  extensions, through torch oracles of its fused ops
+  (``aum_tpu/convert/ref_runner.py``'s counterpart; imported by name, as it
+  fills ``sys.modules``).
 """
 
 from aum_tpu_torch.convert.ast_port import (

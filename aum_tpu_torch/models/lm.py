@@ -32,7 +32,9 @@ Counterpart of ``aum_tpu/models/lm.py`` (the reference's
   stacked parameter tree, so a directory saved by either package loads in
   the other; ``port_lm_state_dict`` maps a reference state dict to that tree,
   ``convert.lm_state_dict_from_jax`` back. ``from_pretrained_hf`` reads a
-  local HF-format directory (``config.json`` + ``pytorch_model.bin``).
+  local HF-format directory (``config.json`` + ``pytorch_model.bin``), or a
+  hub id from the local HF cache (``hub_cached_file``; nothing is
+  downloaded).
 
 On a CUDA device the kernels take any d_state (the scan kernels run it in
 slices of 16 states) and any d_conv (past 8 the conv kernel's general
@@ -357,21 +359,60 @@ def load_pretrained(directory: str, device: str | torch.device | None = None) ->
     return model
 
 
+CONFIG_NAME = "config.json"
+WEIGHTS_NAME = "pytorch_model.bin"
+
+
+def hub_cache_dir() -> str:
+    """The local HF hub cache, in huggingface_hub's order: ``$HF_HUB_CACHE``,
+    else ``$HF_HOME/hub``, else ``$XDG_CACHE_HOME/huggingface/hub``, else
+    ``~/.cache/huggingface/hub``; read at every call."""
+    if os.environ.get("HF_HUB_CACHE"):
+        return os.path.expanduser(os.environ["HF_HUB_CACHE"])
+    if os.environ.get("HF_HOME"):
+        return os.path.join(os.path.expanduser(os.environ["HF_HOME"]), "hub")
+    xdg = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(xdg, "huggingface", "hub")
+
+
+def hub_cached_file(repo_id: str, filename: str) -> str:
+    """The path of ``filename`` of model ``repo_id`` in the local HF cache:
+    ``models--{org}--{name}/refs/main`` names the snapshot's hash, the file
+    is ``snapshots/<hash>/{filename}``. Raises ``FileNotFoundError`` when it
+    is not there: nothing is downloaded."""
+    repo = os.path.join(hub_cache_dir(), "models--" + repo_id.replace("/", "--"))
+    ref = os.path.join(repo, "refs", "main")
+    commit = ""
+    if os.path.isfile(ref):
+        with open(ref) as f:
+            commit = f.read().strip()
+    path = os.path.join(repo, "snapshots", commit, filename)
+    if not commit or not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{filename} of {repo_id!r} is not in the local HF cache (looked for {path}); "
+            "from_pretrained_hf reads a local directory or this cache and downloads nothing")
+    return path
+
+
 def from_pretrained_hf(path: str, device: str | torch.device | None = None) -> MambaLM:
     """A local HF-format directory (``config.json`` + ``pytorch_model.bin``,
-    the reference ``MambaLMHeadModel``'s state dict) -> ``MambaLM``. A hub id
-    raises: this package downloads nothing."""
-    if not os.path.isdir(path):
-        raise FileNotFoundError(f"{path!r} is not a local directory; from_pretrained_hf reads "
-                                "config.json and pytorch_model.bin from one and downloads nothing")
-    with open(os.path.join(path, "config.json")) as f:
+    the reference ``MambaLMHeadModel``'s state dict), or a hub id such as
+    ``state-spaces/mamba-130m`` whose two files are in the local HF cache
+    (``hub_cached_file``), -> ``MambaLM``. A hub id not in the cache raises
+    ``FileNotFoundError``: this package downloads nothing."""
+    if os.path.isdir(path):
+        config_file = os.path.join(path, CONFIG_NAME)
+        weights_file = os.path.join(path, WEIGHTS_NAME)
+    else:
+        config_file = hub_cached_file(path, CONFIG_NAME)
+        weights_file = hub_cached_file(path, WEIGHTS_NAME)
+    with open(config_file) as f:
         raw = json.load(f)
     cfg = MambaLMConfig(d_model=raw["d_model"], n_layer=raw["n_layer"],
                         vocab_size=raw["vocab_size"],
                         pad_vocab_size_multiple=raw.get("pad_vocab_size_multiple", 8),
                         **{k: raw[k] for k in ("d_state", "d_conv", "expand") if k in raw})
-    sd = torch.load(os.path.join(path, "pytorch_model.bin"), map_location="cpu",
-                    weights_only=True)
+    sd = torch.load(weights_file, map_location="cpu", weights_only=True)
     sd = {k: v.float() for k, v in sd.items() if k != "lm_head.weight"}  # the head is tied
     model = MambaLM(cfg, device=device)
     model.load_state_dict(sd)

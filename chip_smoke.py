@@ -248,6 +248,28 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    kernel category (dual and single scan forward, scan backward, conv,
    frontend FFTs, matrix products, other), the top kernels, and the device's
    idle share of the wall time.
+16. ref_oracles (run after serving): the port against the upstream code's
+   fused ops as ``convert/ref_runner.py`` writes them (torch oracles written
+   without the port's ops), on the card: one AuM-Base mixer layer (d_model
+   768, B=2, L=513) for Fo-Fo (``mamba_inner_fn``), Fo-Bi
+   (``bimamba_inner_fn``) and Bi-Bi (two ``mamba_inner_fn_no_out_proj``,
+   the second on the flipped sequence), fp32 and bf16, its inference
+   forward (elementwise) and the grads of its input and every weight (in
+   bf16 against the oracle's fp32 grads: ``_check_ref_mixer``); the scan
+   with its last state against the with_state scan, the conv, and
+   add+RMSNorm alone; every kernel of those paths must have launched.
+17. tools (run after ref_oracles): each user tool's ``main(argv)`` on the
+   card (``python -m aum_tpu_torch.scripts.<name>``): ``infer`` (AuM-Base
+   Fo-Bi from a 10 s WAV and a reference ``.pth``; its top-5 equal to the
+   in-process forward's; ms per clip at B=1), ``export_torch_ckpt``,
+   ``verify_ckpt`` (record, verify, the raw fbank goldens; fp32 logits
+   against ``--device cpu``), ``verify_lm`` (a random LM at mamba-130m's
+   widths by directory and as a cached hub id: equal logits),
+   ``get_norm_stats`` and ``gen_weight_file`` against ``--device cpu``,
+   each with its launches and seconds; ``--ref-parity`` reported as
+   skipped with its reason while no upstream checkout is present; then
+   the HTTP front under concurrent clients against sequential
+   ``predict_scores``.
 
 Every phase runs with the switches (``SWITCHES``) off and sets them
 itself, restoring the environment after; each prints its seconds. The line
@@ -2891,6 +2913,562 @@ def _check_http(sm, x: torch.Tensor) -> dict:
     return out
 
 
+# --- the upstream code's oracles and the user tools ---------------------------------
+
+# One AuM-Base mixer layer (d_model 768: d_inner 1536, dt rank 48, d_state
+# 16, conv width 4) on B=2 x 513 tokens, against the upstream fast path
+# through ``convert/ref_runner.py``'s oracles.
+REF_ORACLE_DIMS = (2, 513, 768)
+REF_ORACLE_VARIANTS = {"Fo-Fo": "none", "Fo-Bi": "v1", "Bi-Bi": "v2"}
+REF_ORACLE_SEED = 21
+# bf16 mixer grads: the port's error against the oracle's fp32 grads may be
+# this many times the oracle's own bf16 error (the two are independent bf16
+# roundings of one function; on the card they read 1.03 apart at worst).
+REF_BF16_GRAD_RATIO = 2.0
+# The counters each variant's forward (inference) and train pass (forward
+# under grad, then backward) must move: the dual forward (both directions in
+# one launch) or the single one, in eval and saving forms, the conv, and K2
+# (one launch for both directions: _bwd_kernel_dual's form, or one for
+# Fo-Fo's one direction).
+REF_ORACLE_COUNTERS = {
+    "Fo-Fo": ("selective_scan_fwd", "selective_scan_fwd_save_states", "causal_conv1d_fwd",
+              "selective_scan_bwd"),
+    "Fo-Bi": ("selective_scan_dual_fwd", "selective_scan_dual_fwd_save_states",
+              "causal_conv1d_fwd", "selective_scan_bwd"),
+    "Bi-Bi": ("selective_scan_dual_fwd", "selective_scan_dual_fwd_save_states",
+              "causal_conv1d_fwd", "selective_scan_bwd")}
+
+
+def _grads_of(loss, tensors: dict) -> dict:
+    names = [k for k, v in tensors.items() if v.requires_grad]
+    return dict(zip(names, torch.autograd.grad(loss, [tensors[k] for k in names])))
+
+
+def _check_ref_mixer(variant: str, dtype) -> dict:
+    """The port's MambaMixer (kernels) against ``oracle_mixer_forward`` on
+    the card, the same weights (the mixer's own state dict: the port's
+    module tree is the upstream's layout, conv weight (D, 1, K), A = -exp(A_log))
+    and inputs: the inference forward (elementwise bound), then the grads of
+    the input and every weight through autograd on both sides (scaled; in
+    bf16 against the oracle's fp32 grads, see below)."""
+    from aum_tpu_torch.convert.ref_runner import oracle_mixer_forward
+    from aum_tpu_torch.models.mamba import MambaMixer
+
+    bsz, seqlen, d_model = REF_ORACLE_DIMS
+    mixer = MambaMixer(d_model, d_state=16, bimamba_type=REF_ORACLE_VARIANTS[variant],
+                       n_layer=24)
+    mixer.reset_parameters(torch.Generator().manual_seed(REF_ORACLE_SEED))
+    mixer.to("cuda")
+    g = torch.Generator().manual_seed(REF_ORACLE_SEED + 1)
+    x = torch.randn((bsz, seqlen, d_model), generator=g).to("cuda", dtype)
+    cot = torch.randn((bsz, seqlen, d_model), generator=g).to("cuda")
+    params = dict(mixer.named_parameters())
+    tol = SCAN_TOL[dtype]
+    _reset_counters()
+    with torch.inference_mode():
+        got = mixer(x)
+    torch.cuda.synchronize()
+    eval_launches = _read_counters()
+    with torch.no_grad():
+        want = oracle_mixer_forward(params, x, REF_ORACLE_VARIANTS[variant])
+    fwd = compare(got, want, *tol)
+    # The train pass: forward under grad (the saving forms), backward (K2).
+    xg = x.clone().requires_grad_()
+    _reset_counters()
+    got_grads = _grads_of((mixer(xg).float() * cot).sum(), {"x": xg, **params})
+    torch.cuda.synchronize()
+    train_launches = _read_counters()
+    def oracle_grads(x_dtype):
+        ref = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        xr = x.to(x_dtype).requires_grad_()
+        return _grads_of((oracle_mixer_forward(ref, xr, REF_ORACLE_VARIANTS[variant]).float()
+                          * cot).sum(), {"x": xr, **ref})
+
+    want_grads = oracle_grads(dtype)
+    names = list(want_grads)
+    grads = _grad_checks(names, [got_grads[k] for k in names], [want_grads[k] for k in names],
+                         GRAD_TOL[dtype])
+    if dtype != torch.float32:
+        # Two bf16 pipelines round at other places (the port rounds dt,
+        # du, ... to bf16 as the JAX package does; upstream keeps dt in
+        # fp32), and the upstream's own bf16 grads lie 1-2% of max-abs from
+        # its fp32 grads. So in bf16 the port's grads are held to the
+        # oracle's fp32 grads, within 1e-2 of max-abs or
+        # REF_BF16_GRAD_RATIO times the oracle's own worst bf16 error there,
+        # the larger; the direct comparison is reported.
+        exact = oracle_grads(torch.float32)
+        own = _grad_checks(names, [want_grads[k] for k in names], [exact[k] for k in names],
+                           GRAD_TOL[dtype])
+        allowed = max(GRAD_TOL[dtype],
+                      REF_BF16_GRAD_RATIO * max(e for _, e in own["grads"].values()))
+        vs_fp32 = _grad_checks(names, [got_grads[k] for k in names],
+                               [exact[k] for k in names], allowed)
+        grads = {"vs_oracle_bf16": grads, "oracle_bf16_vs_fp32": own,
+                 "vs_oracle_fp32": vs_fp32, "tol": allowed, "ok": vs_fp32["ok"]}
+    needed = REF_ORACLE_COUNTERS[variant]
+    launched = {k: eval_launches[k] + train_launches[k] for k in needed}
+    out = {"phase": "ref_oracles_mixer", "variant": variant, "dtype": str(dtype),
+           "dims": [bsz, seqlen, d_model], "forward": fwd, "grads": grads,
+           "eval_launches": {k: v for k, v in eval_launches.items() if v},
+           "train_launches": {k: v for k, v in train_launches.items() if v},
+           "ok": bool(fwd["ok"] and grads["ok"] and all(launched.values()))}
+    emit(out)
+    return out
+
+
+def _check_ref_ops(dtype) -> list[dict]:
+    """The oracles of single ops against the port's on the card, at the mixer's
+    shapes (B=2, L=513, d_inner 1536, N=16), forward and the grads of every
+    input: ``selective_scan_fn(..., return_last_state=True)`` against the
+    with_state single scan (in bf16 with dt activated outside and rounded to
+    bf16, as the port's and the JAX package's scans take it; the upstream
+    kernel keeps it fp32), ``causal_conv1d_fn`` (SiLU) against the conv
+    kernel, ``rms_norm_fn(prenorm=True, residual_in_fp32=True)`` against the
+    block's add+RMSNorm (plain torch, no kernel)."""
+    import torch.nn.functional as F
+
+    from aum_tpu_torch.convert import ref_runner
+    from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan
+
+    o = ref_runner._build_oracle_modules()
+    bsz, seqlen, d, n = REF_ORACLE_DIMS[0], REF_ORACLE_DIMS[1], 2 * REF_ORACLE_DIMS[2], 16
+    g = torch.Generator().manual_seed(REF_ORACLE_SEED + 2)
+
+    def rand(*shape, scale=1.0, dt=dtype):
+        return (scale * torch.randn(shape, generator=g)).to("cuda", dt).requires_grad_()
+
+    out = []
+    # The scan, upstream layout (B, D, L) and (B, N, L).
+    softplus = dtype == torch.float32
+    a = {"u": rand(bsz, d, seqlen), "delta": rand(bsz, d, seqlen, scale=0.5),
+         "A": (-torch.exp(0.5 * torch.randn((d, n), generator=g))).cuda().requires_grad_(),
+         "B": rand(bsz, n, seqlen), "C": rand(bsz, n, seqlen),
+         "D": rand(d, dt=torch.float32), "z": rand(bsz, d, seqlen),
+         "delta_bias": rand(d, scale=0.5, dt=torch.float32)}
+    if not softplus:
+        dt = F.softplus(a["delta"].detach().float() + a["delta_bias"].detach()[None, :, None])
+        a["delta"] = dt.to(dtype).requires_grad_()
+        del a["delta_bias"]
+    y, last = o["selective_scan_fn"](a["u"], a["delta"], a["A"], a["B"], a["C"], a["D"],
+                                     z=a["z"], delta_bias=a.get("delta_bias"),
+                                     delta_softplus=softplus, return_last_state=True)
+    cot = torch.randn(y.shape, generator=g).cuda()
+    want_grads = _grads_of((y.float() * cot).sum() + last.sum(), a)
+    p = {k: (v.detach().transpose(1, 2) if v.dim() == 3 else v.detach()).requires_grad_()
+         for k, v in a.items()}
+    y_p, last_p = selective_scan(p["u"], p["delta"], p["A"], p["B"], p["C"], p["D"], p["z"],
+                                 p.get("delta_bias"), delta_softplus=softplus,
+                                 return_final_state=True)
+    got_grads = _grads_of((y_p.float() * cot.transpose(1, 2)).sum() + last_p.sum(), p)
+    names = list(want_grads)
+    scan = {"phase": "ref_oracles_scan", "dtype": str(dtype), "dims": [bsz, seqlen, d, n],
+            "dt_activated_outside": not softplus,
+            "y": compare(y_p.transpose(1, 2), y, *SCAN_TOL[dtype]),
+            "last_state": compare(last_p, last, *SCAN_TOL[torch.float32]),
+            "grads": _grad_checks(names, [got_grads[k].transpose(1, 2)
+                                          if got_grads[k].dim() == 3 else got_grads[k]
+                                          for k in names],
+                                  [want_grads[k] for k in names], GRAD_TOL[dtype])}
+    scan["ok"] = scan["y"]["ok"] and scan["last_state"]["ok"] and scan["grads"]["ok"]
+    emit(scan)
+    out.append(scan)
+    # The conv, upstream layout (B, D, L), weight (D, K).
+    x, w, b = rand(bsz, d, seqlen), rand(d, 4, scale=0.5), rand(d, scale=0.5)
+    want_out = o["causal_conv1d_fn"](x, w, b, activation="silu")
+    cot = torch.randn(want_out.shape, generator=g).cuda()
+    want_grads = _grads_of((want_out.float() * cot).sum(), {"x": x, "w": w, "b": b})
+    xp, wp, bp = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    got_out = causal_conv1d(xp.transpose(1, 2), wp, bp, activation="silu")
+    got_grads = _grads_of((got_out.float() * cot.transpose(1, 2)).sum(),
+                          {"x": xp, "w": wp, "b": bp})
+    conv = {"phase": "ref_oracles_conv", "dtype": str(dtype), "dims": [bsz, seqlen, d, 4],
+            "out": compare(got_out.transpose(1, 2), want_out, *CONV_TOL[dtype]),
+            "grads": _grad_checks(["dx", "dw", "db"], list(got_grads.values()),
+                                  list(want_grads.values()), GRAD_TOL[dtype])}
+    conv["ok"] = conv["out"]["ok"] and conv["grads"]["ok"]
+    emit(conv)
+    out.append(conv)
+    # add+RMSNorm: hidden in the compute dtype, the residual stream fp32.
+    h, res = rand(bsz, seqlen, d // 2), rand(bsz, seqlen, d // 2, dt=torch.float32)
+    wn = rand(d // 2, dt=torch.float32)
+    y_o, res_o = o["rms_norm_fn"](h, wn, None, residual=res, eps=1e-5, prenorm=True,
+                                  residual_in_fp32=True)
+    y_p, res_p = fused_add_norm(h, wn.to(dtype), residual=res, prenorm=True, eps=1e-5,
+                                residual_in_fp32=True)
+    norm = {"phase": "ref_oracles_rms_norm", "dtype": str(dtype),
+            "out": compare(y_p, y_o, *SCAN_TOL[dtype]),
+            "residual": compare(res_p, res_o, 0.0, 0.0)}
+    norm["ok"] = norm["out"]["ok"] and norm["residual"]["ok"] and res_p.dtype == torch.float32
+    emit(norm)
+    out.append(norm)
+    return out
+
+
+def phase_ref_oracles() -> dict:
+    """The port against the upstream code's fused ops as ``convert/ref_runner.py``
+    writes them (torch oracles, independent of the port's ops), all on the
+    card: one AuM-Base mixer layer for Fo-Fo (``mamba_inner_fn``), Fo-Bi
+    (``bimamba_inner_fn``) and Bi-Bi (two ``mamba_inner_fn_no_out_proj``,
+    the second on the flipped sequence), fp32 and bf16, forward and the
+    grads of the input and every weight; the scan with its last state, the
+    conv and add+RMSNorm alone. Every launch counter is set to 0 before the
+    phase and read after it: the dual and single forwards (eval, saving and
+    with_state), the conv and K2 (one and both directions) must have
+    launched."""
+    results, by_run = [], {}
+    _reset_counters()
+    for dtype in (torch.float32, torch.bfloat16):
+        for variant in REF_ORACLE_VARIANTS:
+            r = _check_ref_mixer(variant, dtype)
+            by_run[f"{variant}_{str(dtype).split('.')[-1]}"] = {
+                k: r["eval_launches"].get(k, 0) + r["train_launches"].get(k, 0)
+                for k in _counters()}
+            results.append(r)
+    _reset_counters()
+    for dtype in (torch.float32, torch.bfloat16):
+        results += _check_ref_ops(dtype)
+    ops_launches = _read_counters()
+    launches = {k: sum(run[k] for run in by_run.values()) + ops_launches[k] for k in _counters()}
+    needed = ("selective_scan_dual_fwd", "selective_scan_dual_fwd_save_states",
+              "selective_scan_fwd", "selective_scan_fwd_save_states",
+              "selective_scan_fwd_with_state", "causal_conv1d_fwd", "selective_scan_bwd",
+              "selective_scan_bwd_with_state")
+    failed = [f"{r['phase']} {r.get('variant', '')} {r['dtype']}" for r in results
+              if not r["ok"]]
+    failed += [f"no launch of {k}" for k in needed if not launches[k]]
+    out = {"phase": "ref_oracles", "launches": launches, "launches_by_run": by_run,
+           "ops_launches": ops_launches, "checks": len(results), "failed": failed}
+    emit(out)
+    if failed:
+        raise RuntimeError(f"ref_oracles: {failed}")
+    return out
+
+
+TOOLS_SEED = 31
+TOOLS_WAVS = 8  # the norm-stats and weights set: 1 to 10 s clips
+TOOLS_LM_TOKENS = (2, 16)  # verify_lm's default batch and length
+TOOLS_HTTP_CLIENTS, TOOLS_HTTP_REQUESTS = 4, 2
+
+
+def _run_tool(name: str, argv: list, env: dict | None = None) -> dict:
+    """``aum_tpu_torch.scripts.<name>.main(argv)`` between a reset and a read
+    of every launch counter, its standard output captured; raises unless it
+    returns 0."""
+    import importlib
+    import io
+
+    main = importlib.import_module(f"aum_tpu_torch.scripts.{name}").main
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    try:
+        _reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_counters()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {"rc": rc, "seconds": seconds, "stdout": buf.getvalue(),
+           "launches": {k: v for k, v in launches.items() if v}}
+    if rc != 0:
+        raise RuntimeError(f"tool {name} {argv} returned {rc}:\n{buf.getvalue()}")
+    return out
+
+
+def _write_wav16(path: str, samples, sr: int = 16000) -> None:
+    import wave
+
+    data = (samples.clamp(-1, 1) * 32767).to(torch.int16).numpy().tobytes()
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(data)
+
+
+def _http_concurrent(sm, rows: dict) -> dict:
+    """``TOOLS_HTTP_CLIENTS`` threads POST their requests to the HTTP front
+    at once; each answer against a sequential ``predict_scores`` of the same
+    rows (equal expected: the same batch shapes on the same card)."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    from aum_tpu_torch.serving import make_http_server
+
+    srv = make_http_server(sm, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    answers, errors = {}, []
+
+    def client(t):
+        try:
+            for i in range(TOOLS_HTTP_REQUESTS):
+                body = _json.dumps({"instances": rows[t, i].tolist()}).encode()
+                req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers[t, i] = torch.tensor(_json.loads(r.read())["scores"])
+        except Exception as e:  # noqa: BLE001 — reported in the result
+            errors.append(repr(e))
+
+    clients = [threading.Thread(target=client, args=(t,)) for t in range(TOOLS_HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    try:
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    seconds = time.perf_counter() - t0
+    diffs = {f"{t}_{i}": (answers[t, i] - sm.predict_scores(x).cpu()).abs().max().item()
+             for (t, i), x in rows.items() if (t, i) in answers}
+    out = {"phase": "tools_http_concurrent", "clients": TOOLS_HTTP_CLIENTS,
+           "requests": len(rows), "answered": len(answers), "errors": errors,
+           "rows": {f"{t}_{i}": len(x) for (t, i), x in rows.items()},
+           "seconds": seconds, "max_abs_diff_by_request": diffs,
+           "ok": not errors and len(answers) == len(rows) and all(v == 0 for v in diffs.values())
+           and not thread.is_alive()}
+    emit(out)
+    return out
+
+
+def phase_tools() -> dict:
+    """The user tools (``python -m aum_tpu_torch.scripts.<name>``), each
+    through its ``main(argv)`` on the card, between a reset and a read of
+    every launch counter:
+
+    - ``infer``: AuM-Base Fo-Bi (the AudioSet recipe, bf16, depth 24) on a
+      synthetic 10 s 16 kHz WAV, from a random reference ``.pth``; its top-5
+      lines must equal those of the same model's in-process forward (the
+      recipe's model with the ``.pth`` ported over it, the clip featurized
+      as the tool does); ms per clip of that forward at B=1 (CUDA events);
+    - ``verify_ckpt`` (AuM-Base Fo-Bi, fp32, 1024 frames, two 10 s clips):
+      record, then verify against that record, the raw fbank goldens
+      recorded and verified; the recorded logits against ``--device cpu``'s
+      within 2e-3 + 2e-3·|ref|;
+    - ``verify_lm``: a random Mamba LM at mamba-130m's widths (fp32) written as
+      an HF-format directory, then found as a hub id in a hub-cache layout
+      under a temporary ``HF_HUB_CACHE``: equal logits either way;
+    - ``get_norm_stats`` and ``gen_weight_file`` on 8 synthetic WAVs: against
+      ``--device cpu`` (mean and std within 1e-5; the CSV equal);
+    - ``export_torch_ckpt``: the infer model saved as a run's ``best``,
+      exported; equal to the ``.pth`` it came from;
+    - ``--ref-parity``: reported as skipped, with the reason, while no upstream
+      checkout is present;
+    - the HTTP front under ``TOOLS_HTTP_CLIENTS`` concurrent clients against
+      sequential ``predict_scores`` (``_http_concurrent``)."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from aum_tpu_torch.configs import RECIPES
+    from aum_tpu_torch.convert.ref_runner import reference_available, reference_root
+    from aum_tpu_torch.entry import AUDIOSET_MEAN, AUDIOSET_STD
+    from aum_tpu_torch.models.lm import MambaLM, MambaLMConfig
+    from aum_tpu_torch.run import build_model, load_checkpoint
+    from aum_tpu_torch.scripts.infer import featurize_clip
+    from aum_tpu_torch.serving import export_bundle, load_bundle
+
+    out, failed = {}, []
+    g = torch.Generator().manual_seed(TOOLS_SEED)
+    with tempfile.TemporaryDirectory(prefix="aum_tools_") as tmp:
+        labels_csv = os.path.join(tmp, "labels.csv")
+        with open(labels_csv, "w") as f:
+            f.write("index,mid,display_name\n" + "".join(
+                f"{i},/m/c{i},class {i}\n" for i in range(527)))
+        t = torch.arange(160000) / 16000.0
+        clip = os.path.join(tmp, "clip.wav")
+        _write_wav16(clip, 0.05 * torch.randn(160000, generator=g)
+                     + 0.3 * torch.sin(2 * math.pi * 440.0 * t))
+        clip2 = os.path.join(tmp, "clip2.wav")
+        _write_wav16(clip2, 0.1 * torch.randn(160000, generator=g))
+
+        # infer: the tool, then the same model's in-process forward.
+        recipe = "audioset/aum-base_scratch"
+        cfg = RECIPES[recipe]
+        pth = os.path.join(tmp, "aum.pth")
+        _reference_aum(pth, cfg.model_config(), seed=TOOLS_SEED)
+        run = _run_tool("infer", ["--wav", clip, "--recipe", recipe, "--ckpt", pth,
+                                  "--label-csv", labels_csv, "--topk", "5"])
+        model = build_model(cfg, torch.device("cuda"))
+        load_checkpoint(model, cfg, pth)
+        model.eval()
+        fb = featurize_clip(clip, cfg, torch.device("cuda"))
+        with torch.inference_mode():
+            scores = torch.sigmoid(model(fb[None])[0].float()).cpu().numpy()
+        names = {i: f"class {i}" for i in range(527)}
+        lines = [f"{names[int(i)]}: {float(scores[i]):.4f}"
+                 for i in np.argsort(-scores, kind="stable")[:5]]
+        with torch.inference_mode():
+            clip_ms = cuda_ms(lambda: model(fb[None]), iters=10)
+        infer = {"phase": "tools_infer", "recipe": recipe, "dtype": cfg.dtype,
+                 "seconds": run["seconds"], "launches": run["launches"],
+                 "topk": run["stdout"].splitlines(), "in_process_topk": lines,
+                 "ms_per_clip_b1": clip_ms,
+                 "ok": run["stdout"].splitlines() == lines
+                 and run["launches"].get("selective_scan_dual_fwd") == cfg.model_config().depth}
+        emit(infer)
+        out["infer"] = infer
+
+        # export_torch_ckpt: the same weights as a run's best -> .pth.
+        models_dir = os.path.join(tmp, "models")
+        os.makedirs(models_dir)
+        torch.save({"model": model.state_dict()}, os.path.join(models_dir, "best"))
+        exported = os.path.join(tmp, "exported.pth")
+        run = _run_tool("export_torch_ckpt", [
+            "--ckpt-dir", models_dir, "--out", exported, "--n-class", str(cfg.n_class),
+            "--model-type", cfg.model_type, "--aum-type", cfg.aum_type,
+            "--audio-length", str(cfg.audio_length), "--melbins", str(cfg.melbins)])
+        src = {k[len("module."):]: v for k, v in torch.load(pth, weights_only=True).items()}
+        got = torch.load(exported, weights_only=True)
+        export = {"phase": "tools_export_torch_ckpt", "seconds": run["seconds"],
+                  "keys": len(got), "ok": set(got) == set(src)
+                  and all(torch.equal(got[k], v) for k, v in src.items())}
+        emit(export)
+        out["export_torch_ckpt"] = export
+        del model
+
+        # verify_ckpt: record, verify, features; the card against the CPU.
+        args = ["--ckpt", pth, "--model-type", cfg.model_type, "--aum-type", cfg.aum_type,
+                "--n-class", str(cfg.n_class), "--audio-length", str(cfg.audio_length),
+                "--melbins", str(cfg.melbins), "--wav", clip, clip2, "--label-csv", labels_csv]
+        golden, feats = os.path.join(tmp, "golden.npz"), os.path.join(tmp, "features.npz")
+        rec = _run_tool("verify_ckpt", args + ["--record-to", golden,
+                                               "--features-record-to", feats])
+        ver = _run_tool("verify_ckpt", args + ["--golden", golden, "--features", feats])
+        cpu_golden = os.path.join(tmp, "golden_cpu.npz")
+        cpu = _run_tool("verify_ckpt", args + ["--record-to", cpu_golden, "--device", "cpu"])
+        card_logits = torch.from_numpy(np.load(golden)["logits"])
+        cpu_logits = torch.from_numpy(np.load(cpu_golden)["logits"])
+        vs_cpu = compare(card_logits, cpu_logits, *MODEL_FP32_TOL)
+        verify = {"phase": "tools_verify_ckpt", "record_seconds": rec["seconds"],
+                  "verify_seconds": ver["seconds"], "cpu_seconds": cpu["seconds"],
+                  "launches_record": rec["launches"], "logits": list(card_logits.shape),
+                  "vs_cpu_fp32": vs_cpu,
+                  "verify_stdout": ver["stdout"].splitlines()[-3:],
+                  "ok": "PARITY OK" in ver["stdout"] and "FEATURES PARITY OK" in ver["stdout"]
+                  and vs_cpu["ok"]
+                  and rec["launches"].get("selective_scan_dual_fwd") == cfg.model_config().depth}
+        emit(verify)
+        out["verify_ckpt"] = verify
+
+        # verify_lm: an HF directory, then the same files as a cached hub id.
+        lm_cfg = MambaLMConfig()  # mamba-130m's widths, fp32
+        lm = MambaLM(lm_cfg, device="cpu", seed=TOOLS_SEED)
+        hf = os.path.join(tmp, "hf")
+        os.makedirs(hf)
+        with open(os.path.join(hf, "config.json"), "w") as f:
+            json.dump({"d_model": lm_cfg.d_model, "n_layer": lm_cfg.n_layer,
+                       "vocab_size": lm_cfg.vocab_size, "ssm_cfg": {}, "rms_norm": True,
+                       "residual_in_fp32": True, "fused_add_norm": True,
+                       "pad_vocab_size_multiple": lm_cfg.pad_vocab_size_multiple}, f)
+        sd = dict(lm.state_dict())
+        sd["lm_head.weight"] = sd["backbone.embedding.weight"]
+        torch.save(sd, os.path.join(hf, "pytorch_model.bin"))
+        del lm, sd
+        snap = os.path.join(tmp, "hub", "models--org--aum-lm", "snapshots", "c0ffee")
+        os.makedirs(snap)
+        os.makedirs(os.path.join(tmp, "hub", "models--org--aum-lm", "refs"))
+        with open(os.path.join(tmp, "hub", "models--org--aum-lm", "refs", "main"), "w") as f:
+            f.write("c0ffee")
+        for name in ("config.json", "pytorch_model.bin"):
+            os.symlink(os.path.join(hf, name), os.path.join(snap, name))
+        by_dir, by_hub = os.path.join(tmp, "lm_dir.npz"), os.path.join(tmp, "lm_hub.npz")
+        d_run = _run_tool("verify_lm", ["--model", hf, "--record-to", by_dir])
+        h_run = _run_tool("verify_lm", ["--model", "org/aum-lm", "--record-to", by_hub,
+                                        "--golden", by_dir],
+                          env={"HF_HUB_CACHE": os.path.join(tmp, "hub")})
+        same = bool(np.array_equal(np.load(by_dir)["logits"], np.load(by_hub)["logits"]))
+        lm_out = {"phase": "tools_verify_lm", "d_model": lm_cfg.d_model,
+                  "n_layer": lm_cfg.n_layer, "tokens": list(TOOLS_LM_TOKENS),
+                  "dir_seconds": d_run["seconds"], "hub_seconds": h_run["seconds"],
+                  "launches": d_run["launches"], "equal_by_dir_and_hub_id": same,
+                  "ok": same and d_run["launches"].get("selective_scan_fwd") == lm_cfg.n_layer}
+        emit(lm_out)
+        out["verify_lm"] = lm_out
+
+        # get_norm_stats and gen_weight_file on a small WAV set.
+        entries = []
+        for i in range(TOOLS_WAVS):
+            n = 16000 * (1 + (9 * i) // (TOOLS_WAVS - 1))
+            path = os.path.join(tmp, f"set{i}.wav")
+            _write_wav16(path, 0.1 * torch.randn(n, generator=g))
+            entries.append({"wav": path, "labels": f"/m/c{i % 5}" + (",/m/c7" if i % 3 else "")})
+        manifest = os.path.join(tmp, "set.json")
+        with open(manifest, "w") as f:
+            json.dump({"data": entries}, f)
+        data_args = ["--data", manifest, "--label-csv", labels_csv]
+        stats = {}
+        for where in ("cuda", "cpu"):
+            run = _run_tool("get_norm_stats", data_args + ["--batch-size", "4"]
+                            + (["--device", "cpu"] if where == "cpu" else []))
+            stats[where] = (run["seconds"], [float(v) for v in re.findall(
+                r"=(-?[0-9.]+)", run["stdout"])])
+        weights = {}
+        for where in ("cuda", "cpu"):
+            csv = os.path.join(tmp, f"weights_{where}.csv")
+            run = _run_tool("gen_weight_file", data_args + ["--out", csv]
+                            + (["--device", "cpu"] if where == "cpu" else []))
+            with open(csv) as f:
+                weights[where] = (run["seconds"], f.read())
+        diff = max(abs(a - b) for a, b in zip(stats["cuda"][1], stats["cpu"][1]))
+        prep = {"phase": "tools_prep", "wavs": TOOLS_WAVS, "norm_stats_card": stats["cuda"][1],
+                "norm_stats_cpu": stats["cpu"][1], "max_abs_diff": diff,
+                "norm_stats_seconds": stats["cuda"][0], "weights_seconds": weights["cuda"][0],
+                "weights_rows": len(weights["cuda"][1].splitlines()),
+                "ok": len(stats["cuda"][1]) == 2
+                and diff <= 1e-5 + 1e-5 * max(map(abs, stats["cpu"][1]))
+                and weights["cuda"][1] == weights["cpu"][1]}
+        emit(prep)
+        out["prep"] = prep
+
+    # The upstream code runs on the CPU (tests/test_torch_ref_parity.py and
+    # --ref-parity run it there); this phase never reports it as passed.
+    out["ref_parity"] = {
+        "phase": "tools_ref_parity", "status": "skipped",
+        "reason": (f"an upstream checkout is at {reference_root()}: its parity runs on the CPU"
+                   if reference_available() else
+                   f"no upstream Audio-Mamba-AuM checkout at {reference_root()}")}
+    emit(out["ref_parity"])
+
+    # The HTTP front under concurrent clients: an AuM-Base Fo-Bi bf16 bundle.
+    from aum_tpu_torch.entry import flagship_config
+    from aum_tpu_torch.models import AudioMamba
+
+    model = AudioMamba(flagship_config(), device="cuda", seed=TOOLS_SEED)
+    sm = load_bundle(export_bundle(model, audio_length=1024, melbins=128, batch_sizes=(1, 2, 4),
+                                   mean=AUDIOSET_MEAN, std=AUDIOSET_STD), device="cuda")
+    rows = {(c, i): torch.randn((1 + (c + i) % 2, 1024, 128), generator=g)
+            for c in range(TOOLS_HTTP_CLIENTS) for i in range(TOOLS_HTTP_REQUESTS)}
+    out["http_concurrent"] = _http_concurrent(sm, rows)
+
+    failed = [k for k, v in out.items() if k != "ref_parity" and not v["ok"]]
+    summary = {"phase": "tools", "failed": failed,
+               "seconds_by_tool": {"infer": out["infer"]["seconds"],
+                                   "verify_ckpt_record": out["verify_ckpt"]["record_seconds"],
+                                   "verify_lm_dir": out["verify_lm"]["dir_seconds"],
+                                   "get_norm_stats": out["prep"]["norm_stats_seconds"],
+                                   "gen_weight_file": out["prep"]["weights_seconds"],
+                                   "export_torch_ckpt": out["export_torch_ckpt"]["seconds"]}}
+    emit(summary)
+    if failed:
+        raise RuntimeError(f"tools: {failed}")
+    return out
+
+
 # --- the parallel modes ------------------------------------------------------------
 
 # Ranks of the parallel phase: every rank a process on the one card, over
@@ -4514,6 +5092,8 @@ def main() -> int:
         porters = timed("porters", phase_porters)
         ast = timed("ast", phase_ast)
         serving = timed("serving", phase_serving)
+        ref_oracles = timed("ref_oracles", phase_ref_oracles)
+        tools = timed("tools", phase_tools)
         parallel = timed("parallel", phase_parallel)
         bench = timed("bench", phase_bench, device_info)
         timed("profile", phase_profile)
@@ -4622,7 +5202,8 @@ def main() -> int:
     bwd["with_state"]["launches_by_path"] = {
         "train": train_launches["selective_scan_bwd_with_state"],
         "parallel_dp_sp_train_step": sp_step["selective_scan_bwd_with_state"],
-        "parallel_runner_tp_sp_run": parallel["runner"]["selective_scan_bwd_with_state"]}
+        "parallel_runner_tp_sp_run": parallel["runner"]["selective_scan_bwd_with_state"],
+        "ref_oracles_ops": ref_oracles["ops_launches"]["selective_scan_bwd_with_state"]}
     # AUM_SCAN_BWD_FUSED=1: train_entry() (both directions per launch) and
     # the Fo-Fo train check (one direction) run the fused kernel.
     fused = _kernel_entry(
@@ -4703,12 +5284,32 @@ def main() -> int:
             "bundle_predict_b64": bundles["bfloat16"]["launches_b64"][counter],
             "bundle_predict_wav_b64": bundles["bfloat16_wav"]["launches_b64"][counter],
             "bundle_predict_int8_b64": bundles["bfloat16_int8"]["launches_b64"][counter]})
+    # The upstream oracles' phase (one AuM-Base mixer layer: each variant's
+    # inference forward and train pass in fp32 and bf16; the single ops) and
+    # one run of each user tool.
+    for entry, counter in ((scan, "selective_scan_dual_fwd"),
+                           (direct, "selective_scan_dual_direct_fwd"),
+                           (fdt, "selective_scan_dual_fdt_fwd"),
+                           (stage, "selective_scan_dual_stage_fwd"),
+                           (single, "selective_scan_fwd"), (bwd, "selective_scan_bwd"),
+                           (fused, "selective_scan_bwd_fused"), (conv, "causal_conv1d_fwd")):
+        for run, counts in ref_oracles["launches_by_run"].items():
+            entry["launches_by_path"][f"ref_oracles_mixer_{run}"] = counts[counter]
+        entry["launches_by_path"].update({
+            "ref_oracles_ops": ref_oracles["ops_launches"][counter],
+            "tools_infer": tools["infer"]["launches"].get(counter, 0),
+            "tools_verify_ckpt_record": tools["verify_ckpt"]["launches_record"].get(counter, 0),
+            "tools_verify_lm": tools["verify_lm"]["launches"].get(counter, 0)})
+    scan["save_states"]["launches_by_path_ref_oracles"] = {
+        run: counts["selective_scan_dual_fwd_save_states"]
+        for run, counts in ref_oracles["launches_by_run"].items()}
     single["launches_by_path"]["lm_prefill_with_state"] = (
         lm["prefill_launches"]["selective_scan_fwd_with_state"])
     single["with_state"]["launches_by_path"] = {
         "lm_prefill": lm["prefill_launches"]["selective_scan_fwd_with_state"],
         "parallel_dp_sp_train_step": sp_step["selective_scan_fwd_with_state"],
-        "parallel_runner_tp_sp_run": parallel["runner"]["selective_scan_fwd_with_state"]}
+        "parallel_runner_tp_sp_run": parallel["runner"]["selective_scan_fwd_with_state"],
+        "ref_oracles_ops": ref_oracles["ops_launches"]["selective_scan_fwd_with_state"]}
     # The parallel modes: one rank's launches in one bf16 train step of each
     # layout, and in the runner's whole run (2 steps and a val batch).
     for entry, counter in ((scan, "selective_scan_dual_fwd"),

@@ -212,9 +212,10 @@ def test_save_load_pretrained_between_packages(models, tmp_path, direction):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_from_pretrained_hf_local_dir(models, tmp_path):
+def test_from_pretrained_hf_local_dir(models, tmp_path, monkeypatch):
     """A local HF-format directory: config.json and the reference state dict
-    (with its tied lm_head.weight) in pytorch_model.bin."""
+    (with its tied lm_head.weight) in pytorch_model.bin. A hub id is looked
+    up in the local HF cache only, here an empty one, so it raises."""
     import torch
 
     from aum_tpu_torch.models.lm import from_pretrained_hf
@@ -233,6 +234,7 @@ def test_from_pretrained_hf_local_dir(models, tmp_path):
     assert got.config == model.config
     for k, v in model.state_dict().items():
         assert torch.equal(got.state_dict()[k], v), k
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
     with pytest.raises(FileNotFoundError, match="downloads nothing"):
         from_pretrained_hf("state-spaces/mamba-130m", device="cpu")
 

@@ -12,7 +12,9 @@ compile); the port's bundles take the same weights through
   the (in, out) -> (out, in) transpose), and the int8 bundle's logits;
   against the float logits within JAX's own int8 bound.
 
-Also ``predict_scores`` (a sigmoid), the HTTP server on 127.0.0.1 (port 0),
+Also ``predict_scores`` (a sigmoid), the HTTP server on 127.0.0.1 (port 0)
+(one client, then four at once, each answer bit-equal to a sequential
+``predict_scores``),
 an AST bundle (nothing quantized, as in JAX), ``python -m
 aum_tpu_torch.serving export`` from a reference ``.pth``, the request-shape
 check, and the multi-device arguments in one process (a one-rank mesh is
@@ -188,6 +190,47 @@ def test_http_server_roundtrip(tiny):
         srv.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+def test_http_server_answers_concurrent_requests_as_sequential_ones(tiny):
+    """Four threads POST to the server at once, three requests each of 1 to
+    5 rows (padded to the bundle's sizes 2 and 4, or chunked): every answer
+    equals a sequential ``predict_scores`` of the same rows."""
+    from aum_tpu_torch.serving import make_http_server
+
+    _, sm = _port_bundle(tiny, batch_sizes=(2, 4), labels=LABELS)
+    srv = make_http_server(sm, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    requests = {(t, i): _x(100 + 3 * t + i, 1 + (t + 2 * i) % 5) for t in range(4)
+                for i in range(3)}
+    answers, errors = {}, []
+
+    def client(t):
+        try:
+            for i in range(3):
+                body = json.dumps({"instances": requests[t, i].tolist()}).encode()
+                req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    answers[t, i] = np.asarray(json.loads(r.read())["scores"], np.float32)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    clients = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    try:
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=120)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    assert not errors and len(answers) == 12
+    for key, x in requests.items():
+        np.testing.assert_array_equal(answers[key], sm.predict_scores(x).numpy(), err_msg=key)
 
 
 def test_ast_bundle_round_trip_quantizes_nothing():
