@@ -1,0 +1,15 @@
+"""Share of the traced stretch with no kernel, copy or set on the device."""
+
+from benchmark import readers
+
+NAME = "idle_pct.serve"
+UNIT = "%"
+BETTER = "lower"
+SOURCE = "device_trace"
+LAYER = "device"
+MOVES = "serve_clips_per_s"
+WORKLOADS = ["aum-base-fofo-wav.serve-b64"]
+
+
+def read(view):
+    return readers.idle_pct(view)
