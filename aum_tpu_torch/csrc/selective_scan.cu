@@ -9,14 +9,29 @@
 // kernel's, selective_scan_dual_plain. scan_single_fwd_kernel replaces _fwd_kernel_z: one
 // direction, chosen at run time, with the same saved states and, in its
 // with_state form, a carried-in initial state and the final state out. Per
-// direction, per (batch b, channel d), with the pre-activated dt =
-// softplus(delta + bias) streamed in delta's place:
+// direction, per (batch b, channel d), with dt = softplus(delta + bias):
 //
 //   x_t  = exp2(dt_t * (A[d, :] * log2 e)) * x_{t-1} + (dt_t * u_t) * B_t
 //   y_t  = sum_n C_t[n] * x_t[n]
 //   out  = (y_t + D[d] * u_t) * silu(z_t)          (cast to u's dtype)
 //
 // The forward direction walks t = 0 .. L-1, the reverse one t = L-1 .. 0.
+//
+// Where dt is formed. The saving forms (the grad path) and the stage form
+// stream dt as the wrapper formed it (softplus in fp32, rounded to the
+// stream dtype), as the TPU kernels take it. The eval forms (no saved
+// states: the staged and direct dual kernels, the single-direction kernel
+// as is and with_state; kDelta in scan_walk), which every forward with no
+// grad to take launches, stream delta itself, the dt_proj product in the
+// stream dtype, and form dt = softplus(delta + bias[d]) in fp32 in
+// registers, once per element and direction, as each sub-chunk's deltas
+// arrive (the bias added where given, the softplus where asked for), as
+// the upstream CUDA kernel does: dt is never rounded. That takes the
+// wrapper's fp32 pass over a (B, L, D) tensor (nine memory-bound
+// elementwise kernels) off those paths, for about fifteen FP32-pipe and two
+// SFU instructions per element and direction in the walk, against the 16
+// states' exp2 and FMAs of each step. Given an activated dt, no bias and
+// the softplus off, they compute the saving forms' function.
 //
 // Two opt-in forms of _fwd_kernel_dual, each its own kernel on the same walk:
 // - scan_dual_fdt_fwd_kernel (AUM_SCAN_FUSE_DT=1, eval, no saved states)
@@ -25,8 +40,9 @@
 //   dt = softplus(sum_r dtr[t, r] W[r, d] + bias[d]) itself, in fp32 (the
 //   products of the stream dtype's values, fp32 sums, then max(v, 0) +
 //   log1p(exp(-|v|)) to a few ulp, once per element, not per state). dt is
-//   never rounded to the stream dtype, as in the TPU kernel: the one place
-//   where this form's outputs differ from the default's. Each warp forms the
+//   never rounded to the stream dtype, as in the TPU kernel, and neither is
+//   the product (the default's no-grad forms read it rounded, as delta): the
+//   one place where this form's outputs differ from theirs. Each warp forms the
 //   dt of its 32 channels for 16 steps at a time into a shared tile the walk
 //   reads, a sub-chunk before the walk first reads it: in bf16 with
 //   tensor-core products (mma.sync m16n8k16 on ldmatrix fragments, fp32
@@ -168,6 +184,11 @@ struct ScanDir {
   long long dtr_sb, dtr_sl;
   long long Wt_sd;
   int rank;
+  // The eval forms read delta from dt and form dt = delta + bias (bias
+  // (D,) fp32, or null: none), through the softplus where softplus != 0, in
+  // fp32. The forms that stream the activated dt (saving, stage) take
+  // neither.
+  int softplus;
 };
 
 namespace {
@@ -210,8 +231,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 // (0, 1], to a few ulp: e from the SFU's exp2 with the rounding error of
 // |v| log2 e put back (a first-order term), and log1p(e) = 2 atanh(s), s =
 // e / (2 + e) in (0, 1/3], as s times a series in s^2 up to s^12 / 13 (the
-// first term left out is below 2^-26 of the sum). The fuse_dt form runs it
-// once per (step, channel).
+// first term left out is below 2^-26 of the sum). The fuse_dt form and the
+// in-kernel dt run it once per (step, channel) and direction.
 __device__ __forceinline__ float softplus(float v) {
   constexpr float kLog2eLo = 1.925963033500011e-08f;  // log2 e - kLog2e
   constexpr float kLn2 = 0.6931471805599453f;
@@ -558,10 +579,12 @@ struct SubStreams {
 // (kWGlobal: W read from global memory, not staged); kStage rounds to bf16
 // where the stage form does. kWin (the windowed fuse_dt form, with kFdt)
 // reads dt from win->dt instead, formed at every chunk's start by the whole
-// block over rank windows. The ungated build (aum::kGated false) writes
-// the fp32 partial y_t and reads neither z nor D.
+// block over rank windows. kDelta (the eval forms) reads delta in dt's
+// place and forms dt = softplus(delta + bias) in the walk (p.bias, p.softplus).
+// The ungated build (aum::kGated false) writes the fp32 partial y_t and
+// reads neither z nor D.
 template <typename T, bool kSave, bool kState, bool kDirect, bool kFdt = false,
-          bool kStage = false, bool kWGlobal = false, bool kWin = false>
+          bool kStage = false, bool kWGlobal = false, bool kWin = false, bool kDelta = false>
 __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int seqlen,
                                           int dim, int dstate, float (*s_B)[kMaxN],
                                           float (*s_C)[kMaxN],
@@ -569,6 +592,7 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
                                           const FoldWin<T>* win = nullptr) {
   static_assert(!kWin || kFdt, "the windowed form is a fuse_dt form");
   static_assert(!kStage || !kFdt, "the stage form is off in the fuse_dt form");
+  static_assert(!kDelta || (!kSave && !kFdt && !kStage), "the in-kernel dt is the eval forms'");
   using Out = std::conditional_t<aum::kGated, T, float>;
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -595,6 +619,9 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
     x[n] = (kState && has_n) ? p.x0[state_row + static_cast<long long>(n) * dim] : 0.0f;
   }
   const float dskip = aum::kGated ? p.Dskip[dc] : 0.0f;
+  // kDelta: the chain's dt bias (zero where none) and whether the softplus applies.
+  const float dt_bias = kDelta && p.bias != nullptr ? p.bias[dc] : 0.0f;
+  const bool dt_softplus = kDelta && p.softplus != 0;
 
   auto step_of = [&](int i) { return reverse ? seqlen - 1 - i : i; };
   // Element steps between consecutive processed steps (negative reversed).
@@ -765,6 +792,15 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
       }
     }
     if (i0 + kSub < seqlen) load_sub(nxt, i0 + kSub);  // in flight while this one is walked
+    if constexpr (kDelta) {
+      // This sub-chunk's dt from its deltas (loaded a sub-chunk ago), in
+      // place; steps past the end form a dt that is never used.
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const float v = cur.dt[j] + dt_bias;
+        cur.dt[j] = dt_softplus ? softplus(v) : v;
+      }
+    }
     const int slen = min(kSub, seqlen - i0);
     const int ic = i0 % kChunk;  // the sub-chunk's first row of s_B/s_C
 #pragma unroll
@@ -820,15 +856,16 @@ __device__ __forceinline__ void scan_walk(const ScanDir& p, bool reverse, int se
   }
 }
 
-// Both directions of one bidirectional layer: blockIdx.z 0 forward, 1 reverse.
+// Both directions of one bidirectional layer: blockIdx.z 0 forward, 1
+// reverse. The eval form (no saved states) forms dt in the walk.
 template <typename T, bool kSave>
 __global__ void __launch_bounds__(kThreads, kSave ? kMinBlocks : kMinBlocksWide)
 scan_dual_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim, int dstate) {
   __shared__ __align__(16) float s_B[kChunk][kMaxN];
   __shared__ __align__(16) float s_C[kChunk][kMaxN];
   const bool reverse = blockIdx.z == 1;
-  scan_walk<T, kSave, false, false>(reverse ? rev : fwd, reverse, seqlen, dim, dstate, s_B,
-                                    s_C);
+  scan_walk<T, kSave, false, false, false, false, false, false, !kSave>(
+      reverse ? rev : fwd, reverse, seqlen, dim, dstate, s_B, s_C);
 }
 
 // The fuse_dt form (eval): dt formed from dtr, Wt and bias in the kernel;
@@ -929,17 +966,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksWide)
 scan_dual_direct_fwd_kernel(const ScanDir fwd, const ScanDir rev, int seqlen, int dim,
                             int dstate) {
   const bool reverse = blockIdx.z == 1;
-  scan_walk<T, kSave, false, true>(reverse ? rev : fwd, reverse, seqlen, dim, dstate,
-                                   nullptr, nullptr);
+  scan_walk<T, kSave, false, true, false, false, false, false, !kSave>(
+      reverse ? rev : fwd, reverse, seqlen, dim, dstate, nullptr, nullptr);
 }
 
-// One direction, reversed or not at run time.
+// One direction, reversed or not at run time; the eval forms (as is and
+// with_state) form dt in the walk.
 template <typename T, bool kSave, bool kState>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_single_fwd_kernel(const ScanDir p, int reverse, int seqlen, int dim, int dstate) {
   __shared__ __align__(16) float s_B[kChunk][kMaxN];
   __shared__ __align__(16) float s_C[kChunk][kMaxN];
-  scan_walk<T, kSave, kState, false>(p, reverse != 0, seqlen, dim, dstate, s_B, s_C);
+  scan_walk<T, kSave, kState, false, false, false, false, false, !kSave>(
+      p, reverse != 0, seqlen, dim, dstate, s_B, s_C);
 }
 
 dim3 grid_of(int batch, int dim, int dirs) {
@@ -1026,13 +1065,22 @@ bool bad_fold(const ScanDir& p) {
   return p.dtr == nullptr || p.Wt == nullptr || p.bias == nullptr || p.rank < 1;
 }
 
+// A form that streams the activated dt (saving, stage) takes no bias and no
+// softplus: only the eval forms form dt.
+bool bad_dt_form(const ScanDir& p, bool streams_dt) {
+  return streams_dt && (p.softplus != 0 || p.bias != nullptr);
+}
+
 int dual_fwd(const ScanDir* fwd, const ScanDir* rev, DualKind kind, int batch, int seqlen,
              int dim, int dstate, int dtype, void* stream) {
   if (bad_sizes(batch, seqlen, dim, dstate) ||
       (fwd->xb == nullptr) != (rev->xb == nullptr) || fwd->x0 != nullptr ||
       fwd->xfin != nullptr || rev->x0 != nullptr || rev->xfin != nullptr ||
       (kind == DualKind::kFdt && (fwd->xb != nullptr || bad_fold(*fwd) || bad_fold(*rev))) ||
-      (kind == DualKind::kStage && dtype != 1)) {
+      (kind == DualKind::kStage && dtype != 1) ||
+      (kind != DualKind::kFdt &&
+       (bad_dt_form(*fwd, fwd->xb != nullptr || kind == DualKind::kStage) ||
+        bad_dt_form(*rev, rev->xb != nullptr || kind == DualKind::kStage)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1124,6 +1172,7 @@ int aum_scan_fdt_smem_bytes(int rank, int dtype) {
 
 // dtype: 0 = fp32 streams, 1 = bf16 streams. Both directions save states
 // (xb set in both) or neither does; neither carries a state in or out.
+// Without saved states each forms dt from delta (bias, softplus).
 // Returns cudaGetLastError() after the launch (0 on success); a refused
 // launch never runs.
 int aum_selective_scan_dual_fwd(const ScanDir* fwd, const ScanDir* rev,
@@ -1156,10 +1205,12 @@ int aum_selective_scan_dual_stage_fwd(const ScanDir* fwd, const ScanDir* rev,
 }
 
 // One direction; reverse != 0 walks t = L-1 .. 0. x0 and xfin are both set
-// (the with_state form) or both null. dtype and the return value as above.
+// (the with_state form) or both null; without saved states dt is formed
+// from delta (bias, softplus). dtype and the return value as above.
 int aum_selective_scan_fwd(const ScanDir* p, int reverse, int batch, int seqlen, int dim,
                            int dstate, int dtype, void* stream) {
-  if (bad_sizes(batch, seqlen, dim, dstate) || (p->x0 == nullptr) != (p->xfin == nullptr)) {
+  if (bad_sizes(batch, seqlen, dim, dstate) || (p->x0 == nullptr) != (p->xfin == nullptr) ||
+      bad_dt_form(*p, p->xb != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

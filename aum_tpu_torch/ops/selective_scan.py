@@ -48,12 +48,20 @@ the zero vector. The fuse_dt form takes any dt rank: past
 ``FDT_WHOLE_RANK`` (400) its windowed kernel accumulates the dt product
 over windows of the rank.
 
-The ``_prep`` contract of the JAX op is kept: ``dt = softplus(delta + bias)``
-is computed outside the kernels in fp32 and cast to delta's dtype, and the
-kernels stream that rounded dt. The backward chain-rules ddelta from dt
-alone, ``ddt * (1 - exp(-dt))``, writes it in dt's dtype and sums dbias in
-fp32 from the value before that cast. Layout stays (B, L, D); states cross
-the API as the reference's (B, D, N) fp32.
+Where ``dt = softplus(delta + bias)`` is formed. On the grad path (the
+autograd ops' saving forwards and their backward), in the stage form and in
+every plain version on the CPU, the ``_prep`` contract of the JAX op is
+kept: dt is computed outside the kernels in fp32 and cast to delta's dtype
+(``_prep_dt``), and the kernels stream that rounded dt; the backward
+chain-rules ddelta from dt alone, ``ddt * (1 - exp(-dt))``, writes it in
+dt's dtype and sums dbias in fp32 from the value before that cast. On the
+card, a forward with no grad to take (eval, serving, prefill; not the stage
+form) passes delta and the fp32 bias to the kernel instead, which forms dt
+in fp32 as it walks and never rounds it, as the upstream CUDA kernel does
+(``selective_scan_dual_cuda`` / ``selective_scan_cuda`` with
+``in_kernel_dt``; plain version: ``delta_dt``). The choice follows the call
+alone: whether a grad is taken, and which form runs. Layout stays (B, L, D);
+states cross the API as the reference's (B, D, N) fp32.
 
 The switches of ``aum_tpu`` choose among the kernels as there, read at every
 call (JAX reads them at every trace): AUM_SCAN_DIRECT=1 the direct dual
@@ -74,9 +82,11 @@ launched: ``selective_scan_dual.launches`` (every staged dual forward launch)
 and ``.save_states_launches`` (those that saved states),
 ``.direct_launches`` and ``.direct_save_states_launches`` (the direct
 kernel's), ``.fdt_launches`` (the fuse_dt form's), ``.stage_launches`` and
-``.stage_save_states_launches`` (the stage form's); ``selective_scan.launches``
-(every single-direction forward launch), ``.save_states_launches`` and
-``.with_state_launches``; ``selective_scan_bwd.launches`` (K2),
+``.stage_save_states_launches`` (the stage form's), ``.softplus_launches``
+(the launches that formed dt in the kernel); ``selective_scan.launches``
+(every single-direction forward launch), ``.save_states_launches``,
+``.with_state_launches`` and ``.softplus_launches``;
+``selective_scan_bwd.launches`` (K2),
 ``.with_state_launches`` and ``.xminus_launches`` (those of its with_state
 and x-minus forms), ``.fused_launches``, ``.bf16_partials_launches`` (K2 or
 fused launches with bf16 partials). A sliced scan counts one launch of its
@@ -176,12 +186,21 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _prep_dt(delta: torch.Tensor, delta_bias: torch.Tensor | None,
+def delta_dt(delta: torch.Tensor, delta_bias: torch.Tensor | None,
              softplus: bool = True) -> torch.Tensor:
+    """The in-kernel dt of the no-grad forwards in plain PyTorch: delta +
+    delta_bias (where given), through the softplus (where asked for), in
+    fp32 and never rounded to delta's dtype."""
     dt = delta.float()
     if delta_bias is not None:
         dt = dt + delta_bias.float()
-    return (_softplus(dt) if softplus else dt).to(delta.dtype)
+    return _softplus(dt) if softplus else dt
+
+
+def _prep_dt(delta: torch.Tensor, delta_bias: torch.Tensor | None,
+             softplus: bool = True) -> torch.Tensor:
+    """The ``_prep`` contract: ``delta_dt`` rounded to delta's dtype."""
+    return delta_dt(delta, delta_bias, softplus).to(delta.dtype)
 
 
 # --- plain versions ----------------------------------------------------------
@@ -259,18 +278,22 @@ def scan_combine_bwd_plain(du_parts, dd_parts, y_parts, g, z, u, D):
 
 
 def selective_scan_dual_plain(fwd: tuple, rev: tuple, save_states: bool = False,
-                              bf16_stage: bool = False):
+                              bf16_stage: bool = False, in_kernel_dt: bool = False):
     """The dual forward kernels' function in plain PyTorch (the staged and the
     direct kernel compute the same, and so do their sliced forms with the
     combine): the oracle per direction, or with ``bf16_stage`` the stage
     form's roundings (bf16 streams).
 
     fwd / rev: (u, dt, A, B, C, D, z) with dt already activated, as
-    ``selective_scan_dual_cuda`` takes them (D or z may be None). Returns
-    (y_fwd, y_rev), and with ``save_states`` also (xb_fwd, xb_rev), each (B,
-    ceil(L / STATE_CHUNK), N, D) fp32. The oracle uses exp where the kernel
-    uses exp2 with log2 e folded in: the two differ by fp32 rounding.
+    ``selective_scan_dual_cuda`` takes them (D or z may be None), or with
+    ``in_kernel_dt`` (u, delta, A, B, C, D, z, delta_bias): the oracle on
+    the fp32 dt of ``delta_dt``. Returns (y_fwd, y_rev), and with
+    ``save_states`` also (xb_fwd, xb_rev), each (B, ceil(L / STATE_CHUNK),
+    N, D) fp32. The oracle uses exp where the kernel uses exp2 with log2 e
+    folded in: the two differ by fp32 rounding.
     """
+    if in_kernel_dt:
+        fwd, rev = ((a[0], delta_dt(a[1], a[7])) + tuple(a[2:7]) for a in (fwd, rev))
     every = STATE_CHUNK if save_states else 0
     if bf16_stage:
         out_f = _scan_bf16_stage_plain(*fwd, reverse=False, save_every=every)
@@ -300,15 +323,21 @@ def selective_scan_dual_fdt_plain(fwd: tuple, rev: tuple):
 
 def selective_scan_plain(args: tuple, reverse: bool, save_states: bool = False,
                          initial_state: torch.Tensor | None = None,
-                         return_final_state: bool = False):
+                         return_final_state: bool = False, in_kernel_dt: bool = False,
+                         softplus: bool = True):
     """The single-direction forward kernel's function in plain PyTorch (its
     sliced form with the combine computes the same).
 
     args: (u, dt, A, B, C, D, z) with dt already activated, as
-    ``selective_scan_cuda`` takes them (D or z may be None); initial_state:
-    (B, D, N) or None. Returns out, and after it, where asked for, xb (B,
-    ceil(L / STATE_CHUNK), N, D) fp32 and the final state (B, D, N) fp32.
+    ``selective_scan_cuda`` takes them (D or z may be None), or with
+    ``in_kernel_dt`` (u, delta, A, B, C, D, z, delta_bias): the oracle on
+    the fp32 dt of ``delta_dt`` (the softplus where ``softplus``);
+    initial_state: (B, D, N) or None. Returns out, and after it, where asked
+    for, xb (B, ceil(L / STATE_CHUNK), N, D) fp32 and the final state (B, D,
+    N) fp32.
     """
+    if in_kernel_dt:
+        args = (args[0], delta_dt(args[1], args[7], softplus)) + tuple(args[2:7])
     return selective_scan_ref(*args[:6], z=args[6], reverse=reverse,
                               save_every=STATE_CHUNK if save_states else 0,
                               initial_state=initial_state,
@@ -395,7 +424,7 @@ class _ScanDir(ctypes.Structure):
         (name, ctypes.c_longlong) for name in _STREAM_STRIDES] + [
         (name, ctypes.c_void_p) for name in ("dtr", "Wt", "bias")] + [
         (name, ctypes.c_longlong) for name in ("dtr_sb", "dtr_sl", "Wt_sd")] + [
-        ("rank", ctypes.c_int)]
+        (name, ctypes.c_int) for name in ("rank", "softplus")]
 
 
 class _ScanBwdDir(ctypes.Structure):
@@ -518,16 +547,29 @@ def _n_chunks(seqlen: int) -> int:
     return math.ceil(seqlen / STATE_CHUNK)
 
 
-def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None, fold=None, out=None):
+def _check_bias(u, bias):
+    """The in-kernel dt's (D,) bias as contiguous fp32 on u's device, or None."""
+    if bias is None:
+        return None
+    if tuple(bias.shape) != (u.shape[-1],):
+        raise ValueError(f"delta_bias has shape {tuple(bias.shape)}, expected ({u.shape[-1]},)")
+    return bias.to(device=u.device, dtype=torch.float32).contiguous()
+
+
+def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None, fold=None, out=None,
+                   delta=None):
     """The kernel's arguments for one direction; ``x0`` (B, N, D) fp32
     contiguous selects the with_state form, whose final state is returned
     beside the outputs (xfin, else None); ``fold`` = (dtr, W, bias), with dt
-    None, the fuse_dt form's operands; ``out``: the output to write (an fp32
-    plane of partials for an ungated launch, whose D and z are None)."""
+    None, the fuse_dt form's operands; ``delta`` = (bias, softplus), with
+    delta in dt's place, the in-kernel dt; ``out``: the output to write (an
+    fp32 plane of partials for an ungated launch, whose D and z are None)."""
     u, dt, A, B, C, D, z = _check_dir(u, dt, A, B, C, D, z)
     if A.shape[1] > SLICE_STATES:
         raise ValueError(f"a launch takes at most {SLICE_STATES} states, not {A.shape[1]}")
     dtr, Wt, bias = (None, None, None) if fold is None else _check_fold(u, *fold)
+    if delta is not None:
+        bias = _check_bias(u, delta[0])
     bsz, seqlen, d = u.shape
 
     def empty(*shape, dtype=torch.float32):
@@ -541,7 +583,8 @@ def _scan_dir_args(u, dt, A, B, C, D, z, save_states, x0=None, fold=None, out=No
         out.data_ptr(), *(_ptr(t) for t in (xb, x0, xfin)),
         *_stream_strides(u, dt, z, B, C), *(_ptr(t) for t in (dtr, Wt, bias)),
         *((0, 0, 0, 0) if fold is None else (dtr.stride(0), dtr.stride(1), Wt.stride(0),
-                                             dtr.shape[-1])))
+                                             dtr.shape[-1])),
+        int(delta is not None and bool(delta[1])))
     # Keep every buffer alive until the launch is enqueued.
     return args, out, xb, xfin, (u, dt, z, B, C, A, D, x0, dtr, Wt, bias)
 
@@ -567,17 +610,20 @@ def _check_pair(u, u_rev):
 
 
 def _dual_launches(entry: str, fwd: tuple, rev: tuple, save_states: bool,
-                   folds: tuple = (None, None)):
-    """The dual forward ``entry`` on both directions: one gated launch, or
-    where the kernels slice one ungated launch per slice of states and the
+                   folds: tuple = (None, None), deltas: tuple = (None, None)):
+    """The dual forward ``entry`` on both directions (``folds``, ``deltas``:
+    each direction's ``_scan_dir_args`` form): one gated launch, or where
+    the kernels slice one ungated launch per slice of states and the
     combine. Returns (y_fwd, y_rev, xb_fwd, xb_rev, launches, sliced)."""
     u, n = fwd[0], fwd[2].shape[1]
     if rev[2].shape[1] != n:
         raise ValueError("both directions must share d_state")
     if not (sliced_form(n, fwd[6]) or sliced_form(n, rev[6])):
         fwd, rev = (a[:5] + (_zeros_for(a[5], a[0]), a[6]) for a in (fwd, rev))
-        args_f, out_f, xb_f, _, keep_f = _scan_dir_args(*fwd, save_states, fold=folds[0])
-        args_r, out_r, xb_r, _, keep_r = _scan_dir_args(*rev, save_states, fold=folds[1])
+        args_f, out_f, xb_f, _, keep_f = _scan_dir_args(*fwd, save_states, fold=folds[0],
+                                                        delta=deltas[0])
+        args_r, out_r, xb_r, _, keep_r = _scan_dir_args(*rev, save_states, fold=folds[1],
+                                                        delta=deltas[1])
         _launch_dual(_lib(), entry, args_f, args_r, u, n)
         del keep_f, keep_r
         return out_f, out_r, xb_f, xb_r, 1, False
@@ -586,9 +632,11 @@ def _dual_launches(entry: str, fwd: tuple, rev: tuple, save_states: bool,
     xbs = ([], [])
     for i, (n0, n1) in enumerate(slices):
         args_f, _, xb_f, _, keep_f = _scan_dir_args(*_slice_dir(fwd, n0, n1), save_states,
-                                                    fold=folds[0], out=parts[0][i])
+                                                    fold=folds[0], out=parts[0][i],
+                                                    delta=deltas[0])
         args_r, _, xb_r, _, keep_r = _scan_dir_args(*_slice_dir(rev, n0, n1), save_states,
-                                                    fold=folds[1], out=parts[1][i])
+                                                    fold=folds[1], out=parts[1][i],
+                                                    delta=deltas[1])
         _launch_dual(_sliced_lib(), entry, args_f, args_r, u, n1 - n0)
         del keep_f, keep_r
         if save_states:
@@ -601,13 +649,17 @@ def _dual_launches(entry: str, fwd: tuple, rev: tuple, save_states: bool,
 
 
 def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False,
-                             direct: bool | None = None):
+                             direct: bool | None = None, in_kernel_dt: bool = False):
     """Launch a dual forward kernel on (u, dt, A, B, C, D, z) per direction:
     the staged one, or the direct one under AUM_SCAN_DIRECT=1 (``direct``
     None: the switch decides; False: the staged one whatever it says), the
     staged one in its stage form under AUM_SCAN_BF16_STAGE=1 (bf16). Above
     SLICE_STATES states or without z, the kernel's ungated form once per
     slice of states, then the combine (``sliced_form``); D None is zero.
+    With ``in_kernel_dt`` (no saved states, not the stage form) fwd / rev
+    are (u, delta, A, B, C, D, z, delta_bias) and the kernel forms dt =
+    softplus(delta + delta_bias) itself, in fp32 (see
+    ``selective_scan_dual_plain``).
 
     Returns (y_fwd, y_rev), and with ``save_states`` also (xb_fwd, xb_rev).
     """
@@ -615,9 +667,14 @@ def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False,
     _check_pair(u, rev[0])
     direct = direct_forward_chosen() if direct is None else direct
     stage = bf16_stage_chosen(u.dtype, direct)
+    if in_kernel_dt and (save_states or stage):
+        raise ValueError("the in-kernel dt is the no-grad forms': no saved states, "
+                         "not the stage form")
     entry = ("aum_selective_scan_dual_direct_fwd" if direct else
              "aum_selective_scan_dual_stage_fwd" if stage else "aum_selective_scan_dual_fwd")
-    out_f, out_r, xb_f, xb_r, k, sliced = _dual_launches(entry, fwd, rev, save_states)
+    deltas = ((fwd[7], True), (rev[7], True)) if in_kernel_dt else (None, None)
+    out_f, out_r, xb_f, xb_r, k, sliced = _dual_launches(entry, tuple(fwd[:7]), tuple(rev[:7]),
+                                                         save_states, deltas=deltas)
     if direct:
         selective_scan_dual.direct_launches += k
         selective_scan_dual.direct_save_states_launches += k * save_states
@@ -628,6 +685,7 @@ def selective_scan_dual_cuda(fwd: tuple, rev: tuple, save_states: bool = False,
         selective_scan_dual.launches += k
         selective_scan_dual.save_states_launches += k * save_states
     selective_scan_dual.sliced_launches += k * sliced
+    selective_scan_dual.softplus_launches += k * in_kernel_dt
     return (out_f, out_r, xb_f, xb_r) if save_states else (out_f, out_r)
 
 
@@ -659,9 +717,13 @@ def _launch_single(lib, kargs, reverse: bool, u, dstate: int) -> None:
 
 def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
                         initial_state: torch.Tensor | None = None,
-                        return_final_state: bool = False):
+                        return_final_state: bool = False, in_kernel_dt: bool = False,
+                        softplus: bool = True):
     """Launch the single-direction forward kernel on (u, dt, A, B, C, D, z),
-    sliced as ``selective_scan_dual_cuda`` is.
+    sliced as ``selective_scan_dual_cuda`` is; with ``in_kernel_dt`` (no
+    saved states) on (u, delta, A, B, C, D, z, delta_bias), the kernel
+    forming dt = delta + delta_bias, through the softplus where
+    ``softplus``, in fp32.
 
     Returns what ``selective_scan_plain`` returns. The with_state form runs
     when an initial state is given or the final state is asked for (from
@@ -669,6 +731,9 @@ def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
     takes (B, N, D), so the wrapper transposes them (each slice takes its
     states' rows).
     """
+    if in_kernel_dt and save_states:
+        raise ValueError("the in-kernel dt is the no-grad forms': no saved states")
+    delta = (args[7], softplus) if in_kernel_dt else None
     u, A = args[0], args[2]
     bsz, _, d = u.shape
     n = A.shape[1]
@@ -684,7 +749,7 @@ def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
             x0 = initial_state.float().transpose(1, 2).contiguous()
     if not sliced_form(n, args[6]):
         kargs, out, xb, xfin, keep = _scan_dir_args(
-            *args[:5], _zeros_for(args[5], u), args[6], save_states, x0)
+            *args[:5], _zeros_for(args[5], u), args[6], save_states, x0, delta=delta)
         _launch_single(_lib(), kargs, reverse, u, n)
         del keep
         k = 1
@@ -695,7 +760,7 @@ def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
         for i, (n0, n1) in enumerate(slices):
             kargs, _, xb_s, fin_s, keep = _scan_dir_args(
                 *_slice_dir(args, n0, n1), save_states,
-                None if x0 is None else x0[:, n0:n1].contiguous(), out=parts[i])
+                None if x0 is None else x0[:, n0:n1].contiguous(), out=parts[i], delta=delta)
             _launch_single(_sliced_lib(), kargs, reverse, u, n1 - n0)
             del keep
             xbs.append(xb_s)
@@ -706,6 +771,7 @@ def selective_scan_cuda(args: tuple, reverse: bool, save_states: bool = False,
         k = len(slices)
         selective_scan.sliced_launches += k
     selective_scan.launches += k
+    selective_scan.softplus_launches += k * in_kernel_dt
     result = (out,)
     if save_states:
         selective_scan.save_states_launches += k
@@ -1087,6 +1153,14 @@ def _prep_both(args_fwd: tuple, args_rev: tuple):
     return (uf, dt_f, af, bf, cf, dskf, zf), (ur, dt_r, ar, br, cr, dskr, zr)
 
 
+def _dt_in_kernel(u: torch.Tensor, what: str) -> bool:
+    """Whether a forward with no grad to take on ``u`` passes delta and the
+    bias to the kernel, which forms dt itself: on the card, but in the stage
+    form (its contract is the TPU kernel's bf16 roundings, dt's among them);
+    the plain versions on the CPU take ``_prep_dt``'s dt."""
+    return not _on_cpu(u, what) and not bf16_stage_chosen(u.dtype, direct_forward_chosen())
+
+
 def _forward(fwd: tuple, rev: tuple, save_states: bool, direct: bool | None = None):
     """The dual forward, kernel or plain by device; ``direct`` as
     ``selective_scan_dual_cuda`` takes it."""
@@ -1210,7 +1284,8 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple, dt_fold: tuple | None 
     sums them. Differentiable: when a
     grad is needed the forward kernel saves its chunk-entry states and the
     backward kernel runs in the backward pass; otherwise the eval forward
-    runs alone.
+    runs alone, and on the card forms dt from delta and delta_bias itself,
+    in fp32 (``_dt_in_kernel``).
 
     ``dt_fold`` = ((dtr_f, W_f), (dtr_r, W_r)), with None in the delta slots
     (AUM_SCAN_FUSE_DT=1; bimamba v1 passes one pair to both): the (B, L, R)
@@ -1233,6 +1308,8 @@ def selective_scan_dual(args_fwd: tuple, args_rev: tuple, dt_fold: tuple | None 
         return selective_scan_dual_fdt_cuda(fold_f, fold_r)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _DualScan.apply(*args_fwd, *args_rev)
+    if _dt_in_kernel(args_fwd[0], "selective_scan_dual"):
+        return selective_scan_dual_cuda(args_fwd, args_rev, in_kernel_dt=True)
     fwd, rev = _prep_both(args_fwd, args_rev)
     return _forward(fwd, rev, save_states=False)
 
@@ -1245,6 +1322,7 @@ selective_scan_dual.direct_save_states_launches = 0
 selective_scan_dual.fdt_launches = 0
 selective_scan_dual.stage_launches = 0
 selective_scan_dual.stage_save_states_launches = 0
+selective_scan_dual.softplus_launches = 0
 
 
 class _Scan(torch.autograd.Function):
@@ -1301,7 +1379,8 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     the backward pass; with a carried or returned state it is K2's with_state
     form, which also gives the grad of ``initial_state``, so chained segments
     (each started from the previous one's final state) differentiate as one
-    scan.
+    scan. With no grad to take, the kernel forms dt from delta and
+    delta_bias itself, in fp32.
     """
     on_cpu = _on_cpu(u, "selective_scan")
     tensors = [t for t in (u, delta, A, B, C, D, z, delta_bias, initial_state)
@@ -1311,12 +1390,16 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         out = _Scan.apply(u, delta, A, B, C, D, z, delta_bias, initial_state, bool(reverse),
                           bool(delta_softplus), with_state)
         return out[0] if with_state and not return_final_state else out
-    args = (u, _prep_dt(delta, delta_bias, delta_softplus), A, B, C, D, z)
-    return (selective_scan_plain if on_cpu else selective_scan_cuda)(
-        args, reverse, initial_state=initial_state, return_final_state=return_final_state)
+    kw = {"initial_state": initial_state, "return_final_state": return_final_state}
+    if on_cpu:
+        args = (u, _prep_dt(delta, delta_bias, delta_softplus), A, B, C, D, z)
+        return selective_scan_plain(args, reverse, **kw)
+    return selective_scan_cuda((u, delta, A, B, C, D, z, delta_bias), reverse, **kw,
+                               in_kernel_dt=True, softplus=bool(delta_softplus))
 
 
 selective_scan.launches = 0
 selective_scan.sliced_launches = 0
 selective_scan.save_states_launches = 0
 selective_scan.with_state_launches = 0
+selective_scan.softplus_launches = 0

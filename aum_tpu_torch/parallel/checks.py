@@ -46,11 +46,13 @@ def launch_counters() -> dict:
             "selective_scan_dual_fdt_fwd": "fdt_launches",
             "selective_scan_dual_stage_fwd": "stage_launches",
             "selective_scan_dual_stage_fwd_save_states": "stage_save_states_launches",
-            "selective_scan_dual_fwd_sliced": "sliced_launches"}
+            "selective_scan_dual_fwd_sliced": "sliced_launches",
+            "selective_scan_dual_fwd_softplus": "softplus_launches"}
     single = {"selective_scan_fwd": "launches",
               "selective_scan_fwd_save_states": "save_states_launches",
               "selective_scan_fwd_with_state": "with_state_launches",
-              "selective_scan_fwd_sliced": "sliced_launches"}
+              "selective_scan_fwd_sliced": "sliced_launches",
+              "selective_scan_fwd_softplus": "softplus_launches"}
     bwd = {"selective_scan_bwd": "launches",
            "selective_scan_bwd_sliced": "sliced_launches",
            "selective_scan_bwd_with_state": "with_state_launches",

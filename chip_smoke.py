@@ -59,6 +59,14 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    with d_state 5, and with bf16 partials against its fp32-partials launch.
    The single-direction forward (as is and with_state) and the conv also at
    the LM prefill's shapes (``LM_PREFILL_DIMS``: B=8, L=512, D=1536).
+   The no-grad forms' in-kernel dt (delta and the fp32 bias in dt's place,
+   dt = softplus(delta + bias) formed by the kernel in fp32) against its
+   plain version at the eval, recipe validation, ragged, d_state-5 and
+   three-chunk shapes, and on the ragged shape at d_state 24 and 64 (slices
+   and the combine): the dual forward v1 and v2, staged and direct, with and
+   without the bias; the single-direction forward, forward and reverse, as
+   is and with_state, with and without the bias and with the softplus off;
+   each launch must raise its op's softplus_launches.
    Then the small-dt probe: ddelta at dt in [1e-6, 1e-4] from K2 and the fused
    kernel in fp32, and from the plain version, each against fp64; a kernel
    fails it if its relative error exceeds the plain version's by more than
@@ -67,7 +75,8 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    (with kernels) against the same weights on the CPU (plain path). Then the
    eval path itself, ``aum_tpu_torch.entry.entry()`` (bf16, B=8), with every
    launch counter set to 0 just before and read just after: it must show 24
-   dual-scan and 24 conv launches and no other, and (8, 527) finite logits;
+   dual-scan launches, each forming dt in the kernel (24 softplus_launches),
+   24 conv launches and no other, and (8, 527) finite logits;
    then its latency (CUDA events, 10 forwards after warm-up). Then the fp32
    check and ``entry()`` again under AUM_SCAN_DIRECT=1: 24 direct launches
    and no staged one; under AUM_SCAN_FUSE_DT=1 (fp32 check too), alone and
@@ -78,8 +87,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    normalization, the model). fp32, B=2: the card (kernels and frontend)
    against the same weights on the CPU. Then the path itself,
    ``aum_tpu_torch.entry.wav_entry()`` (bf16, B=8), between a reset and a read
-   of every launch counter: 24 single-direction scan and 24 conv launches
-   and no other, no graph, (8, 527) finite logits; then its latency and the
+   of every launch counter: 24 single-direction scan launches, each forming
+   dt in the kernel, 24 conv launches and no other, no graph, (8, 527)
+   finite logits; then its latency and the
    frontend's share of it, timed alone.
 5. train: at full width, depth 2, fp32, B=2, for Fo-Bi and for Fo-Fo: the
    loss and the grads of in_proj, A_log (and Fo-Bi's A_b_log), dt_proj.bias,
@@ -211,8 +221,10 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
    K2's with_state form, the stage form's saving forward, K2 with bf16
    partials and in its x-minus form (in turns with the default) and the
    fused kernel with bf16 partials. At the bench shapes also the fuse_dt
-   form (its bound adds the dt_proj product on the tensor cores) and the
-   stage form; the with_state single-direction forward at the LM prefill's
+   form (its bound adds the dt_proj product on the tensor cores), the
+   stage form and the in-kernel dt, dual and single (its bound adds the
+   softplus), with the no-grad op timed in turns against the same op
+   through _prep_dt; the with_state single-direction forward at the LM prefill's
    shapes. B=64 Fo-Bi clips/s are timed in turns: default,
    AUM_SCAN_DIRECT=1, AUM_SCAN_FUSE_DT=1, AUM_SCAN_FUSE_DT=1,
    AUM_SCAN_DIRECT=1, default.
@@ -305,6 +317,13 @@ SCAN_FP32_OPS_PER_ELEMENT = 4
 # of theirs off the SFUs): range reduction (3 adds) and a degree-3 polynomial
 # (3 FMAs).
 FP32_OPS_PER_EMULATED_EXP = 6
+# The in-kernel dt's work per (b, l, d) element and direction, once, not per
+# state: the bias add and the softplus of selective_scan.cu (|v| log2 e split
+# in two, the exponential's correction, 2 + e, s, s^2, six FMAs of the
+# series, max(v, 0) and the last FMA) on the FP32 pipe, its exp2 and
+# reciprocal on the SFUs.
+SOFTPLUS_FP32_OPS = 17
+SOFTPLUS_SFU_OPS = 2
 
 # The scan backward's FP32-pipe instructions per (b, l, d, n) element and
 # direction, the least its adjoint needs, each counted once: dt*A for the
@@ -913,6 +932,83 @@ def _check_scan_single(label, dims, dtype, reverse, train: bool, n=16) -> list[d
     return results
 
 
+def _check_in_kernel_dt(label, dims, dtype, n=16) -> list[dict]:
+    """The in-kernel dt, the no-grad forms (delta and the fp32 bias in dt's
+    place, dt = softplus(delta + bias) formed by the kernel in fp32), against
+    its plain version (``in_kernel_dt``: the oracle on ``delta_dt``'s
+    unrounded dt): the dual forward, v1 and v2, through the staged and the
+    direct kernel, with and without the bias; the single-direction forward
+    (Fo-Fo), forward and reverse, as is and with_state (from a random x0),
+    with and without the bias, and with the softplus off (delta then the
+    positive dt itself). Each launch must raise its op's softplus_launches
+    by its launches (one a slice of 16 states). ``n``: d_state."""
+    from aum_tpu_torch.ops.selective_scan import (
+        selective_scan,
+        selective_scan_cuda,
+        selective_scan_dual,
+        selective_scan_dual_cuda,
+        selective_scan_dual_plain,
+        selective_scan_plain,
+        state_slices,
+    )
+
+    bsz, seqlen, d = dims
+    atol, rtol = SCAN_TOL[dtype]
+    per_op = len(state_slices(n))
+    tag = dict(shape=label, dims=[bsz, seqlen, d, n], dtype=str(dtype), variant="in_kernel_dt")
+    results = []
+
+    def check(got, want, tol, counter, before, **kw):
+        launched = getattr(counter, "softplus_launches") - before
+        c = compare(got, want, *tol)
+        results.append({**c, "ok": c["ok"] and launched == per_op, "softplus_launches": launched,
+                        **kw, **tag})
+
+    fwd = scan_inputs(bsz, seqlen, d, n, dtype, seed=21)
+    for bimamba in ("v1", "v2"):
+        rev = (fwd[:2] + (fwd[2] * 0.5,) + fwd[3:] if bimamba == "v1"
+               else scan_inputs(bsz, seqlen, d, n, dtype, seed=22))
+        for with_bias in (True, False):
+            f, r = (a if with_bias else a[:7] + (None,) for a in (fwd, rev))
+            want = selective_scan_dual_plain(f, r, in_kernel_dt=True)
+            for direct, kernel in ((False, "selective_scan_dual_fwd"),
+                                   (True, "selective_scan_dual_direct_fwd")):
+                before = selective_scan_dual.softplus_launches
+                with scan_switches(AUM_SCAN_DIRECT=direct):
+                    got = selective_scan_dual_cuda(f, r, in_kernel_dt=True)
+                torch.cuda.synchronize()
+                for i, (y, w) in enumerate(zip(got, want)):
+                    check(y, w, (atol, rtol), selective_scan_dual, before, kernel=kernel,
+                          bimamba=bimamba, bias=with_bias,
+                          direction="reverse" if i else "forward")
+    raw = scan_inputs(bsz, seqlen, d, n, dtype, seed=23)
+    x0 = torch.randn((bsz, d, n), generator=torch.Generator().manual_seed(24)).cuda()
+    positive = (raw[0], raw[1].abs()) + raw[2:7]
+    forms = {"softplus": (raw, True), "softplus_no_bias": (raw[:7] + (None,), True),
+             "no_softplus": (positive + (raw[7].abs(),), False),
+             "no_softplus_no_bias": (positive + (None,), False)}
+    for form, (args, softplus) in forms.items():
+        for reverse in (False, True):
+            for with_state in (False, True):
+                kw = {"initial_state": x0, "return_final_state": True} if with_state else {}
+                before = selective_scan.softplus_launches
+                got = selective_scan_cuda(args, reverse, in_kernel_dt=True, softplus=softplus,
+                                          **kw)
+                torch.cuda.synchronize()
+                want = selective_scan_plain(args, reverse, in_kernel_dt=True, softplus=softplus,
+                                            **kw)
+                info = dict(kernel="selective_scan_fwd", bimamba="none", form=form,
+                            direction="reverse" if reverse else "forward")
+                if with_state:
+                    check(got[0], want[0], (atol, rtol), selective_scan, before,
+                          with_state=True, output="out", **info)
+                    check(got[1], want[1], XB_TOL, selective_scan, before,
+                          with_state=True, output="final_state", **info)
+                else:
+                    check(got, want, (atol, rtol), selective_scan, before, **info)
+    return results
+
+
 def _check_chained(label, dims, dtype) -> list[dict]:
     """A scan split at an uneven point, the second segment started from the
     first one's final state (reverse: the right-hand segment first), against
@@ -1102,6 +1198,13 @@ def phase_kernels() -> dict:
                         results += _check_fdt(label, dims, dtype, shared, n, rank)
             if train is not False:
                 results += _check_bwd_forms(label, dims, dtype, n)
+            # The no-grad forms' in-kernel dt (and, at the ragged shape, at
+            # d_state 24 and 64: slices of 16 states and the combine).
+            if train is not True:
+                results += _check_in_kernel_dt(label, dims, dtype, n)
+            if label == "ragged":
+                for wide_n in (24, 64):
+                    results += _check_in_kernel_dt("ragged_n_sliced", dims, dtype, wide_n)
         for shared in (True, False):
             results += _check_stage(label, dims, shared, n)
     # The LM prefill's kernels at its shapes: the single-direction forward
@@ -1290,8 +1393,20 @@ def _read_counters() -> dict:
 
 
 def _launches(**counts) -> dict:
-    """Every counter at 0 but those given."""
-    return {**dict.fromkeys(_counters(), 0), **counts}
+    """Every counter at 0 but those given. Unless given, each scan's
+    ``_softplus`` counter is its launches without saved states (the staged
+    and direct dual kernels', the single-direction one's): every forward
+    with no grad to take forms dt in the kernel, every saving one streams
+    ``_prep_dt``'s."""
+    out = {**dict.fromkeys(_counters(), 0), **counts}
+    derived = {
+        "selective_scan_dual_fwd_softplus":
+            out["selective_scan_dual_fwd"] - out["selective_scan_dual_fwd_save_states"]
+            + out["selective_scan_dual_direct_fwd"]
+            - out["selective_scan_dual_direct_fwd_save_states"],
+        "selective_scan_fwd_softplus":
+            out["selective_scan_fwd"] - out["selective_scan_fwd_save_states"]}
+    return {**out, **derived, **counts}
 
 
 def _expected_train_launches(aum_type: str, depth: int, switches: dict, bf16: bool,
@@ -3755,7 +3870,9 @@ def phase_bench(device_info: dict) -> dict:
     from aum_tpu_torch.models import AudioMamba
     from aum_tpu_torch.ops.conv1d import causal_conv1d_cuda, causal_conv1d_plain
     from aum_tpu_torch.ops.selective_scan import (
+        _prep_both,
         _prep_dt,
+        selective_scan_dual,
         selective_scan_dual_cuda,
         selective_scan_dual_fdt_cuda,
         selective_scan_dual_fdt_plain,
@@ -3820,7 +3937,33 @@ def phase_bench(device_info: dict) -> dict:
                    "operations": exp_floor_s(elems, scan_fp32_ops, sfu_rate) * 1e3}
     scan_other = {"sfu_only": elems / sfu_rate * 1e3,
                   "fp32_pipe_only": scan_fp32_ops / FP32_PIPE_OPS_PER_S * 1e3}
-    del u, delta, dt, z, B, C, fwd, rev
+
+    # The no-grad forms' in-kernel dt, as the eval path launches it: delta
+    # and the bias in dt's place; its bound adds the softplus, once per
+    # (b, l, d) and direction, and the bias. Then the op as the mixer calls
+    # it with no grad, in turns with the same op through _prep_dt (the dt
+    # the saving and stage forms stream): prep_dt, in_kernel_dt,
+    # in_kernel_dt, prep_dt.
+    fwd_d = (u, delta, A, B, C, D, z, bias)
+    rev_d = (u, delta, A * 0.5, B, C, D, z, bias)
+    with sample_clocks({}) as card_in_kernel:
+        in_kernel_ms = cuda_ms(lambda: selective_scan_dual_cuda(fwd_d, rev_d, in_kernel_dt=True),
+                               iters=400)
+    in_kernel_plain_ms = cuda_ms(lambda: selective_scan_dual_plain(fwd_d, rev_d,
+                                                                   in_kernel_dt=True),
+                                 iters=2, warmup=1)
+    chains = 2 * bsz * seqlen * d
+    in_kernel_bounds = {
+        "bytes": (scan_bytes + 2 * d * 4) / HBM_BYTES_PER_S * 1e3,
+        "operations": exp_floor_s(elems + SOFTPLUS_SFU_OPS * chains,
+                                  scan_fp32_ops + SOFTPLUS_FP32_OPS * chains, sfu_rate) * 1e3}
+    op_forms = {"prep_dt": lambda: selective_scan_dual_cuda(*_prep_both(fwd_d, rev_d)),
+                "in_kernel_dt": lambda: selective_scan_dual(fwd_d, rev_d)}
+    op_ms = {form: [] for form in op_forms}
+    with torch.inference_mode():
+        for form in ("prep_dt", "in_kernel_dt", "in_kernel_dt", "prep_dt"):
+            op_ms[form].append(cuda_ms(op_forms[form], iters=200))
+    del u, delta, dt, z, B, C, fwd, rev, fwd_d, rev_d
 
     # The fuse_dt form at the same shapes (v1: one dtr and W for both
     # directions), the product formed in the kernel.
@@ -3853,6 +3996,9 @@ def phase_bench(device_info: dict) -> dict:
     # version and bounds; the staged kernel timed again after it.
     out = {"scan": {"ms": scan_ms, "plain_ms": scan_plain_ms, "bounds_ms": scan_bounds,
                     "other_floors_ms": scan_other, "ms_after_direct": scan_again_ms},
+           "scan_in_kernel_dt": {"ms": in_kernel_ms, "plain_ms": in_kernel_plain_ms,
+                                 "bounds_ms": in_kernel_bounds,
+                                 "op_ms_in_turns": op_ms},
            "scan_direct": {"ms": direct_ms, "plain_ms": scan_plain_ms, "bounds_ms": scan_bounds},
            "scan_stage": {"ms": stage_ms, "plain_ms": stage_plain_ms, "bounds_ms": scan_bounds},
            "scan_fdt": {"ms": fdt_ms, "plain_ms": fdt_plain_ms, "bounds_ms": fdt_bounds,
@@ -3860,7 +4006,8 @@ def phase_bench(device_info: dict) -> dict:
            "conv": {"ms": conv_ms, "plain_ms": conv_plain_ms, "library_ms": conv_lib_ms,
                     "bounds_ms": conv_bounds}}
     emit({"phase": "bench_kernels", "dims": [bsz, seqlen, d, n], "dtype": "bfloat16", **out,
-          "card": {"scan": card, "scan_direct": card_direct, "scan_stage": card_stage,
+          "card": {"scan": card, "scan_in_kernel_dt": card_in_kernel,
+                   "scan_direct": card_direct, "scan_stage": card_stage,
                    "scan_fdt": card_fdt, "conv": card_conv}})
     del xc, w, b
     single = bench_single_kernels(sfu_rate)
@@ -3903,23 +4050,32 @@ def bench_wav() -> dict:
     return out
 
 
-def _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra_bytes=0) -> dict:
+def _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra_bytes=0, softplus=False) -> dict:
     """One direction's scan forward: u, dt, z, B, C, A, D read once, out
     written once (plus ``extra_bytes`` of states); one exp2 and
-    SCAN_FP32_OPS_PER_ELEMENT FP32-pipe instructions per (b, l, d, n)."""
-    elems = bsz * seqlen * d * n
-    nbytes = (4 * bsz * seqlen * d + 2 * bsz * seqlen * n) * es + (n + 1) * d * 4 + extra_bytes
+    SCAN_FP32_OPS_PER_ELEMENT FP32-pipe instructions per (b, l, d, n); with
+    ``softplus`` (the in-kernel dt) the bias read and the softplus per (b, l,
+    d) too."""
+    elems, chains = bsz * seqlen * d * n, bsz * seqlen * d * softplus
+    nbytes = ((4 * bsz * seqlen * d + 2 * bsz * seqlen * n) * es + (n + 1 + softplus) * d * 4
+              + extra_bytes)
     return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-            "operations": exp_floor_s(elems, SCAN_FP32_OPS_PER_ELEMENT * elems, sfu_rate) * 1e3}
+            "operations": exp_floor_s(elems + SOFTPLUS_SFU_OPS * chains,
+                                      SCAN_FP32_OPS_PER_ELEMENT * elems
+                                      + SOFTPLUS_FP32_OPS * chains, sfu_rate) * 1e3}
 
 
 def bench_single_kernels(sfu_rate: float) -> dict:
     """The single-direction scan forward (bf16): at the Fo-Fo bench forward's
     shapes (B=64) as is, in its with_state form at the LM prefill's (B=8,
-    L=512), and its saving form at the train shapes (B=12)."""
+    L=512), and its saving form at the train shapes (B=12); the first two
+    also in the in-kernel dt the no-grad paths launch, and the eval op as the
+    mixer calls it with no grad in turns with the same op through _prep_dt
+    (prep_dt, in_kernel_dt, in_kernel_dt, prep_dt)."""
     from aum_tpu_torch.ops.selective_scan import (
         STATE_CHUNK,
         _prep_dt,
+        selective_scan,
         selective_scan_cuda,
         selective_scan_plain,
     )
@@ -3928,14 +4084,18 @@ def bench_single_kernels(sfu_rate: float) -> dict:
     dtype = torch.bfloat16
     out, cards = {}, {}
     for bsz, seqlen, form in ((BENCH_BATCH, eval_len, "eval"),
+                              (BENCH_BATCH, eval_len, "eval_in_kernel_dt"),
                               (LM_PREFILL_DIMS[0], LM_PREFILL_DIMS[1], "with_state"),
+                              (LM_PREFILL_DIMS[0], LM_PREFILL_DIMS[1], "with_state_in_kernel_dt"),
                               (TRAIN_DIMS[0], eval_len, "save_states")):
         u, delta, A, B, C, D, z, bias = scan_inputs(bsz, seqlen, d, n, dtype, seed=13)
-        args = (u, _prep_dt(delta, bias), A, B, C, D, z)
-        kw, extra = {}, 0
-        if form == "with_state":
-            kw = {"initial_state": torch.zeros((bsz, d, n), device="cuda"),
-                  "return_final_state": True}
+        in_kernel = form.endswith("_in_kernel_dt")
+        args = ((u, delta, A, B, C, D, z, bias) if in_kernel
+                else (u, _prep_dt(delta, bias), A, B, C, D, z))
+        kw, extra = ({"in_kernel_dt": True} if in_kernel else {}), 0
+        if form.startswith("with_state"):
+            kw.update(initial_state=torch.zeros((bsz, d, n), device="cuda"),
+                      return_final_state=True)
             extra = 2 * bsz * n * d * 4
         elif form == "save_states":
             kw = {"save_states": True}
@@ -3944,12 +4104,23 @@ def bench_single_kernels(sfu_rate: float) -> dict:
         # takes a few hundred ms to start, sees the kernel alone.
         with sample_clocks({}) as cards[form]:
             ms = cuda_ms(lambda: selective_scan_cuda(args, False, **kw),
-                         iters=1500 * BENCH_BATCH // bsz if form == "with_state" else 1500)
+                         iters=1500 * BENCH_BATCH // bsz if form.startswith("with_state")
+                         else 1500)
         plain_ms = cuda_ms(lambda: selective_scan_plain(args, False, **kw), iters=2, warmup=1)
         out[f"scan_single_{form}"] = {
             "ms": ms, "plain_ms": plain_ms, "batch": bsz, "seqlen": seqlen,
-            "bounds_ms": _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra),
+            "bounds_ms": _single_bounds(bsz, seqlen, d, n, es, sfu_rate, extra, in_kernel),
             "other_floors_ms": {"sfu_only": bsz * seqlen * d * n / sfu_rate * 1e3}}
+        if form == "eval_in_kernel_dt":
+            op_forms = {"prep_dt": lambda: selective_scan_cuda(
+                            (u, _prep_dt(delta, bias)) + args[2:7], False),
+                        "in_kernel_dt": lambda: selective_scan(
+                            *args[:7], delta_bias=bias, delta_softplus=True)}
+            op_ms = {name: [] for name in op_forms}
+            with torch.inference_mode():
+                for name in ("prep_dt", "in_kernel_dt", "in_kernel_dt", "prep_dt"):
+                    op_ms[name].append(cuda_ms(op_forms[name], iters=200))
+            out[f"scan_single_{form}"]["op_ms_in_turns"] = op_ms
         del u, delta, z, B, C, args
     emit({"phase": "bench_single_kernels", "dims": [d, n], "dtype": "bfloat16", **out,
           "card": cards})
@@ -5123,6 +5294,17 @@ def main() -> int:
                                 "train": train_launches["selective_scan_dual_fwd"],
                                 "eval_fuse_dt": eval_runs["fuse_dt"]["selective_scan_dual_fwd"],
                                 "train_fuse_dt": train_fdt["selective_scan_dual_fwd"]}
+    # Its no-grad form, dt formed in the kernel from delta and the bias: the
+    # eval path's launches (softplus_launches), timed as that path runs it.
+    scan["in_kernel_dt"] = _kernel_entry(
+        "selective_scan_dual_fwd", scan["source"], scan["replaces"],
+        eval_launches["selective_scan_dual_fwd_softplus"],
+        worst["selective_scan_dual_fwd_in_kernel_dt"], bench["scan_in_kernel_dt"])
+    scan["softplus_launches_by_path"] = {
+        "eval": eval_launches["selective_scan_dual_fwd_softplus"],
+        "eval_direct": eval_direct["selective_scan_dual_fwd_softplus"],
+        "wav": wav_launches["selective_scan_dual_fwd_softplus"],
+        "train": train_launches["selective_scan_dual_fwd_softplus"]}
     # AUM_SCAN_FUSE_DT=1: entry() runs the fuse_dt form (train_entry() the
     # staged saving forward above, with delta formed outside the kernel).
     fdt = _kernel_entry(
@@ -5240,6 +5422,22 @@ def main() -> int:
                                   "wav": wav_launches["selective_scan_fwd"],
                                   "train": train_launches["selective_scan_fwd"],
                                   "fofo_train_check": fofo_launches["selective_scan_fwd"]}
+    # The no-grad forms with dt formed in the kernel: wav_entry()'s and the
+    # LM prefill's (with_state) launches.
+    single["in_kernel_dt"] = _kernel_entry(
+        "selective_scan_fwd", single["source"], single["replaces"],
+        wav_launches["selective_scan_fwd_softplus"], worst["selective_scan_fwd_in_kernel_dt"],
+        bench["scan_single_eval_in_kernel_dt"])
+    single["in_kernel_dt"]["with_state"] = _kernel_entry(
+        "selective_scan_fwd", single["source"], single["replaces"],
+        lm["prefill_launches"]["selective_scan_fwd_softplus"],
+        worst["selective_scan_fwd_with_state_in_kernel_dt"],
+        bench["scan_single_with_state_in_kernel_dt"])
+    single["softplus_launches_by_path"] = {
+        "eval": eval_launches["selective_scan_fwd_softplus"],
+        "wav": wav_launches["selective_scan_fwd_softplus"],
+        "train": train_launches["selective_scan_fwd_softplus"],
+        "lm_prefill": lm["prefill_launches"]["selective_scan_fwd_softplus"]}
     conv = _kernel_entry(
         "causal_conv1d_fwd", "aum_tpu_torch/csrc/conv1d.cu", "aum_tpu/ops/conv1d.py:107",
         eval_launches["causal_conv1d_fwd"], worst["causal_conv1d_fwd"], bench["conv"],
