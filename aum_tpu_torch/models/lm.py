@@ -27,6 +27,9 @@ Counterpart of ``aum_tpu/models/lm.py`` (the reference's
   (the ``cum < top_p`` cutoff), and a categorical draw as argmax(logits +
   Gumbel noise), the noise drawn by ``draw_sample_noise`` from an explicit
   ``torch.Generator``.
+- ``JambaLM`` (``models/jamba.py``) takes the same ``prefill``,
+  ``decode_step`` and ``generate``, over its hybrid cache: conv and SSM
+  state for each Mamba layer, K/V for each attention layer.
 - ``save_pretrained`` / ``load_pretrained``: the JAX package's directory
   format, ``config.json`` and a ``weights.pkl`` of numpy arrays in its
   stacked parameter tree, so a directory saved by either package loads in
@@ -34,7 +37,7 @@ Counterpart of ``aum_tpu/models/lm.py`` (the reference's
   ``convert.lm_state_dict_from_jax`` back. ``from_pretrained_hf`` reads a
   local HF-format directory (``config.json`` + ``pytorch_model.bin``), or a
   hub id from the local HF cache (``hub_cached_file``; nothing is
-  downloaded).
+  downloaded), or a local Jamba directory (safetensors shards).
 
 On a CUDA device the kernels take any d_state (the scan kernels run it in
 slices of 16 states) and any d_conv (past 8 the conv kernel's general
@@ -57,13 +60,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from aum_tpu_torch.models.jamba import JambaLM, load_hf_directory
 from aum_tpu_torch.models.mamba import MambaBlock, _Weights
-from aum_tpu_torch.ops import (
-    causal_conv1d_update,
-    fused_add_norm,
-    selective_scan,
-    selective_state_update,
-)
+from aum_tpu_torch.ops import fused_add_norm
 from aum_tpu_torch.utils import resolve_device
 
 
@@ -171,62 +170,44 @@ def init_decode_state(cfg: MambaLMConfig, batch: int,
 
 
 @torch.inference_mode()
-def prefill(model: MambaLM, input_ids: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def prefill(model: MambaLM | JambaLM, input_ids: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """The prompt (B, L) in one parallel pass -> (last-position logits (B,
-    padded_vocab), decode state as ``init_decode_state`` gives it)."""
+    padded_vocab), decode state as ``init_decode_state`` gives it; for a
+    ``JambaLM`` its hybrid cache, ``JambaLM.prefill``)."""
+    if isinstance(model, JambaLM):
+        return model.prefill(input_ids)
     cfg = model.config
     dtype = cfg.torch_dtype
-    seqlen = input_ids.shape[1]
-    kpad = max(cfg.d_conv - seqlen, 0)
-    d_in = cfg.d_inner
     hidden = model._embed(input_ids)
     residual = None  # the first add starts the fp32 residual stream
     convs, ssms = [], []
     for layer in model.backbone.layers:
-        mixer = layer.mixer
         normed, residual = fused_add_norm(hidden, layer.norm.weight.to(dtype), residual=residual,
                                           eps=cfg.norm_epsilon)
-        xz = normed @ mixer.in_proj.weight.to(dtype).t()
-        xs, z = xz[..., :d_in], xz[..., d_in:]
-        u, delta, bm, cm, _ = mixer._branch(xs, "", reverse_conv=False, fold=False)
-        y, ssm = selective_scan(u, delta, -torch.exp(mixer.A_log.float()), bm, cm,
-                                mixer.D.float(), z, delta_bias=mixer.dt_proj.bias.float(),
-                                delta_softplus=True, return_final_state=True)
-        # The conv cache: the last d_conv pre-conv inputs, oldest first.
-        tail = torch.nn.functional.pad(xs[:, seqlen - (cfg.d_conv - kpad):].float(),
-                                       (0, 0, kpad, 0))
-        convs.append(tail.transpose(1, 2))
+        hidden, conv, ssm = layer.mixer.prefill(normed)
+        convs.append(conv)
         ssms.append(ssm)
-        hidden = y @ mixer.out_proj.weight.to(dtype).t()
     logits = model._head(hidden[:, -1], residual[:, -1])
     return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
 
 @torch.inference_mode()
-def decode_step(model: MambaLM, token: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
+def decode_step(model: MambaLM | JambaLM, token: torch.Tensor,
+                state: dict) -> tuple[torch.Tensor, dict]:
     """One token (B,) on the caches -> (logits (B, padded_vocab), new caches)."""
+    if isinstance(model, JambaLM):
+        return model.decode_step(token, state)
     cfg = model.config
     dtype = cfg.torch_dtype
-    d_in, r, n = cfg.d_inner, cfg.dt_rank, cfg.d_state
     hidden = model._embed(token)
     residual = None  # the first add starts the fp32 residual stream
     convs, ssms = [], []
     for i, layer in enumerate(model.backbone.layers):
-        mixer = layer.mixer
         normed, residual = fused_add_norm(hidden, layer.norm.weight.to(dtype), residual=residual,
                                           eps=cfg.norm_epsilon)
-        xz = normed @ mixer.in_proj.weight.to(dtype).t()
-        xs, z = xz[..., :d_in], xz[..., d_in:]
-        xc, conv = causal_conv1d_update(xs.float(), state["conv"][i],
-                                        mixer.conv1d.weight[:, 0], mixer.conv1d.bias)
-        x_dbl = xc @ mixer.x_proj.weight.t()
-        dt = x_dbl[..., :r] @ mixer.dt_proj.weight.t()
-        y, ssm = selective_state_update(
-            state["ssm"][i], xc, dt, -torch.exp(mixer.A_log.float()), x_dbl[..., r:r + n],
-            x_dbl[..., r + n:], mixer.D, z=z, dt_bias=mixer.dt_proj.bias, dt_softplus=True)
+        hidden, conv, ssm = layer.mixer.step(normed, state["conv"][i], state["ssm"][i])
         convs.append(conv)
         ssms.append(ssm)
-        hidden = y.to(dtype) @ mixer.out_proj.weight.to(dtype).t()
     return model._head(hidden, residual), {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
 
@@ -271,7 +252,7 @@ def sample_token(logits: torch.Tensor, prev_tokens: torch.Tensor | None,
     return (logits + noise).argmax(dim=-1)
 
 
-def generate(model: MambaLM, input_ids: torch.Tensor, max_new_tokens: int,
+def generate(model: MambaLM | JambaLM, input_ids: torch.Tensor, max_new_tokens: int,
              generator: torch.Generator | None = None, temperature: float = 1.0,
              top_k: int = 0, top_p: float = 1.0,
              repetition_penalty: float = 1.0) -> torch.Tensor:
@@ -394,20 +375,23 @@ def hub_cached_file(repo_id: str, filename: str) -> str:
     return path
 
 
-def from_pretrained_hf(path: str, device: str | torch.device | None = None) -> MambaLM:
+def from_pretrained_hf(path: str,
+                       device: str | torch.device | None = None) -> MambaLM | JambaLM:
     """A local HF-format directory (``config.json`` + ``pytorch_model.bin``,
     the reference ``MambaLMHeadModel``'s state dict), or a hub id such as
     ``state-spaces/mamba-130m`` whose two files are in the local HF cache
-    (``hub_cached_file``), -> ``MambaLM``. A hub id not in the cache raises
-    ``FileNotFoundError``: this package downloads nothing."""
-    if os.path.isdir(path):
-        config_file = os.path.join(path, CONFIG_NAME)
-        weights_file = os.path.join(path, WEIGHTS_NAME)
-    else:
-        config_file = hub_cached_file(path, CONFIG_NAME)
-        weights_file = hub_cached_file(path, WEIGHTS_NAME)
+    (``hub_cached_file``), -> ``MambaLM``. A local directory whose
+    ``config.json`` says ``model_type: "jamba"`` (safetensors shards) ->
+    ``JambaLM`` (``jamba.load_hf_directory``). A hub id not in the cache
+    raises ``FileNotFoundError``: this package downloads nothing."""
+    local = os.path.isdir(path)
+    config_file = os.path.join(path, CONFIG_NAME) if local else hub_cached_file(path, CONFIG_NAME)
     with open(config_file) as f:
         raw = json.load(f)
+    if raw.get("model_type") == "jamba":
+        return load_hf_directory(os.path.dirname(config_file), device=device)
+    weights_file = (os.path.join(path, WEIGHTS_NAME) if local
+                    else hub_cached_file(path, WEIGHTS_NAME))
     cfg = MambaLMConfig(d_model=raw["d_model"], n_layer=raw["n_layer"],
                         vocab_size=raw["vocab_size"],
                         pad_vocab_size_multiple=raw.get("pad_vocab_size_multiple", 8),

@@ -26,6 +26,16 @@ and the expansion (``d_conv``, ``expand``). ``d_conv`` and ``d_state`` go
 to the kernels as given: the conv kernel takes any width (past 8 its
 general form), the scan kernels any d_state.
 
+Jamba's mixer (``models/jamba.py``) sets ``dt_rank`` itself and switches on
+``bcdt_norms``: an RMSNorm each (``dt_layernorm``, ``b_layernorm``,
+``c_layernorm``, eps ``norm_eps``) on the dt-rank columns, B and C of the
+x_proj product before dt_proj and the scan, as
+``transformers``' ``JambaMambaMixer`` has them; B and C are then the norms'
+outputs and no longer strided views of that product. With the norms off
+(every AuM mixer and the Mamba LM's) the mixer does the same work as without
+the switch. ``prefill`` and ``step`` are the LM paths' per-layer work: one
+parallel pass that also returns the decode caches, and one token on them.
+
 ``init_layer_scale`` adds the reference's LayerScale: a ``gamma`` (d_model,)
 initialised to that value, multiplying the out_proj output. The block's
 norm is RMSNorm, or with ``rms_norm=False`` a LayerNorm with a
@@ -71,7 +81,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from aum_tpu_torch.ops import causal_conv1d, fused_add_norm, selective_scan, selective_scan_dual
+from aum_tpu_torch.ops import (
+    causal_conv1d,
+    causal_conv1d_update,
+    fused_add_norm,
+    rms_norm,
+    selective_scan,
+    selective_scan_dual,
+    selective_state_update,
+)
 from aum_tpu_torch.ops.selective_scan import fuse_dt_chosen
 from aum_tpu_torch.ops.seq_parallel import sharded_scan
 from aum_tpu_torch.parallel import collectives
@@ -117,7 +135,8 @@ class MambaMixer(nn.Module):
 
     def __init__(self, d_model: int, d_state: int = 16, bimamba_type: str = "v2",
                  n_layer: int = 24, d_conv: int = D_CONV, expand: int = EXPAND,
-                 if_devide_out: bool = True, init_layer_scale: float | None = None):
+                 if_devide_out: bool = True, init_layer_scale: float | None = None,
+                 dt_rank: int | None = None, bcdt_norms: bool = False, norm_eps: float = 1e-6):
         super().__init__()
         if bimamba_type not in ("none", "v1", "v2"):
             raise ValueError(f"unknown bimamba_type: {bimamba_type}")
@@ -127,8 +146,10 @@ class MambaMixer(nn.Module):
         self.d_state = d_state
         self.d_conv = d_conv
         self.d_inner = expand * d_model
-        self.dt_rank = math.ceil(d_model / 16)
+        self.dt_rank = math.ceil(d_model / 16) if dt_rank is None else dt_rank
         self.bimamba_type = bimamba_type
+        self.bcdt_norms = bcdt_norms
+        self.norm_eps = norm_eps
         self.n_layer = n_layer
         self.tp_group = None  # set by parallel/mesh.py::shard_params
         self.seq_group = None
@@ -143,6 +164,12 @@ class MambaMixer(nn.Module):
         self.out_proj = _Weights((d_model, d_in))
         if init_layer_scale is not None:
             self.gamma = nn.Parameter(torch.empty((d_model,)))
+        if bcdt_norms:
+            if bimamba_type != "none":
+                raise ValueError("the dt/B/C norms are Jamba's: bimamba_type must be 'none'")
+            self.dt_layernorm = _Weights((self.dt_rank,))
+            self.b_layernorm = _Weights((d_state,))
+            self.c_layernorm = _Weights((d_state,))
 
     def _add_branch(self, suffix: str) -> None:
         d_in, rank = self.d_inner, self.dt_rank
@@ -177,6 +204,20 @@ class MambaMixer(nn.Module):
                          scale=1.0 / math.sqrt(self.n_layer))
         if self.init_layer_scale is not None:
             nn.init.constant_(self.gamma, self.init_layer_scale)
+        if self.bcdt_norms:
+            for norm in (self.dt_layernorm, self.b_layernorm, self.c_layernorm):
+                nn.init.ones_(norm.weight)
+
+    def split_x_dbl(self, x_dbl: torch.Tensor, dtype: torch.dtype):
+        """x_proj's output -> (dt-rank columns, B, C): strided views, or with
+        ``bcdt_norms`` each through its RMSNorm (fp32 arithmetic, out in
+        ``dtype``)."""
+        r, n = self.dt_rank, self.d_state
+        parts = (x_dbl[..., :r], x_dbl[..., r:r + n], x_dbl[..., r + n:])
+        if not self.bcdt_norms:
+            return parts
+        norms = (self.dt_layernorm, self.b_layernorm, self.c_layernorm)
+        return tuple(rms_norm(t, m.weight.to(dtype), self.norm_eps) for t, m in zip(parts, norms))
 
     def _branch(self, xs: torch.Tensor, suffix: str, reverse_conv: bool, fold: bool):
         """conv -> x_proj -> dt_proj: (u, delta, B, C, None) for one scan
@@ -189,12 +230,11 @@ class MambaMixer(nn.Module):
         x_dbl = collectives.reduce_both(
             xc @ getattr(self, f"x_proj{suffix}").weight.to(dtype).t(), self.tp_group,
             tag="tp_x_dbl")
-        r, n = self.dt_rank, self.d_state
         w_dt = getattr(self, f"dt_proj{suffix}").weight.to(dtype).t()
-        bm, cm = x_dbl[..., r:r + n], x_dbl[..., r + n:]
+        dtr, bm, cm = self.split_x_dbl(x_dbl, dtype)
         if fold:
-            return xc, None, bm, cm, (x_dbl[..., :r], w_dt)
-        return xc, x_dbl[..., :r] @ w_dt, bm, cm, None
+            return xc, None, bm, cm, (dtr, w_dt)
+        return xc, dtr @ w_dt, bm, cm, None
 
     def pre_scan(self, x: torch.Tensor):
         """In-projection, conv, x/dt projections: the scan arguments (u,
@@ -251,6 +291,42 @@ class MambaMixer(nn.Module):
         if self.init_layer_scale is not None:
             out = out * self.gamma.to(dtype)
         return out
+
+    def prefill(self, x: torch.Tensor):
+        """The Fo-Fo mixer over a prompt x (B, L, d_model) in the compute
+        dtype -> (out (B, L, d_model), conv cache (B, d_inner, d_conv) fp32:
+        the last d_conv pre-conv inputs, oldest first, left-padded with zeros
+        for a prompt shorter than d_conv, SSM state (B, d_inner, d_state)
+        fp32: the scan's final state)."""
+        dtype = x.dtype
+        seqlen, d_in = x.shape[1], self.d_inner
+        kpad = max(self.d_conv - seqlen, 0)
+        xz = x @ self.in_proj.weight.to(dtype).t()
+        xs, z = xz[..., :d_in], xz[..., d_in:]
+        u, delta, bm, cm, _ = self._branch(xs, "", reverse_conv=False, fold=False)
+        y, ssm = selective_scan(u, delta, -torch.exp(self.A_log.float()), bm, cm,
+                                self.D.float(), z, delta_bias=self.dt_proj.bias.float(),
+                                delta_softplus=True, return_final_state=True)
+        tail = torch.nn.functional.pad(xs[:, seqlen - (self.d_conv - kpad):].float(),
+                                       (0, 0, kpad, 0))
+        return y @ self.out_proj.weight.to(dtype).t(), tail.transpose(1, 2), ssm
+
+    def step(self, x: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor):
+        """One token x (B, d_model) in the compute dtype on the caches ->
+        (out (B, d_model), new conv cache, new SSM state). The conv, the x and
+        dt projections and the state update run in fp32, as the JAX step
+        runs them."""
+        dtype = x.dtype
+        d_in = self.d_inner
+        xz = x @ self.in_proj.weight.to(dtype).t()
+        xs, z = xz[..., :d_in], xz[..., d_in:]
+        xc, conv = causal_conv1d_update(xs.float(), conv_state, self.conv1d.weight[:, 0].float(),
+                                        self.conv1d.bias.float())
+        dtr, bm, cm = self.split_x_dbl(xc @ self.x_proj.weight.float().t(), torch.float32)
+        y, ssm = selective_state_update(
+            ssm_state, xc, dtr @ self.dt_proj.weight.float().t(), -torch.exp(self.A_log.float()),
+            bm, cm, self.D.float(), z=z, dt_bias=self.dt_proj.bias.float(), dt_softplus=True)
+        return y.to(dtype) @ self.out_proj.weight.to(dtype).t(), conv, ssm
 
 
 class MambaBlock(nn.Module):
